@@ -1,0 +1,179 @@
+"""Subgraph -> runnable PyTorch program.
+
+Given an IR graph and a set of op indices, computes the subgraph I/O
+boundary, prepares host-side parameters (weight layouts, folded
+zero-point corrections, fixed-point multipliers), and produces a
+function ``fn(params, inputs) -> outputs`` over torch tensors that runs
+the ops in order, eagerly.
+
+Counterpart: band_tpu/backend/program.py, which builds a function for
+``jax.jit``; here there is nothing to trace or compile, no named scopes
+and no fusion barriers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..errors import LoweringError
+from ..ir.graph import Graph
+from ..ops.lowerings import LowerCtx
+from ..ops.registry import REGISTRY, get_lowering
+
+
+def subgraph_boundary(
+    graph: Graph, op_indices: Sequence[int]
+) -> Tuple[List[int], List[int]]:
+    """Compute (input tensor ids, output tensor ids) of an op subset.
+
+    Inputs: non-constant tensors consumed inside but not produced inside.
+    Outputs: tensors produced inside that are graph outputs or are
+    consumed by ops outside the subset (reference semantics:
+    band/model_spec.h:43-52 GetPureInputTensors/GetOutputTensors).
+    """
+    ops = set(op_indices)
+    produced = set()
+    consumed: List[int] = []
+    for oi in op_indices:
+        for t in graph.ops[oi].outputs:
+            produced.add(t)
+    seen = set()
+    for oi in sorted(op_indices):
+        for t in graph.ops[oi].inputs:
+            if t < 0 or t in seen:
+                continue
+            seen.add(t)
+            td = graph.tensor(t)
+            if td.is_constant or t in produced:
+                continue
+            consumed.append(t)
+    outside_consumed = set()
+    for op in graph.ops:
+        if op.index in ops:
+            continue
+        for t in op.inputs:
+            if t >= 0:
+                outside_consumed.add(t)
+    outputs = []
+    for oi in sorted(op_indices):
+        for t in graph.ops[oi].outputs:
+            if (t in graph.outputs or t in outside_consumed) and t not in outputs:
+                outputs.append(t)
+    return consumed, outputs
+
+
+def prepare_params(
+    graph: Graph, op_indices: Sequence[int], exact: bool = True
+) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """Host-side parameter preparation for every op in the subgraph:
+    numpy arrays go to ``params``, scalars to ``meta``."""
+    params: Dict[str, np.ndarray] = {}
+    meta: Dict[str, Any] = {}
+    for oi in op_indices:
+        op = graph.ops[oi]
+        low = get_lowering(op.opname)
+        if low.prepare is not None:
+            out = low.prepare(graph, op, exact)
+            for k, v in out.items():
+                key = f"op{op.index}/{k}"
+                if isinstance(v, np.ndarray):
+                    params[key] = v
+                else:
+                    meta[key] = v
+        else:
+            for pos, tid in enumerate(op.inputs):
+                if tid < 0 or pos in low.static_inputs:
+                    continue
+                td = graph.tensor(tid)
+                if td.is_constant and f"t{tid}" not in params:
+                    params[f"t{tid}"] = np.ascontiguousarray(td.data)
+    return params, meta
+
+
+def params_from_jax(params: Dict[str, np.ndarray],
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Contiguous torch tensors (on ``device``, default the CPU) of a
+    prepared parameter dict: this package's own ``prepare_params``
+    output or band_tpu's ``SubgraphProgram.params`` (numpy in both)."""
+    return {
+        k: torch.from_numpy(np.array(v, order="C", copy=True)).to(
+            device or "cpu")
+        for k, v in params.items()
+    }
+
+
+@dataclass
+class SubgraphProgram:
+    """A prepared, runnable subgraph."""
+
+    graph: Graph
+    op_indices: Tuple[int, ...]
+    input_ids: Tuple[int, ...]
+    output_ids: Tuple[int, ...]
+    params: Dict[str, np.ndarray]
+    meta: Dict[str, Any]
+
+    @property
+    def input_specs(self):
+        return [
+            (self.graph.tensor(t).shape, self.graph.tensor(t).dtype)
+            for t in self.input_ids
+        ]
+
+    @property
+    def output_specs(self):
+        return [
+            (self.graph.tensor(t).shape, self.graph.tensor(t).dtype)
+            for t in self.output_ids
+        ]
+
+    def make_fn(self):
+        """Function (params, inputs) -> outputs over torch tensors.  The
+        inputs may hold a batch of requests stacked on their leading
+        axis (ops/lowerings.py); the outputs then do too."""
+        graph = self.graph
+        op_indices = self.op_indices
+        input_ids = self.input_ids
+        output_ids = self.output_ids
+        meta = self.meta
+
+        def fn(params, inputs):
+            ctx = LowerCtx(graph, params, meta)
+            for tid, v in zip(input_ids, inputs):
+                ctx.set(tid, v)
+            for oi in op_indices:
+                op = graph.ops[oi]
+                get_lowering(op.opname).trace(ctx, op)
+            return [ctx.arr(t) for t in output_ids]
+
+        return fn
+
+
+
+def build_program(
+    graph: Graph, op_indices: Sequence[int], exact: bool = True
+) -> SubgraphProgram:
+    missing = sorted(
+        {
+            graph.ops[oi].opname
+            for oi in op_indices
+            if graph.ops[oi].opname not in REGISTRY
+        }
+    )
+    if missing:
+        raise LoweringError(f"unsupported ops in subgraph: {missing}")
+    op_indices = tuple(sorted(op_indices))
+    inputs, outputs = subgraph_boundary(graph, op_indices)
+    params, meta = prepare_params(graph, op_indices, exact)
+    return SubgraphProgram(
+        graph=graph,
+        op_indices=op_indices,
+        input_ids=tuple(inputs),
+        output_ids=tuple(outputs),
+        params=params,
+        meta=meta,
+    )

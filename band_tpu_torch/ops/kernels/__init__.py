@@ -1,0 +1,40 @@
+"""Hand-written Hopper kernels of the int8 serving path.
+
+Each module holds a kernel's wrapper (device, dtype, shape and
+contiguity checks, then a ctypes launch on PyTorch's current stream),
+its launch count, and its plain PyTorch version.  A wrapper given CPU
+tensors runs the plain version; given CUDA tensors it launches the
+kernel or raises.  ``build`` compiles ``csrc/*.cu`` with nvcc at first
+use; importing this package compiles nothing.
+
+==========  =======================  =========================================
+kernel      wrapper                  replaces
+==========  =======================  =========================================
+B0          csrc/requant.cuh         band_tpu/ops/quant.py:286,327 (traced in B1-B3)
+B1          qmatmul.qmatmul_exact    band_tpu/ops/pallas/qmatmul.py:135
+B2          qconv.qconv2d_exact      band_tpu/ops/pallas/qconv.py:152
+B3          qdwconv.qdwconv2d_exact  band_tpu/ops/pallas/qdwconv.py:114
+softmax     softmax.lut_softmax      band_tpu/ops/quant.py:443 (XLA, no Pallas)
+==========  =======================  =========================================
+"""
+
+from .qconv import qconv2d_exact, qconv2d_plain  # noqa: F401
+from .qdwconv import qdwconv2d_exact, qdwconv2d_plain  # noqa: F401
+from .qmatmul import qmatmul_exact, qmatmul_plain  # noqa: F401
+from .softmax import lut_softmax, lut_softmax_plain  # noqa: F401
+from . import qconv as _qc, qdwconv as _qd, qmatmul as _qm, softmax as _sm
+
+# launch counts by kernel name (each a LaunchCount with a plain int ``n``)
+LAUNCHES = {
+    c.name: c
+    for c in (_qm.launches, _qc.launches, _qd.launches, _sm.launches)
+}
+
+
+def reset_launches() -> None:
+    for c in LAUNCHES.values():
+        c.reset()
+
+
+def launch_counts() -> dict:
+    return {name: c.n for name, c in LAUNCHES.items()}

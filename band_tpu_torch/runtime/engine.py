@@ -1,0 +1,969 @@
+"""Engine: the public facade and IEngine implementation.
+
+Owns model executors, workers, planner, latency estimator and the
+per-model I/O rings; implements the subgraph-selection queries the
+schedulers use (reference: band/engine.{h,cc} — Create engine.cc:42,
+RegisterModel :51-289, RequestAsync :455-529, Wait :556-567,
+Invoke :843-850, shortest-latency DP :966-1052, candidates :1107-1151,
+tensor copies :1247-1365).
+
+Execution model: a worker is one CUDA card (or the host CPU) fed by a
+host dispatch thread; Invoke launches a subgraph's kernels on the
+dispatch thread's current stream without waiting, and the worker's
+retire thread waits on a CUDA event recorded after the launches
+(``record_completion``).  Inter-subgraph "tensor copies" are device
+tensors carried on the job record.
+
+Counterpart: band_tpu/runtime/engine.py.  Not ported yet, and refused
+with ConfigError when a config asks for them: the global-queue worker,
+every scheduler but fixed_worker, co-dispatch, link costs, the
+resource monitor, multi-process serving, mesh workers, fast numerics
+and a compilation cache.  The shortest-latency DP is the Python one
+(the native plan core is not ported).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..common import (
+    DeviceFlag,
+    Job,
+    JobStatus,
+    RequestOption,
+    SubgraphKey,
+    WorkerType,
+)
+from ..config import RuntimeConfig, WorkerSpec, config_hash
+from ..errors import ConfigError, DeadlineExceeded, ExecutionError, NotFound
+from ..ir.analyzer import ModelAnalyzer, build_model_spec
+from ..ir.model import Model
+from ..ir.model_spec import ModelSpec
+from ..tracing.job_tracer import tracer
+from .engine_interface import EngineBase
+from .latency_estimator import LatencyEstimator
+from .planner import PORTED_SCHEDULERS, Planner
+from .ring_buffer import TensorRingBuffer
+from .tensor import StagedInput
+from .worker import DeviceQueueWorker, Worker
+
+
+def _pow2_buckets(max_batch: int) -> List[int]:
+    """Continuous-batching bucket sizes 2..max_batch (powers of two)."""
+    out = []
+    b = 2
+    while b <= max_batch:
+        out.append(b)
+        b *= 2
+    return out
+
+
+def _refuse_unported(config: RuntimeConfig) -> None:
+    """ConfigError for every part of a config this package cannot honour
+    yet, before any thread starts (nothing is silently ignored)."""
+    asks = []
+    if config.distributed.enabled:
+        asks.append("multi-process serving (distributed)")
+    if config.compilation_cache_dir:
+        asks.append("compilation_cache_dir (nothing is compiled by a JIT)")
+    if config.link_costs or config.probe_link_costs:
+        asks.append("link costs (link_costs / probe_link_costs)")
+    if config.monitor.enable:
+        asks.append("the resource monitor")
+    if config.numerics != "exact":
+        asks.append(f"numerics {config.numerics!r} (only 'exact')")
+    if config.planner.worker_type == WorkerType.GLOBAL_QUEUE:
+        asks.append("the global-queue worker")
+    for s in config.planner.schedulers:
+        if s not in PORTED_SCHEDULERS:
+            asks.append(f"scheduler {s.value}")
+    for i, spec in enumerate(config.worker.workers):
+        if spec.is_mesh:
+            asks.append(f"worker {i}: a mesh of devices {spec.device_ids}")
+        if spec.co_dispatch > 1:
+            asks.append(f"worker {i}: co_dispatch {spec.co_dispatch}")
+        if spec.backend != "torch":
+            asks.append(f"worker {i}: backend {spec.backend!r}")
+    if asks:
+        raise ConfigError(
+            "not ported to PyTorch yet: " + "; ".join(asks)
+        )
+
+
+def resolve_device(spec: WorkerSpec) -> torch.device:
+    """The torch device of a single-device worker.  A GPU worker is
+    ``cuda:<id>`` (ids wrap around the visible cards, as band_tpu's do
+    over its devices) and raises when CUDA is absent; it never becomes
+    the CPU."""
+    if spec.device == DeviceFlag.CPU:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise ConfigError(
+            f"{spec.device.value} worker needs CUDA, which is not available"
+        )
+    n = torch.cuda.device_count()
+    return torch.device("cuda", spec.device_ids[0] % n)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for all work queued on ``device`` (no-op for the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def to_host(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+class _ModelRecord:
+    def __init__(self, model: Model, spec: ModelSpec):
+        self.model = model
+        self.spec = spec
+        self.executors: Dict[int, "object"] = {}  # worker_id -> ModelExecutor
+        self.subgraph_keys: List[SubgraphKey] = []
+        # begin-unit -> list of keys starting there (reference:
+        # unit_subgraphs_to_subgraph_keys_, engine.h:246-247)
+        self.keys_by_begin: Dict[int, List[SubgraphKey]] = {}
+        self.input_ring: Optional[TensorRingBuffer] = None
+        self.output_ring: Optional[TensorRingBuffer] = None
+        self.worker_id: int = 0  # fixed-worker assignment
+
+
+class Engine(EngineBase):
+    def __init__(self, config: RuntimeConfig):
+        config.validate()
+        _refuse_unported(config)
+        self.config = config
+        # the device of each worker, resolved before any thread starts
+        self._worker_devices: List[torch.device] = [
+            resolve_device(spec) for spec in config.worker.workers
+        ]
+        if config.cpu_mask:
+            # engine-wide pinning of the creating thread (reference:
+            # global `cpu_masks` + engine.cc:657-668)
+            from ..device import cpu as cpu_dev
+
+            mask = cpu_dev.resolve_configured_mask(config.cpu_mask)
+            if mask is not None:
+                cpu_dev.set_thread_affinity(mask)
+        self._models: Dict[int, _ModelRecord] = {}
+        self._unregistering: set = set()
+        self._model_counter = 0
+        self._fault_counts: Dict[int, int] = {}
+        self._lock = threading.RLock()
+
+        self.latency_estimator = LatencyEstimator(
+            smoothing_factor=config.profile.smoothing_factor,
+            num_warmups=config.profile.num_warmups,
+            num_runs=config.profile.num_runs,
+            profile_data_path=config.profile.profile_data_path,
+            config_hash=config_hash(config),
+            outlier_clip=config.profile.outlier_clip,
+        )
+
+        self.workers: List[Worker] = []
+        for wid, spec in enumerate(config.worker.workers):
+            w = DeviceQueueWorker(self, wid, spec)
+            if spec.availability_check_interval_ms <= 0:
+                # per-worker value 0 inherits the pool default
+                # (reference: band/config.h:53, default 30 s)
+                w._avail_check_ms = (
+                    config.worker.availability_check_interval_ms
+                )
+            self.workers.append(w)
+            tracer().register_worker(
+                wid, f"{spec.device.value}:{spec.device_ids}"
+            )
+        for w in self.workers:
+            w.start()
+
+        # tracing: enabled when the planner has a log path (the reference
+        # dumps the chrome trace at planner destruction, planner.cc:31-33)
+        if config.planner.log_path:
+            tracer().enable()
+
+        self.planner = Planner(self, config.planner)
+
+        # background bucket warmer: the first run of each
+        # continuous-batching bucket happens off the registration path.
+        # Workers cap their coalescing window at the largest warm bucket
+        # while a key's warm-up is pending (ready_batch_limit), so
+        # serving starts at b1 immediately and the window grows as
+        # buckets land.
+        self._warmer_cv = threading.Condition()
+        self._warmer_tasks: list = []  # heap of (bucket, seq, key)
+        self._warmer_seq = 0
+        self._warming_keys: Dict[SubgraphKey, int] = {}  # key -> pending
+        self._warmer_stop = threading.Event()
+        self._warmer_thread: Optional[threading.Thread] = None
+        # held by _profile_model for its whole paused-worker window so
+        # background warms can't contaminate isolated b1 profiles
+        self._profiling_lock = threading.Lock()
+
+        # failure-detection watchdog: quarantine workers wedged inside
+        # one dispatch so requesters unblock and traffic reroutes
+        self._watchdog_stop = threading.Event()
+        self._watchdog_thread = None
+        if any(s.stuck_timeout_ms > 0 for s in config.worker.workers):
+            self._watchdog_thread = threading.Thread(
+                target=self._watchdog, name="band-watchdog", daemon=True
+            )
+            self._watchdog_thread.start()
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def create(config: RuntimeConfig) -> "Engine":
+        return Engine(config)
+
+    def _watchdog(self) -> None:
+        from ..tracing.logger import log_error
+
+        specs = self.config.worker.workers
+        period = min(
+            max(s.stuck_timeout_ms for s in specs) / 4000.0, 2.0
+        )
+        while not self._watchdog_stop.wait(max(period, 0.05)):
+            for w, spec in zip(self.workers, specs):
+                if spec.stuck_timeout_ms <= 0 or w._quarantined:
+                    continue
+                if w._compiling > 0:
+                    # first launch builds the kernels: not a wedge
+                    continue
+                busy_ms = w.busy_for() * 1000.0
+                if busy_ms > spec.stuck_timeout_ms:
+                    log_error(
+                        "worker %d stuck in one dispatch for %.0f ms "
+                        "(> %d ms); quarantining — its jobs fail, queued "
+                        "work reschedules, traffic reroutes",
+                        w.worker_id, busy_ms, spec.stuck_timeout_ms,
+                    )
+                    requeue = w.quarantine()
+                    if requeue:
+                        self.enqueue_batch(requeue, push_front=True)
+                    self.planner.trigger()
+
+    def shutdown(self) -> None:
+        self._watchdog_stop.set()
+        if self._watchdog_thread is not None:
+            self._watchdog_thread.join(timeout=5)
+        self._warmer_stop.set()
+        with self._warmer_cv:
+            self._warmer_cv.notify_all()
+        if self._warmer_thread is not None:
+            self._warmer_thread.join(timeout=10)
+        self.planner.stop()
+        for w in self.workers:
+            w.stop()
+        if self.config.profile.profile_data_path:
+            self.latency_estimator.dump_profile()
+        if self.config.planner.log_path:
+            tracer().dump(self.config.planner.log_path)
+
+    def _worker_is_host(self, worker_id: int) -> bool:
+        return self.config.worker.workers[worker_id].device == DeviceFlag.CPU
+
+    # ------------------------------------------------------------------
+    # model registration (reference: engine.cc:51-289)
+    # ------------------------------------------------------------------
+    def register_model(
+        self, model: Model, target_worker: int = -1,
+        numerics: Optional[str] = None,
+    ) -> int:
+        """Register a model (reference: engine.cc:51-289): partition it,
+        prepare every subgraph with its weights on its worker's device,
+        profile bucket 1 and schedule the batch buckets' warm-up.
+        ``numerics`` must be "exact" (fast numerics are not ported)."""
+        from ..backend.executor import ModelExecutor
+
+        if numerics is None:
+            numerics = self.config.numerics
+        if numerics != "exact":
+            raise ConfigError(
+                f"numerics {numerics!r} is not ported to PyTorch yet "
+                "(only 'exact')"
+            )
+
+        with self._lock:
+            model_id = self._model_counter
+            self._model_counter += 1
+        model.model_id = model_id
+        graph = model.graph
+
+        spec = build_model_spec(
+            graph, [self._worker_is_host(w) for w in range(len(self.workers))]
+        )
+        analyzer = ModelAnalyzer(
+            graph,
+            spec,
+            len(self.workers),
+            self.config.subgraph,
+            self.config.planner.need_fallback_subgraphs,
+        )
+        defs = analyzer.create_subgraphs()
+
+        rec = _ModelRecord(model, spec)
+        for sdef in defs:
+            wid = sdef.worker_id
+            if wid not in rec.executors:
+                rec.executors[wid] = ModelExecutor(
+                    model_id, graph, wid, self._worker_devices[wid]
+                )
+            key = rec.executors[wid].prepare_subgraph(
+                sorted(sdef.op_indices), sorted(sdef.unit_indices)
+            )
+            rec.subgraph_keys.append(key)
+            rec.keys_by_begin.setdefault(key.begin_unit, []).append(key)
+
+        rec.input_ring = TensorRingBuffer(
+            [graph.tensor(t) for t in graph.inputs]
+        )
+        rec.output_ring = TensorRingBuffer(
+            [graph.tensor(t) for t in graph.outputs]
+        )
+        if target_worker >= 0:
+            rec.worker_id = target_worker
+        else:
+            supporting = sorted({k.worker_id for k in rec.subgraph_keys})
+            rec.worker_id = supporting[model_id % len(supporting)]
+        with self._lock:
+            self._models[model_id] = rec
+
+        self._profile_model(rec)
+        return model_id
+
+    def unregister_model(self, model_id: int) -> None:
+        """Remove a registered model (reference: engine.cc:291-316):
+        new requests fail with NotFound, queued jobs finish as
+        ENQUEUE_FAILED via a planner-thread purge, and in-flight
+        dispatches drain before the record is dropped."""
+        with self._lock:
+            if model_id not in self._models:
+                raise NotFound(f"unknown model {model_id}")
+            self._unregistering.add(model_id)
+
+        def _finalize() -> bool:
+            # runs on the planner thread between scheduling passes
+            if any(w.has_jobs_for(model_id) for w in self.workers):
+                return False
+            with self._lock:
+                self._models.pop(model_id, None)
+            self.latency_estimator.unbind_model(model_id)
+            return True
+
+        try:
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                if self.planner.purge_model(model_id, _finalize):
+                    return
+                time.sleep(0.01)
+            # drain timed out (a wedged worker); drop the record anyway,
+            # matching the reference's non-draining erase
+            with self._lock:
+                self._models.pop(model_id, None)
+            self.latency_estimator.unbind_model(model_id)
+        finally:
+            self._unregistering.discard(model_id)
+
+    @staticmethod
+    def _zero_inputs(executor, key: SubgraphKey) -> List[np.ndarray]:
+        return [
+            np.zeros([max(s, 1) for s in shape], dtype)
+            for shape, dtype in executor.program(key).input_specs
+        ]
+
+    def _profile_model(self, rec: _ModelRecord) -> None:
+        """Profile every prepared subgraph in isolation (reference:
+        latency_estimator.cc:62-126: pause workers -> warmup+runs ->
+        resume).
+
+        Bucket 1 is profiled synchronously; the continuous-batching
+        buckets warm in the background by default
+        (profile.background_buckets), else synchronously here with the
+        top bucket profiled."""
+        if not self.config.profile.online:
+            return
+        from ..device import cpu as cpu_dev
+
+        for w in self.workers:
+            w.pause()
+        saved_affinity = cpu_dev.get_thread_affinity()
+        self._profiling_lock.acquire()
+        try:
+            for key in rec.subgraph_keys:
+                max_batch = self.config.worker.workers[key.worker_id].max_batch
+                top_bucket = 1
+                while top_bucket * 2 <= max_batch:
+                    top_bucket *= 2
+                executor = rec.executors[key.worker_id]
+                device = self._worker_devices[key.worker_id]
+                use_bg = self.config.profile.background_buckets
+                if use_bg and max_batch > 1:
+                    buckets = [
+                        b for b in _pow2_buckets(max_batch)
+                        if not executor.is_warm(key, b)
+                    ]
+                    if buckets:
+                        self._schedule_bucket_warm(key, buckets)
+                if (
+                    self.latency_estimator.get_profiled(key) > 0
+                    and (use_bg or self.latency_estimator.get_profiled(
+                        key, top_bucket) > 0)
+                ):
+                    continue
+                # profile under the worker's configured affinity so the
+                # measurement matches serving conditions (reference:
+                # latency_estimator.cc:71-90)
+                wmask = self.config.worker.workers[key.worker_id].cpu_mask
+                if wmask:
+                    resolved = cpu_dev.resolve_configured_mask(wmask)
+                    if resolved is not None:
+                        cpu_dev.set_thread_affinity(resolved)
+                inputs = self._zero_inputs(executor, key)
+
+                def invoke():
+                    executor.execute(key, inputs)
+                    synchronize(device)
+
+                if self.latency_estimator.get_profiled(key) <= 0:
+                    self.latency_estimator.profile(key, invoke)
+                if use_bg:
+                    continue
+                # synchronous path: run every bucket once and profile the
+                # top one, so get_expected(key, batch) has both
+                # interpolation endpoints (b1 and b_max)
+                for bucket in _pow2_buckets(max_batch):
+
+                    def invoke_bucket(b=bucket):
+                        executor.execute_batched(key, [inputs] * b)
+                        synchronize(device)
+
+                    if (
+                        bucket == top_bucket
+                        and self.latency_estimator.get_profiled(
+                            key, bucket
+                        ) <= 0
+                    ):
+                        self.latency_estimator.profile(
+                            key, invoke_bucket, batch=bucket
+                        )
+                    else:
+                        invoke_bucket()
+        finally:
+            self._profiling_lock.release()
+            if saved_affinity.num_enabled():
+                cpu_dev.set_thread_affinity(saved_affinity)
+            for w in self.workers:
+                w.resume()
+
+    # ------------------------------------------------------------------
+    # background bucket warming
+    # ------------------------------------------------------------------
+    def _schedule_bucket_warm(self, key: SubgraphKey, buckets) -> None:
+        import heapq
+
+        with self._warmer_cv:
+            self._warming_keys[key] = (
+                self._warming_keys.get(key, 0) + len(buckets)
+            )
+            for b in buckets:
+                self._warmer_seq += 1
+                # smallest buckets first ACROSS keys: every model's
+                # window starts growing immediately
+                heapq.heappush(self._warmer_tasks, (b, self._warmer_seq, key))
+            if self._warmer_thread is None:
+                self._warmer_thread = threading.Thread(
+                    target=self._bucket_warmer,
+                    name="band-bucket-warmer",
+                    daemon=True,
+                )
+                self._warmer_thread.start()
+            self._warmer_cv.notify_all()
+
+    def _bucket_warmer(self) -> None:
+        import heapq
+        import traceback
+
+        from ..tracing.logger import log_error
+
+        while True:
+            with self._warmer_cv:
+                while not self._warmer_tasks and not self._warmer_stop.is_set():
+                    self._warmer_cv.wait(timeout=0.5)
+                if self._warmer_stop.is_set():
+                    return
+                bucket, _, key = heapq.heappop(self._warmer_tasks)
+            try:
+                # serialize against paused-worker profiling windows so
+                # a warm execution can't contaminate an isolated profile
+                with self._profiling_lock:
+                    self._warm_one_bucket(key, bucket)
+            except Exception:
+                log_error(
+                    "bucket warm failed for %s b%d:\n%s",
+                    key, bucket, traceback.format_exc(),
+                )
+            finally:
+                with self._warmer_cv:
+                    n = self._warming_keys.get(key, 1) - 1
+                    if n <= 0:
+                        self._warming_keys.pop(key, None)
+                    else:
+                        self._warming_keys[key] = n
+                    self._warmer_cv.notify_all()
+                self.trigger()
+
+    def _warm_one_bucket(self, key: SubgraphKey, bucket: int) -> None:
+        rec = self._models.get(key.model_id)
+        if rec is None:
+            return  # unregistered while the warm was queued
+        executor = rec.executors.get(key.worker_id)
+        if executor is None:
+            return
+        inputs = self._zero_inputs(executor, key)
+        device = self._worker_devices[key.worker_id]
+
+        def invoke():
+            executor.execute_batched(key, [inputs] * bucket)
+            synchronize(device)
+
+        max_batch = self.config.worker.workers[key.worker_id].max_batch
+        top_bucket = 1
+        while top_bucket * 2 <= max_batch:
+            top_bucket *= 2
+        if (
+            bucket == top_bucket
+            and self.latency_estimator.get_profiled(key, bucket) <= 0
+        ):
+            # seed the b_max interpolation endpoint; the sample runs
+            # under live traffic, and the outlier-clipped EMA refines it
+            self.latency_estimator.profile(key, invoke, batch=bucket)
+        else:
+            invoke()
+
+    def ready_batch_limit(self, key: SubgraphKey) -> int:
+        """Largest continuous-batching window dispatchable for ``key``
+        that has run before.  Unbounded once a key's background warm-up
+        has drained (or if none was scheduled); while warming, workers
+        cap coalescing at the largest warm bucket."""
+        if key not in self._warming_keys:
+            return 1 << 30
+        rec = self._models.get(key.model_id)
+        if rec is None:
+            return 1 << 30
+        executor = rec.executors.get(key.worker_id)
+        if executor is None:
+            return 1 << 30
+        return executor.max_warm_bucket(key)
+
+    def wait_buckets_ready(self, timeout: float = 600.0) -> bool:
+        """Block until every scheduled background bucket warm completes."""
+        deadline = time.monotonic() + timeout
+        with self._warmer_cv:
+            while self._warming_keys and time.monotonic() < deadline:
+                self._warmer_cv.wait(timeout=0.2)
+            return not self._warming_keys
+
+    # ------------------------------------------------------------------
+    # request path (reference: engine.cc:393-614)
+    # ------------------------------------------------------------------
+    def request_async(
+        self,
+        model_id: int,
+        inputs: Sequence[np.ndarray],
+        option: RequestOption = RequestOption(),
+    ) -> int:
+        return self.request_async_batch([model_id], [inputs], [option])[0]
+
+    def request_async_batch(
+        self,
+        model_ids: Sequence[int],
+        inputs_batch: Sequence[Sequence[np.ndarray]],
+        options: Optional[Sequence[RequestOption]] = None,
+    ) -> List[int]:
+        options = options or [RequestOption()] * len(model_ids)
+        # all-or-nothing: validate every model id before allocating any
+        # ring slot (the reference's vector-request contract,
+        # engine.cc:455-529)
+        recs = []
+        for model_id in model_ids:
+            if model_id in self._unregistering:
+                raise NotFound(f"model {model_id} is being unregistered")
+            recs.append(self._rec(model_id))
+        jobs = []
+        for model_id, inputs, option, rec in zip(
+            model_ids, inputs_batch, options, recs
+        ):
+            job = Job(model_id=model_id)
+            job.model_fname = rec.model.name
+            job.target_worker_id = option.target_worker
+            job.require_callback = option.require_callback
+            if option.slo_us > 0:
+                job.slo_us = option.slo_us
+            elif option.slo_scale > 0:
+                job.slo_us = int(
+                    self.get_worst_latency(model_id) * option.slo_scale
+                )
+            handle = rec.input_ring.alloc()
+            host_inputs = {}
+            for tid, arr in zip(rec.model.graph.inputs, inputs):
+                if isinstance(arr, (torch.Tensor, StagedInput)):
+                    # device-resident input: zero-copy, bypass the ring
+                    job.activations[tid] = arr
+                else:
+                    host_inputs[tid] = np.asarray(arr)
+            if host_inputs:
+                rec.input_ring.put(handle, host_inputs)
+            job.input_handle = handle
+            job.output_handle = rec.output_ring.alloc()
+            jobs.append(job)
+        return self.enqueue_batch(jobs)
+
+    def request_sync(
+        self,
+        model_id: int,
+        inputs: Sequence[np.ndarray],
+        option: RequestOption = RequestOption(),
+        timeout: float = 60.0,
+    ) -> List[np.ndarray]:
+        job_id = self.request_async(model_id, inputs, option)
+        return self.wait(job_id, timeout=timeout)
+
+    def wait(self, job_id: int, timeout: float = 60.0) -> List[np.ndarray]:
+        statuses = self.planner.wait([job_id], timeout=timeout)
+        if job_id not in statuses:
+            raise TimeoutError(f"job {job_id} did not finish in {timeout}s")
+        status = statuses[job_id]
+        if status == JobStatus.SLO_VIOLATION:
+            raise DeadlineExceeded(f"job {job_id} dropped: SLO unmeetable")
+        if status != JobStatus.SUCCESS:
+            raise NotFound(f"job {job_id} failed with {status}")
+        return self.get_outputs(job_id)
+
+    def wait_all(
+        self,
+        job_ids: Sequence[int],
+        timeout: float = 120.0,
+        raise_on_incomplete: bool = False,
+    ) -> Dict[int, JobStatus]:
+        """Wait for many jobs; returns {job_id: status} for those that
+        finished within the timeout (a partial dict on timeout unless
+        raise_on_incomplete turns it into a TimeoutError)."""
+        statuses = self.planner.wait(job_ids, timeout=timeout)
+        if raise_on_incomplete and len(statuses) < len(set(job_ids)):
+            missing = [j for j in job_ids if j not in statuses]
+            raise TimeoutError(
+                f"{len(missing)} of {len(job_ids)} jobs unfinished after "
+                f"{timeout}s (first missing: {missing[:8]})"
+            )
+        return statuses
+
+    def get_outputs(self, job_id: int) -> List[np.ndarray]:
+        job = self.planner.get_finished_job(job_id)
+        if job is None:
+            raise NotFound(f"no finished record for job {job_id}")
+        rec = self._rec(job.model_id)
+        # device->host on the caller thread; also mirror into the output
+        # ring so handle-based consumers see the data
+        out = {
+            tid: to_host(job.final_outputs[tid])
+            for tid in rec.model.graph.outputs
+        }
+        if rec.output_ring.is_valid(job.output_handle):
+            rec.output_ring.put(job.output_handle, out)
+        return [out[tid] for tid in rec.model.graph.outputs]
+
+    def register_callback(self, cb) -> int:
+        return self.planner.add_callback(cb)
+
+    def unregister_callback(self, handle: int) -> bool:
+        return self.planner.remove_callback(handle)
+
+    # ------------------------------------------------------------------
+    # EngineBase SPI
+    # ------------------------------------------------------------------
+    def _rec(self, model_id: int) -> _ModelRecord:
+        rec = self._models.get(model_id)
+        if rec is None:
+            raise NotFound(f"unknown model {model_id}")
+        return rec
+
+    def has_model(self, model_id: int) -> bool:
+        return model_id in self._models
+
+    def enqueue_batch(self, jobs, push_front: bool = False) -> List[int]:
+        return self.planner.enqueue_batch(jobs, push_front)
+
+    def enqueue_finished_job(self, job: Job) -> None:
+        self.planner.enqueue_finished_job(job)
+
+    def trigger(self) -> None:
+        self.planner.trigger()
+
+    def dispatch(self, job: Job) -> bool:
+        worker = self.workers[job.subgraph_key.worker_id]
+        return worker.enqueue_job(job)
+
+    def num_workers(self) -> int:
+        return len(self.workers)
+
+    def get_worker_waiting_time(self) -> Dict[int, int]:
+        return {w.worker_id: w.get_waiting_time() for w in self.workers}
+
+    def get_idle_workers(self) -> List[int]:
+        return [
+            w.worker_id
+            for w in self.workers
+            if w.is_enqueue_ready() and not w.has_job() and not w._processing
+        ]
+
+    def get_worker_batch_limit(self, worker_id: int) -> int:
+        return max(self.config.worker.workers[worker_id].max_batch, 1)
+
+    def is_worker_available(self, worker_id: int) -> bool:
+        return self.workers[worker_id].is_available()
+
+    def get_model_worker(self, model_id: int) -> int:
+        return self._rec(model_id).worker_id
+
+    def get_largest_subgraph_key(
+        self, model_id: int, worker_id: int
+    ) -> SubgraphKey:
+        rec = self._rec(model_id)
+        executor = rec.executors.get(worker_id)
+        if executor is None:
+            return SubgraphKey()
+        key = executor.largest_subgraph_key()
+        return key if key is not None else SubgraphKey()
+
+    def get_subgraph_candidates(
+        self, model_id: int, resolved_units: frozenset
+    ) -> List[SubgraphKey]:
+        """Executable next subgraphs: units disjoint from resolved,
+        external deps inside resolved (reference: engine.cc:1107-1151)."""
+        rec = self._rec(model_id)
+        out = []
+        for key in rec.subgraph_keys:
+            if key.unit_indices & resolved_units:
+                continue
+            deps = set()
+            for u in key.unit_indices:
+                deps |= rec.spec.unit_dependencies[u]
+            if deps - set(key.unit_indices) <= resolved_units:
+                out.append(key)
+        return out
+
+    def get_subgraph_with_shortest_latency(
+        self, job: Job, waiting: Dict[int, int]
+    ) -> Tuple[Optional[SubgraphKey], int]:
+        """DP over (unit-range end, worker) states (reference DP,
+        engine.cc:966-1052): memo[j][w] = earliest finish of units <= j
+        with the last hop on worker w; returns the *first* hop of the
+        best path plus the path's expected end time.  Hops between
+        workers cost nothing here: the link-cost model is not ported
+        (a config that sets link costs is refused)."""
+        rec = self._rec(job.model_id)
+        num_units = rec.spec.num_unit_subgraphs
+        resolved = job.resolved_unit_subgraphs
+        start = (max(resolved) + 1) if resolved else 0
+        if start >= num_units:
+            return None, 0
+
+        prev_worker = (
+            job.subgraph_key.worker_id if job.subgraph_key.is_valid() else -1
+        )
+        memo: List[Dict[int, Tuple[int, Optional[SubgraphKey]]]] = [
+            {} for _ in range(num_units + 1)
+        ]
+        memo[start][prev_worker] = (0, None)
+        for begin in range(start, num_units):
+            if not memo[begin]:
+                continue
+            for key in rec.keys_by_begin.get(begin, []):
+                expected = max(self.get_expected_latency(key), 0)
+                # waiting saturates at LARGE_WAITING_TIME ("never")
+                w_wait = min(waiting.get(key.worker_id, 0), 1 << 62)
+                nxt = key.end_unit + 1
+                for t, hop in memo[begin].values():
+                    end_time = max(t, w_wait) + expected
+                    cur = memo[nxt].get(key.worker_id)
+                    if cur is None or end_time < cur[0]:
+                        memo[nxt][key.worker_id] = (
+                            end_time,
+                            hop if hop is not None else key,
+                        )
+        if not memo[num_units]:
+            return None, 0
+        best_t, best_hop = min(memo[num_units].values(), key=lambda tv: tv[0])
+        return best_hop, best_t
+
+    def is_end_of_model(self, key: SubgraphKey, resolved: frozenset) -> bool:
+        rec = self._rec(key.model_id)
+        return (
+            len(resolved | key.unit_indices) == rec.spec.num_unit_subgraphs
+        )
+
+    def get_expected_latency(self, key: SubgraphKey, batch: int = 1) -> int:
+        return self.latency_estimator.get_expected(key, batch)
+
+    def get_worst_latency(self, model_id: int) -> int:
+        rec = self._rec(model_id)
+        worst = 0
+        for key in rec.subgraph_keys:
+            if len(key.unit_indices) == rec.spec.num_unit_subgraphs:
+                worst = max(worst, self.get_expected_latency(key))
+        if worst == 0:
+            worst = self.latency_estimator.get_worst_model_latency(model_id)
+        return worst
+
+    def update_latency(
+        self, key: SubgraphKey, latency_us: int, batch: int = 1
+    ) -> None:
+        self.latency_estimator.update(key, latency_us, batch)
+
+    # ------------------------------------------------------------------
+    # execution (worker-side)
+    # ------------------------------------------------------------------
+    def inject_fault(self, worker_id: int, count: int = 1) -> None:
+        """Chaos hook: the next ``count`` invokes on worker_id raise
+        ExecutionError, driving the device-error recovery loop."""
+        with self._lock:
+            self._fault_counts[worker_id] = (
+                self._fault_counts.get(worker_id, 0) + count
+            )
+
+    def _maybe_fault(self, worker_id: int) -> None:
+        if not self._fault_counts:
+            return
+        with self._lock:
+            if self._fault_counts.get(worker_id, 0) > 0:
+                self._fault_counts[worker_id] -= 1
+                raise ExecutionError(
+                    f"injected fault on worker {worker_id}"
+                )
+
+    def probe_key_for_worker(self, worker_id: int) -> Optional[SubgraphKey]:
+        """Any registered subgraph on the worker (recovery probes)."""
+        with self._lock:
+            recs = list(self._models.values())
+        for rec in recs:
+            for key in rec.subgraph_keys:
+                if key.worker_id == worker_id:
+                    return key
+        return None
+
+    def probe_subgraph(self, key: SubgraphKey) -> bool:
+        """One device-recovery probe: invoke the failed subgraph with
+        zero inputs and wait for it (reference:
+        Worker::WaitUntilDeviceAvailable, band/worker.cc:101-110)."""
+        try:
+            rec = self._rec(key.model_id)
+            inputs = self._zero_inputs(rec.executors[key.worker_id], key)
+            self.invoke(key, inputs)
+            synchronize(self._worker_devices[key.worker_id])
+            return True
+        except Exception:
+            return False
+
+    def _invoke_flagged(self, key: SubgraphKey, fn, batch: int):
+        """Run an executor invoke, flagging the worker as compiling
+        while a (key, bucket) runs for the first time: the first launch
+        of a kernel builds it with nvcc, which the stuck-dispatch
+        watchdog must not take for a wedge."""
+        rec = self._rec(key.model_id)
+        ex = rec.executors[key.worker_id]
+        worker = self.workers[key.worker_id]
+        if ex.is_warm(key, batch):
+            return fn(ex)
+        worker._compiling += 1
+        try:
+            return fn(ex)
+        finally:
+            worker._compiling -= 1
+            # restart the wedge clock so the build isn't charged to it
+            st = worker._busy_since
+            if st is not None:
+                worker._busy_since = (st[0], time.monotonic())
+
+    def invoke(self, key: SubgraphKey, inputs: List[np.ndarray]) -> List:
+        self._maybe_fault(key.worker_id)
+        return self._invoke_flagged(
+            key, lambda ex: ex.execute(key, inputs), 1
+        )
+
+    def invoke_batched(
+        self, key: SubgraphKey, inputs_list: List[List[np.ndarray]]
+    ) -> List[List]:
+        self._maybe_fault(key.worker_id)
+        return self._invoke_flagged(
+            key,
+            lambda ex: ex.execute_batched(key, inputs_list),
+            len(inputs_list),
+        )
+
+    def record_completion(self, worker_id: int) -> Optional[torch.cuda.Event]:
+        """A CUDA event recorded on the calling thread's current stream of
+        the worker's card, right after the launches it must cover; the
+        retire thread synchronises on it.  None for a CPU worker, whose
+        launches completed before they returned."""
+        device = self._worker_devices[worker_id]
+        if device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+
+    def try_copy_input_tensors(self, job: Job) -> List:
+        """Assemble subgraph inputs from the ring slot (graph inputs) and
+        the job's accumulated activations (reference: engine.cc:1247-1319)."""
+        rec = self._rec(job.model_id)
+        key = job.subgraph_key
+        executor = rec.executors[key.worker_id]
+        device = self._worker_devices[key.worker_id]
+        graph_inputs = set(rec.model.graph.inputs)
+        ring = None  # resolved lazily: fully device-staged jobs skip it
+        inputs = []
+        for tid in executor.input_ids(key):
+            if tid in job.activations:
+                val = job.activations[tid]
+                if isinstance(val, StagedInput):
+                    val = val.for_device(device)
+                if isinstance(val, torch.Tensor) and val.device != device:
+                    # staged on another device or a previous hop's output
+                    val = val.to(device)
+                inputs.append(val)
+            elif tid in graph_inputs:
+                if ring is None:
+                    ring = rec.input_ring.view(job.input_handle)
+                inputs.append(ring[tid])
+            else:
+                raise NotFound(
+                    f"input tensor {tid} for {key} neither activation nor "
+                    "graph input"
+                )
+        return inputs
+
+    def try_copy_output_tensors(self, job: Job, outputs: List) -> None:
+        """Stash boundary activations; write final model outputs into the
+        output ring (reference: engine.cc:1333-1365)."""
+        rec = self._rec(job.model_id)
+        key = job.subgraph_key
+        executor = rec.executors[key.worker_id]
+        graph_outputs = set(rec.model.graph.outputs)
+        for tid, val in zip(executor.output_ids(key), outputs):
+            job.activations[tid] = val
+            if tid in graph_outputs:
+                # kept on the device; host copies happen on the caller
+                # thread (get_outputs)
+                job.final_outputs[tid] = val
+        for fj in job.following_jobs:
+            fj.final_outputs = job.final_outputs
+
+    def model_record(self, model_id: int) -> _ModelRecord:
+        return self._rec(model_id)

@@ -62,3 +62,11 @@ def random_feeds(interpreter, rng):
         else:
             feeds[d["index"]] = rng.standard_normal(shape).astype(dt)
     return feeds
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (a CUDA kernel has no CPU mode); "
+        "skips without CUDA",
+    )
