@@ -12,7 +12,8 @@ Continuous batching stacks a window's requests on the leading axis of
 every input (a hand-written kernel has no vmap rule) after padding the
 window to the next power of two with copies of its first request, so
 a subgraph runs at log2(max_batch) + 1 batch sizes; outputs are split
-back per request.  No mesh path, no custom-op path.
+back per request.  ``exact=False`` builds the programs with the fast
+numerics epilogues.  No mesh path, no custom-op path.
 """
 
 from __future__ import annotations
@@ -55,11 +56,15 @@ class ModelExecutor:
         graph: Graph,
         worker_id: int,
         device: torch.device,
+        exact: bool = True,
     ):
         self.model_id = model_id
         self.graph = graph
         self.worker_id = worker_id
         self.device = torch.device(device)
+        # numerics: True reproduces the TFLite interpreter bit for bit;
+        # False prepares the float32 epilogues of fast numerics
+        self.exact = exact
         self._lock = threading.Lock()
         self._programs: Dict[SubgraphKey, SubgraphProgram] = {}
         self._fns: Dict[SubgraphKey, object] = {}
@@ -94,7 +99,7 @@ class ModelExecutor:
                     break
             waiter.wait(timeout=600)
         try:
-            prog = build_program(self.graph, op_indices)
+            prog = build_program(self.graph, op_indices, exact=self.exact)
             # weights move to the worker's device once, here
             params = params_from_jax(prog.params, self.device)
             with self._lock:

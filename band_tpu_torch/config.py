@@ -300,15 +300,13 @@ class RuntimeConfig:
     # (reference: global `cpu_masks` key + engine.cc:657-668); empty =
     # leave the caller's affinity alone
     cpu_mask: str = ""
-    # requantization numerics for registered models:
+    # requantization numerics for registered models (register_model's
+    # ``numerics`` overrides it per model):
     #   "exact" — bit-identical to the TFLite interpreter (the
     #             reference's accuracy contract, default)
-    #   "fast"  — float32 requant/rescale epilogues, ±1 quant unit of
-    #             the exact path (throughput mode; the exact VPU
-    #             epilogues are the measured single-chip gap on
-    #             CNN-shaped programs — docs/performance.md round 4).
-    #             Gate with `python -m band_tpu.tools.evaluate --top1
-    #             --fast <model>` before deploying.
+    #   "fast"  — float32 requant/rescale epilogues (band_tpu's fast
+    #             numerics, byte for byte), within ±1 quant unit of the
+    #             exact path per op
     numerics: str = "exact"
 
     def validate(self) -> None:

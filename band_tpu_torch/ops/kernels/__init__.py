@@ -7,27 +7,34 @@ tensors runs the plain version; given CUDA tensors it launches the
 kernel or raises.  ``build`` compiles ``csrc/*.cu`` with nvcc at first
 use; importing this package compiles nothing.
 
-==========  =======================  =========================================
-kernel      wrapper                  replaces
-==========  =======================  =========================================
-B0          csrc/requant.cuh         band_tpu/ops/quant.py:286,327 (traced in B1-B3)
-B1          qmatmul.qmatmul_exact    band_tpu/ops/pallas/qmatmul.py:135
-B2          qconv.qconv2d_exact      band_tpu/ops/pallas/qconv.py:152
-B3          qdwconv.qdwconv2d_exact  band_tpu/ops/pallas/qdwconv.py:114
-softmax     softmax.lut_softmax      band_tpu/ops/quant.py:443 (XLA, no Pallas)
-==========  =======================  =========================================
+==========  =========================  =======================================
+kernel      wrapper                    replaces
+==========  =========================  =======================================
+B0          csrc/requant.cuh           band_tpu/ops/quant.py:286,327,344 (traced in B1-B4)
+B1          qmatmul.qmatmul_exact      band_tpu/ops/pallas/qmatmul.py:135
+B2          qconv.qconv2d_exact        band_tpu/ops/pallas/qconv.py:152
+B3          qdwconv.qdwconv2d_exact    band_tpu/ops/pallas/qdwconv.py:114
+B4          qmatmul.qmatmul_fast       band_tpu/ops/pallas/qmatmul.py:42
+B2 fast     qconv.qconv2d_fast         band_tpu/ops/lowerings.py:563-575 (XLA conv + requantize_fast)
+B3 fast     qdwconv.qdwconv2d_fast     band_tpu/ops/lowerings.py:943-964 (XLA conv + requantize_fast)
+softmax     softmax.lut_softmax        band_tpu/ops/quant.py:443 (XLA, no Pallas)
+==========  =========================  =======================================
 """
 
-from .qconv import qconv2d_exact, qconv2d_plain  # noqa: F401
-from .qdwconv import qdwconv2d_exact, qdwconv2d_plain  # noqa: F401
-from .qmatmul import qmatmul_exact, qmatmul_plain  # noqa: F401
+from .qconv import (qconv2d_exact, qconv2d_fast, qconv2d_fast_plain,  # noqa: F401
+                    qconv2d_plain)
+from .qdwconv import (qdwconv2d_exact, qdwconv2d_fast,  # noqa: F401
+                      qdwconv2d_fast_plain, qdwconv2d_plain)
+from .qmatmul import (qmatmul_exact, qmatmul_fast,  # noqa: F401
+                      qmatmul_fast_plain, qmatmul_plain)
 from .softmax import lut_softmax, lut_softmax_plain  # noqa: F401
 from . import qconv as _qc, qdwconv as _qd, qmatmul as _qm, softmax as _sm
 
 # launch counts by kernel name (each a LaunchCount with a plain int ``n``)
 LAUNCHES = {
     c.name: c
-    for c in (_qm.launches, _qc.launches, _qd.launches, _sm.launches)
+    for c in (_qm.launches, _qc.launches, _qd.launches, _sm.launches,
+              _qm.fast_launches, _qc.fast_launches, _qd.fast_launches)
 }
 
 

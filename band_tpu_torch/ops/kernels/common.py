@@ -61,6 +61,19 @@ def check_epilogue(bias: torch.Tensor, qm: torch.Tensor, shift: torch.Tensor,
     return 0 if qm.numel() == 1 else 1
 
 
+def check_fast_epilogue(bias: torch.Tensor, mult: torch.Tensor, n_out: int,
+                        device: torch.device, out_dtype: torch.dtype) -> int:
+    """Check the fast-numerics requant operands of ``n_out`` output
+    channels; returns the mult stride (0 per-tensor, 1 per-channel)."""
+    check_tensor(bias, "bias", torch.int32, 1, device)
+    require(bias.numel() == n_out, f"bias has {bias.numel()} != {n_out}")
+    check_tensor(mult, "mult", torch.float32, 1, device)
+    require(mult.numel() in (1, n_out), f"mult must hold 1 or {n_out} entries")
+    require(out_dtype in (torch.int8, torch.uint8),
+            f"out_dtype must be int8 or uint8, got {out_dtype}")
+    return 0 if mult.numel() == 1 else 1
+
+
 def pair(v) -> Sequence[int]:
     return (int(v), int(v)) if isinstance(v, int) else (int(v[0]), int(v[1]))
 

@@ -1,6 +1,6 @@
-// Tiled s8 x s8 -> s32 GEMM main loop with the fused requant epilogue,
-// shared by the int8 matmul (qmatmul.cu) and the implicit-GEMM conv
-// (qconv.cu).  The two differ only in how a 4-byte group of the A
+// Tiled s8 x s8 -> s32 GEMM main loop with a fused requant epilogue
+// (exact or fast, requant.cuh), shared by the int8 matmul (qmatmul.cu)
+// and the implicit-GEMM conv (qconv.cu).  The two differ only in how a 4-byte group of the A
 // operand is fetched: a dense [M, K] row, or an im2col window of an
 // NHWC image read straight from the unpadded input.
 //
@@ -117,11 +117,12 @@ struct Im2colA {
   }
 };
 
-// out[M, N] = requant(A[M, K] . B[K, N] - w_zp * rowsum(A) + bias)
-template <class ALoader>
+// out[M, N] = ep(A[M, K] . B[K, N], rowsum(A)): the requant of
+// A . B - w_zp * rowsum(A) + bias by the exact Epilogue or FastEpilogue
+template <class ALoader, class Ep>
 __global__ void __launch_bounds__(kGemmThreads)
     qgemm_kernel(ALoader A, const int8_t* __restrict__ B,
-                 int8_t* __restrict__ out, int M, int N, int K, Epilogue ep) {
+                 int8_t* __restrict__ out, int M, int N, int K, Ep ep) {
   __shared__ uint32_t As[kBM][kBKW + 1];
   __shared__ uint32_t Bs[kBN][kBKW + 1];
 

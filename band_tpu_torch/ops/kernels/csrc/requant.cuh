@@ -1,4 +1,6 @@
-// Bit-exact TFLite requantization epilogue shared by the int8 kernels.
+// The requantization epilogues shared by the int8 kernels: the bit-exact
+// TFLite one (Epilogue) and the float32 one of fast numerics
+// (FastEpilogue).  The kernels take either as a template parameter.
 //
 // Replaces the requant that band_tpu traces into every exact Pallas
 // kernel (band_tpu/ops/quant.py:286 multiply_by_quantized_multiplier and
@@ -79,6 +81,39 @@ struct Epilogue {
                                  shift[c * qstride], out_zp, qmin, qmax,
                                  rounding);
     return static_cast<int8_t>(static_cast<uint8_t>(q));
+  }
+};
+
+// Fast-numerics epilogue: the float32 requant of band_tpu's fast path
+// (band_tpu/ops/quant.py:344 requantize_fast, and the epilogue of the
+// Pallas kernel band_tpu/ops/pallas/qmatmul.py:26 _qmatmul_kernel):
+//   a = acc - w_zp * wsum + bias            (int32, wrapping)
+//   v = round_half_even(float32(a) * mult)  (one rounded product, no FMA)
+//   out = clamp(v + out_zp, qmin, qmax)
+// Only the _rn intrinsics are used, so nvcc contracts nothing and the
+// result equals torch.round(a.float() * mult) bit for bit.  A product
+// beyond int32 saturates in __float2int_rn and the add is 64-bit, so the
+// clamp sees the right sign whatever the size.  mult holds one entry
+// (per-tensor, mstride 0) or one per channel (mstride 1).
+struct FastEpilogue {
+  const int32_t* bias;
+  const float* mult;
+  int mstride;
+  int w_zp;
+  int out_zp;
+  int qmin;
+  int qmax;
+
+  __device__ __forceinline__ int8_t operator()(int32_t acc, int32_t wsum,
+                                               int c) const {
+    const uint32_t a = static_cast<uint32_t>(acc) -
+                       static_cast<uint32_t>(w_zp) * static_cast<uint32_t>(wsum) +
+                       static_cast<uint32_t>(bias[c]);
+    const int v = __float2int_rn(
+        __fmul_rn(__int2float_rn(static_cast<int32_t>(a)), mult[c * mstride]));
+    const long long q = static_cast<long long>(v) + out_zp;
+    const long long r = q < qmin ? qmin : (q > qmax ? qmax : q);
+    return static_cast<int8_t>(static_cast<uint8_t>(r));
   }
 };
 

@@ -1,5 +1,6 @@
-"""Exact int8 depthwise convolution + fused TFLite requant (kernel B3)
-and its plain version.
+"""Int8 depthwise convolution + fused requant: the exact TFLite requant
+(kernel B3) and its fast-numerics instance (float32 requant), each with
+its plain version.
 
 Replaces ``band_tpu/ops/pallas/qdwconv.py:114 qdwconv2d_exact`` (Pallas
 kernel ``_qdwconv_kernel``).  On the TPU it ran only for narrow
@@ -8,6 +9,10 @@ with strides, dilation, depth multiplier > 1 and padding (taps outside
 the image read ``x_zp``).  The CUDA source is ``csrc/qdwconv.cu``: one
 thread per output element over its taps.  It does 9 MACs per output
 byte, so the card's memory rate bounds it.
+
+``qdwconv2d_fast`` is the same kernel with the float32 epilogue of fast
+numerics, which on the TPU was XLA's grouped conv followed by
+``requantize_fast`` (band_tpu/ops/lowerings.py:943-964).
 """
 
 from __future__ import annotations
@@ -19,23 +24,24 @@ import torch.nn.functional as F
 
 from .. import quant as Q
 from . import build
-from .common import (LaunchCount, check_epilogue, check_tensor, on_card,
-                     pair, require)
+from .common import (LaunchCount, check_epilogue, check_fast_epilogue,
+                     check_tensor, on_card, pair, require)
 from .qconv import conv_out_size
 
 launches = LaunchCount("qdwconv2d_exact")
+fast_launches = LaunchCount("qdwconv2d_fast")
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
+_FAST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
 _fn = None
+_fast_fn = None
 
 
-def qdwconv2d_plain(x, w, bias, qm, shift, kh, kw, stride=(1, 1),
-                    dilation=(1, 1), padding=((0, 0), (0, 0)), x_zp=0,
-                    w_zp=0, out_zp=0, qmin=-128, qmax=127, rounding="ruy",
-                    out_dtype=torch.int8):
-    """The same function in plain PyTorch: a grouped float64 convolution
-    of the x_zp-padded input (exact), per-channel window sums by a
-    grouped all-ones convolution, the requant in int64."""
+def _acc_plain(x, w, bias, kh, kw, stride, dilation, padding, x_zp, w_zp):
+    """The depthwise sum over taps - w_zp * window-sum + bias as int64
+    holding the int32 wrap: a grouped float64 convolution of the
+    x_zp-padded input (exact), per-channel window sums by a grouped
+    all-ones convolution.  Runs on any device."""
     (pt, pb), (pl, pr) = padding
     ci = x.shape[-1]
     co = w.shape[1]
@@ -52,10 +58,51 @@ def qdwconv2d_plain(x, w, bias, qm, shift, kh, kw, stride=(1, 1),
                         dilation=tuple(dilation), groups=ci)
         acc = acc - float(w_zp) * wsum.repeat_interleave(mult, dim=1)
     # the kernel's int32 accumulator wraps; so does this one
-    acc = Q.wrap32(acc.permute(0, 2, 3, 1).to(torch.int64)
-                   + bias.to(torch.int64))
+    return Q.wrap32(acc.permute(0, 2, 3, 1).to(torch.int64)
+                    + bias.to(torch.int64))
+
+
+def qdwconv2d_plain(x, w, bias, qm, shift, kh, kw, stride=(1, 1),
+                    dilation=(1, 1), padding=((0, 0), (0, 0)), x_zp=0,
+                    w_zp=0, out_zp=0, qmin=-128, qmax=127, rounding="ruy",
+                    out_dtype=torch.int8):
+    """qdwconv2d_exact in plain PyTorch, the requant in int64."""
+    acc = _acc_plain(x, w, bias, kh, kw, stride, dilation, padding, x_zp,
+                     w_zp)
     return Q.requantize_exact(acc, qm.to(torch.int64), shift.to(torch.int64),
                               out_zp, qmin, qmax, out_dtype, rounding)
+
+
+def qdwconv2d_fast_plain(x, w, bias, mult, kh, kw, stride=(1, 1),
+                         dilation=(1, 1), padding=((0, 0), (0, 0)), x_zp=0,
+                         w_zp=0, out_zp=0, qmin=-128, qmax=127,
+                         out_dtype=torch.int8):
+    """qdwconv2d_fast in plain PyTorch (quant.requantize_fast)."""
+    acc = _acc_plain(x, w, bias, kh, kw, stride, dilation, padding, x_zp,
+                     w_zp)
+    return Q.requantize_fast(acc, mult, out_zp, qmin, qmax, out_dtype)
+
+
+def _geometry(x, w, kh, kw, stride, dilation, padding):
+    """Checks x and w; returns (n, h, wd, ci, mult, co, oh, ow, (sh, sw),
+    (dh, dw), ((pt, pb), (pl, pr)))."""
+    dev = x.device
+    check_tensor(x, "x", torch.int8, 4, dev)
+    check_tensor(w, "w", torch.int8, 2, dev)
+    n, h, wd, ci = x.shape
+    co = w.shape[1]
+    require(w.shape[0] == kh * kw and co % ci == 0,
+            f"w {tuple(w.shape)} != [{kh}*{kw}, {ci}*mult]")
+    sh, sw = pair(stride)
+    dh, dw = pair(dilation)
+    (pt, pb), (pl, pr) = padding
+    require(min(sh, sw, dh, dw) >= 1 and min(pt, pb, pl, pr) >= 0,
+            "strides and dilations >= 1, pads >= 0")
+    oh = conv_out_size(h, kh, sh, dh, pt + pb)
+    ow = conv_out_size(wd, kw, sw, dw, pl + pr)
+    require(oh >= 1 and ow >= 1, "empty convolution output")
+    return (n, h, wd, ci, co // ci, co, oh, ow, (sh, sw), (dh, dw),
+            ((pt, pb), (pl, pr)))
 
 
 def qdwconv2d_exact(x, w, bias, qm, shift, kh, kw, stride=(1, 1),
@@ -70,36 +117,55 @@ def qdwconv2d_exact(x, w, bias, qm, shift, kh, kw, stride=(1, 1),
     version; a CUDA tensor launches the kernel."""
     global _fn
     out_dtype = Q.torch_dtype(out_dtype)
-    dev = x.device
-    check_tensor(x, "x", torch.int8, 4, dev)
-    check_tensor(w, "w", torch.int8, 2, dev)
-    n, h, wd, ci = x.shape
-    co = w.shape[1]
-    require(w.shape[0] == kh * kw and co % ci == 0,
-            f"w {tuple(w.shape)} != [{kh}*{kw}, {ci}*mult]")
-    mult = co // ci
-    sh, sw = pair(stride)
-    dh, dw = pair(dilation)
-    (pt, pb), (pl, pr) = padding
-    require(min(sh, sw, dh, dw) >= 1 and min(pt, pb, pl, pr) >= 0,
-            "strides and dilations >= 1, pads >= 0")
-    oh = conv_out_size(h, kh, sh, dh, pt + pb)
-    ow = conv_out_size(wd, kw, sw, dw, pl + pr)
-    require(oh >= 1 and ow >= 1, "empty convolution output")
-    qstride = check_epilogue(bias, qm, shift, co, dev, rounding, out_dtype)
+    n, h, wd, ci, mult, co, oh, ow, (sh, sw), (dh, dw), pads = _geometry(
+        x, w, kh, kw, stride, dilation, padding)
+    (pt, pb), (pl, pr) = pads
+    qstride = check_epilogue(bias, qm, shift, co, x.device, rounding,
+                             out_dtype)
     if not on_card(x):
         return qdwconv2d_plain(x, w, bias, qm, shift, kh, kw, (sh, sw),
-                               (dh, dw), ((pt, pb), (pl, pr)), x_zp, w_zp,
-                               out_zp, qmin, qmax, rounding, out_dtype)
+                               (dh, dw), pads, x_zp, w_zp, out_zp, qmin,
+                               qmax, rounding, out_dtype)
     require(n * oh * ow * co < 2**31 and x.numel() < 2**31,
             "tensor too large for 32-bit indexing")
-    out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=dev)
+    out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
     if _fn is None:
         _fn = build.bind("qdwconv", "band_qdwconv2d_exact", _ARGTYPES)
-    build.launch(_fn, dev, build.ptr(x), build.ptr(w), build.ptr(bias),
+    build.launch(_fn, x.device, build.ptr(x), build.ptr(w), build.ptr(bias),
                  build.ptr(qm), build.ptr(shift), build.ptr(out), n, h, wd,
                  ci, mult, oh, ow, kh, kw, sh, sw, dh, dw, pt, pl, qstride,
                  int(x_zp), int(w_zp), int(out_zp), int(qmin), int(qmax),
                  Q.ROUNDING_CODES[rounding])
     launches.add()
+    return out
+
+
+def qdwconv2d_fast(x, w, bias, mult, kh, kw, stride=(1, 1), dilation=(1, 1),
+                   padding=((0, 0), (0, 0)), x_zp=0, w_zp=0, out_zp=0,
+                   qmin=-128, qmax=127, out_dtype=torch.int8):
+    """The fast-numerics instance of qdwconv2d_exact: out = clamp(
+    round_half_even(float32(depthwise sum - w_zp * window-sum + bias) *
+    mult) + out_zp, qmin, qmax), mult float32 [C*mult] or [1].  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    global _fast_fn
+    out_dtype = Q.torch_dtype(out_dtype)
+    n, h, wd, ci, dm, co, oh, ow, (sh, sw), (dh, dw), pads = _geometry(
+        x, w, kh, kw, stride, dilation, padding)
+    (pt, pb), (pl, pr) = pads
+    mstride = check_fast_epilogue(bias, mult, co, x.device, out_dtype)
+    if not on_card(x):
+        return qdwconv2d_fast_plain(x, w, bias, mult, kh, kw, (sh, sw),
+                                    (dh, dw), pads, x_zp, w_zp, out_zp, qmin,
+                                    qmax, out_dtype)
+    require(n * oh * ow * co < 2**31 and x.numel() < 2**31,
+            "tensor too large for 32-bit indexing")
+    out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
+    if _fast_fn is None:
+        _fast_fn = build.bind("qdwconv", "band_qdwconv2d_fast",
+                              _FAST_ARGTYPES)
+    build.launch(_fast_fn, x.device, build.ptr(x), build.ptr(w),
+                 build.ptr(bias), build.ptr(mult), build.ptr(out), n, h, wd,
+                 ci, dm, oh, ow, kh, kw, sh, sw, dh, dw, pt, pl, mstride,
+                 int(x_zp), int(w_zp), int(out_zp), int(qmin), int(qmax))
+    fast_launches.add()
     return out

@@ -5,9 +5,17 @@ zero-point corrections folded into the bias, fixed-point multipliers)
 and a lowering that runs on torch tensors.  Every int8 CONV_2D,
 DEPTHWISE_CONV_2D and FULLY_CONNECTED goes through a hand-written kernel
 (ops/kernels), which on a CPU tensor runs its plain PyTorch version;
-quantized SOFTMAX goes through its kernel too.  ADD and MEAN are plain
-PyTorch in int64, the pools in floating point (exact for 8-bit values),
-RESHAPE a view.
+quantized SOFTMAX goes through its kernel too.  ADD, SUB, MUL, MEAN and
+the int8 QUANTIZE are plain PyTorch in int64, the pools in floating
+point (exact for 8-bit values), RESHAPE a view, LOGISTIC, TANH and ELU
+TFLite's 256-entry tables.
+
+Numerics: ``prepare(graph, op, exact)`` with exact=False (fast numerics)
+gives CONV_2D, DEPTHWISE_CONV_2D and FULLY_CONNECTED a float32 ``mult``
+instead of ``qm``/``shift``, ADD and SUB the float32 rescales ``f1``/``f2``
+and MUL ``fm``, as band_tpu's prepares do; each lowering takes the fast
+form when its prepared params hold those keys (the fast kernels
+qmatmul_fast, qconv2d_fast and qdwconv2d_fast for the convs and FC).
 
 Counterparts: band_tpu/ops/lowerings.py.  The TPU routing gates there
 (256-row tiles and M padding, the C<=64 boundary-only depthwise rule,
@@ -20,13 +28,15 @@ stacked on the leading axis, so a tensor whose model shape is
 taken from the model are rescaled by ``_stacked_shape``, and no op
 reduces over axis 0.
 
-Only the slice's op set is here (the op set of MobileNetV2 and the
-tests/data CNNs); float and hybrid variants of these ops raise
-LoweringError.
+Only the slice's op set is here (the op set of MobileNetV2, the
+tests/data CNNs and quant_act_int8); float and hybrid variants of these
+ops raise LoweringError, except the float ELU between a DEQUANTIZE and a
+QUANTIZE.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -36,7 +46,9 @@ import torch.nn.functional as F
 from ..errors import LoweringError
 from ..ir.graph import Graph, OpNode, QuantParams, TensorDef
 from . import quant as Q
-from .kernels import lut_softmax, qconv2d_exact, qdwconv2d_exact, qmatmul_exact
+from .kernels import (lut_softmax, qconv2d_exact, qconv2d_fast,
+                      qdwconv2d_exact, qdwconv2d_fast, qmatmul_exact,
+                      qmatmul_fast)
 from .registry import register
 
 
@@ -146,15 +158,22 @@ def _require_int8_path(graph: Graph, op: OpNode) -> None:
         )
 
 
-def _requant_args(ctx: LowerCtx, op: OpNode, out_td: TensorDef) -> Dict[str, Any]:
-    return dict(
+def _requant(ctx: LowerCtx, op: OpNode, out_td: TensorDef):
+    """(fast, epilogue tensors, keyword arguments) of a conv-family kernel
+    call: bias and mult for the fast kernels when prepare produced a
+    ``mult``, else bias, qm and shift and the rounding for the exact ones."""
+    kw = dict(
         out_zp=int(ctx.smeta(op, "out_zp")),
         qmin=int(ctx.smeta(op, "qmin")),
         qmax=int(ctx.smeta(op, "qmax")),
-        rounding=ctx.smeta(op, "rounding"),
         w_zp=int(ctx.smeta(op, "w_zp")),
         out_dtype=Q.torch_dtype(out_td.dtype),
     )
+    if f"op{op.index}/mult" in ctx.params:
+        return True, (ctx.param(op, "bias"), ctx.param(op, "mult")), kw
+    kw["rounding"] = ctx.smeta(op, "rounding")
+    return False, (ctx.param(op, "bias"), ctx.param(op, "qm"),
+                   ctx.param(op, "shift")), kw
 
 
 # --------------------------------------------------------------------------
@@ -219,11 +238,12 @@ def _prepare_conv_common(
         "x_zp": xzp,
         "w_zp": wzp,
     }
-    if not exact:
-        raise LoweringError("fast numerics are not ported to PyTorch yet")
-    qm, shift = Q.quantize_multipliers(multipliers)
-    out["qm"] = qm
-    out["shift"] = shift
+    if exact:
+        qm, shift = Q.quantize_multipliers(multipliers)
+        out["qm"] = qm
+        out["shift"] = shift
+    else:
+        out["mult"] = multipliers.astype(np.float32)
     act = op.options.get("activation", "NONE")
     qmin, qmax = Q.activation_range(act, os_, ozp, out_td.dtype)
     out["qmin"], out["qmax"], out["out_zp"] = qmin, qmax, ozp
@@ -246,8 +266,9 @@ def _prepare_conv2d(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 @register("CONV_2D", prepare=_prepare_conv2d)
 def _conv2d(ctx: LowerCtx, op: OpNode) -> None:
-    """1x1 stride-1 unpadded convs are matmuls (kernel B1); every other
-    conv runs the implicit-GEMM conv kernel (B2) with its own padding."""
+    """1x1 stride-1 unpadded convs are matmuls (kernel B1, or B4 with fast
+    numerics); every other conv runs the implicit-GEMM conv kernel (B2,
+    or its fast instance) with its own padding."""
     x = _to_int8_domain(ctx.arr(op.inputs[0]))
     w = ctx.param(op, "w")  # HWIO int8
     out_td = ctx.graph.tensor(op.outputs[0])
@@ -256,15 +277,14 @@ def _conv2d(ctx: LowerCtx, op: OpNode) -> None:
     ph, pw = _conv_pads(opts, x.shape[1], x.shape[2], kh, kw)
     dil = (opts.get("dilation_h", 1), opts.get("dilation_w", 1))
     strides = (opts["stride_h"], opts["stride_w"])
-    rq = _requant_args(ctx, op, out_td)
-    epi = (ctx.param(op, "bias"), ctx.param(op, "qm"), ctx.param(op, "shift"))
+    fast, epi, rq = _requant(ctx, op, out_td)
     if (kh, kw) == (1, 1) and strides == (1, 1) and ph == (0, 0) and pw == (0, 0):
         n, h, w_, _ = x.shape
-        out = qmatmul_exact(x.reshape(n * h * w_, ci), w.reshape(ci, oc),
-                            *epi, **rq)
+        out = (qmatmul_fast if fast else qmatmul_exact)(
+            x.reshape(n * h * w_, ci), w.reshape(ci, oc), *epi, **rq)
         ctx.set(op.outputs[0], out.reshape(n, h, w_, oc))
         return
-    out = qconv2d_exact(
+    out = (qconv2d_fast if fast else qconv2d_exact)(
         x, w.reshape(kh * kw * ci, oc), *epi, kh=kh, kw=kw, stride=strides,
         dilation=dil, padding=(ph, pw), x_zp=int(ctx.smeta(op, "x_zp")), **rq,
     )
@@ -289,21 +309,20 @@ def _prepare_dwconv2d(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 @register("DEPTHWISE_CONV_2D", prepare=_prepare_dwconv2d)
 def _dwconv2d(ctx: LowerCtx, op: OpNode) -> None:
-    """Every int8 depthwise conv runs kernel B3 (any stride, dilation and
-    depth multiplier; padded taps read x_zp)."""
+    """Every int8 depthwise conv runs kernel B3, or its fast instance (any
+    stride, dilation and depth multiplier; padded taps read x_zp)."""
     x = _to_int8_domain(ctx.arr(op.inputs[0]))
     w = ctx.param(op, "w")  # HWIO [kh, kw, 1, C*mult] int8
     out_td = ctx.graph.tensor(op.outputs[0])
     opts = op.options
     kh, kw = w.shape[0], w.shape[1]
     ph, pw = _conv_pads(opts, x.shape[1], x.shape[2], kh, kw)
-    out = qdwconv2d_exact(
-        x, w.reshape(kh * kw, w.shape[-1]), ctx.param(op, "bias"),
-        ctx.param(op, "qm"), ctx.param(op, "shift"), kh=kh, kw=kw,
+    fast, epi, rq = _requant(ctx, op, out_td)
+    out = (qdwconv2d_fast if fast else qdwconv2d_exact)(
+        x, w.reshape(kh * kw, w.shape[-1]), *epi, kh=kh, kw=kw,
         stride=(opts["stride_h"], opts["stride_w"]),
         dilation=(opts.get("dilation_h", 1), opts.get("dilation_w", 1)),
-        padding=(ph, pw), x_zp=int(ctx.smeta(op, "x_zp")),
-        **_requant_args(ctx, op, out_td),
+        padding=(ph, pw), x_zp=int(ctx.smeta(op, "x_zp")), **rq,
     )
     ctx.set(op.outputs[0], out)
 
@@ -329,25 +348,24 @@ def _prepare_fc(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 @register("FULLY_CONNECTED", prepare=_prepare_fc)
 def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
-    """Every int8 FC runs kernel B1 on the input's rows."""
+    """Every int8 FC runs kernel B1 (B4 with fast numerics) on the
+    input's rows."""
     x_raw = ctx.arr(op.inputs[0])
     x = _to_int8_domain(x_raw)
     out_td = ctx.graph.tensor(op.outputs[0])
-    out = qmatmul_exact(
-        x.reshape(-1, x.shape[-1]), ctx.param(op, "w"), ctx.param(op, "bias"),
-        ctx.param(op, "qm"), ctx.param(op, "shift"),
-        **_requant_args(ctx, op, out_td),
-    )
+    fast, epi, rq = _requant(ctx, op, out_td)
+    out = (qmatmul_fast if fast else qmatmul_exact)(
+        x.reshape(-1, x.shape[-1]), ctx.param(op, "w"), *epi, **rq)
     in_td = ctx.graph.tensor(op.inputs[0])
     ctx.set(op.outputs[0],
             out.reshape(_stacked_shape(x_raw, in_td, out_td.shape)))
 
 
 # --------------------------------------------------------------------------
-# ADD
+# ADD, SUB, MUL
 # --------------------------------------------------------------------------
 
-def _prepare_addsub(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+def _require_quantized_binary(graph: Graph, op: OpNode) -> None:
     t1, t2 = graph.tensor(op.inputs[0]), graph.tensor(op.inputs[1])
     out_td = graph.tensor(op.outputs[0])
     if (t1.quant is None or t1.dtype.kind == "f" or t2.quant is None
@@ -356,8 +374,17 @@ def _prepare_addsub(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
             f"{op.opname} op {op.index}: float variants are not ported to "
             "PyTorch yet"
         )
-    if not exact:
-        raise LoweringError("fast numerics are not ported to PyTorch yet")
+
+
+def _constant_inputs(graph: Graph, op: OpNode) -> Dict[str, Any]:
+    return {f"c{tid}": graph.tensor(tid).data for tid in op.inputs
+            if graph.tensor(tid).is_constant}
+
+
+def _prepare_addsub(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    _require_quantized_binary(graph, op)
+    t1, t2 = graph.tensor(op.inputs[0]), graph.tensor(op.inputs[1])
+    out_td = graph.tensor(op.outputs[0])
     s1, zp1 = _scalar_qp(t1.quant)
     s2, zp2 = _scalar_qp(t2.quant)
     so, zpo = _scalar_qp(out_td.quant)
@@ -375,10 +402,13 @@ def _prepare_addsub(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
         "qmo": np.int32(qmo), "sho": sho,
         "left_shift": left_shift, "qmin": qmin, "qmax": qmax,
     }
-    for tid in op.inputs:
-        td = graph.tensor(tid)
-        if td.is_constant:
-            d[f"c{tid}"] = td.data
+    if not exact:
+        # fast numerics: one float32 rescale per input and one round in
+        # place of the three fixed-point chains (band_tpu
+        # lowerings.py:1130-1135)
+        d["f1"] = float(s1 / so)
+        d["f2"] = float(s2 / so)
+    d.update(_constant_inputs(graph, op))
     return d
 
 
@@ -390,13 +420,30 @@ def _binary_inputs(ctx: LowerCtx, op: OpNode):
     return vals
 
 
-@register("ADD", prepare=_prepare_addsub)
-def _add(ctx: LowerCtx, op: OpNode) -> None:
-    """TFLite's quantized ADD: both inputs rescaled to a common scale
-    (x - zp) << 20 through single-rounding MBQM, summed, rescaled to the
-    output, all in int64."""
+def _store_clamped(ctx: LowerCtx, op: OpNode, r: torch.Tensor) -> None:
+    """Output = clamp(r + zpo, qmin, qmax) of float32 integers ``r``."""
+    out_td = ctx.graph.tensor(op.outputs[0])
+    ctx.set(op.outputs[0], Q.clamp_rounded(
+        r, int(ctx.smeta(op, "zpo")), int(ctx.smeta(op, "qmin")),
+        int(ctx.smeta(op, "qmax")), out_td.dtype))
+
+
+def _addsub(ctx: LowerCtx, op: OpNode, sign: int) -> None:
+    """TFLite's quantized ADD/SUB: both inputs rescaled to a common scale
+    (x - zp) << 20 through single-rounding MBQM, summed (or subtracted),
+    rescaled to the output, all in int64.  Fast numerics: round_half_even
+    ((x1 - zp1) * f1 + sign * (x2 - zp2) * f2) + zpo in float32, band_tpu's
+    form (every product and the sum rounded once, no FMA; the
+    differences of 8-bit values are exact in float32)."""
     out_td = ctx.graph.tensor(op.outputs[0])
     x1, x2 = _binary_inputs(ctx, op)
+    if f"op{op.index}/f1" in ctx.meta:
+        p1 = (x1.to(torch.float32) - float(ctx.smeta(op, "zp1"))) * \
+            float(ctx.smeta(op, "f1"))
+        p2 = (x2.to(torch.float32) - float(ctx.smeta(op, "zp2"))) * \
+            float(ctx.smeta(op, "f2"))
+        _store_clamped(ctx, op, torch.round(p1 + p2 if sign > 0 else p1 - p2))
+        return
     ls = int(ctx.smeta(op, "left_shift"))
     a1 = x1.to(torch.int64) - int(ctx.smeta(op, "zp1"))
     a2 = x2.to(torch.int64) - int(ctx.smeta(op, "zp2"))
@@ -404,9 +451,64 @@ def _add(ctx: LowerCtx, op: OpNode) -> None:
         a1 << ls, int(ctx.smeta(op, "qm1")), int(ctx.smeta(op, "sh1")))
     s2 = Q.multiply_by_quantized_multiplier(
         a2 << ls, int(ctx.smeta(op, "qm2")), int(ctx.smeta(op, "sh2")))
-    raw = s1.to(torch.int64) + s2.to(torch.int64)
+    s1, s2 = s1.to(torch.int64), s2.to(torch.int64)
+    raw = s1 + s2 if sign > 0 else s1 - s2
     out = Q.multiply_by_quantized_multiplier(
         raw, int(ctx.smeta(op, "qmo")), int(ctx.smeta(op, "sho"))
+    ).to(torch.int64) + int(ctx.smeta(op, "zpo"))
+    out = out.clamp(int(ctx.smeta(op, "qmin")), int(ctx.smeta(op, "qmax")))
+    ctx.set(op.outputs[0], out.to(Q.torch_dtype(out_td.dtype)))
+
+
+@register("ADD", prepare=_prepare_addsub)
+def _add(ctx: LowerCtx, op: OpNode) -> None:
+    _addsub(ctx, op, +1)
+
+
+@register("SUB", prepare=_prepare_addsub)
+def _sub(ctx: LowerCtx, op: OpNode) -> None:
+    _addsub(ctx, op, -1)
+
+
+def _prepare_mul(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    _require_quantized_binary(graph, op)
+    t1, t2 = graph.tensor(op.inputs[0]), graph.tensor(op.inputs[1])
+    out_td = graph.tensor(op.outputs[0])
+    s1, zp1 = _scalar_qp(t1.quant)
+    s2, zp2 = _scalar_qp(t2.quant)
+    so, zpo = _scalar_qp(out_td.quant)
+    # TFLite computes the MUL multiplier fully in float32 before widening
+    fm = float(np.float32(np.float32(s1) * np.float32(s2) / np.float32(so)))
+    qm, sh = Q.quantize_multiplier(fm)
+    act = op.options.get("activation", "NONE")
+    qmin, qmax = Q.activation_range(act, so, zpo, out_td.dtype)
+    d = {"zp1": zp1, "zp2": zp2, "zpo": zpo, "qm": np.int32(qm), "sh": sh,
+         "qmin": qmin, "qmax": qmax}
+    if not exact:
+        d["fm"] = fm
+    d.update(_constant_inputs(graph, op))
+    return d
+
+
+@register("MUL", prepare=_prepare_mul)
+def _mul(ctx: LowerCtx, op: OpNode) -> None:
+    """TFLite's quantized MUL: (x1 - zp1) * (x2 - zp2) requantized by
+    double-rounding MBQM (TFLite's int8 MUL kernels use gemmlowp's
+    pipeline, unlike ADD).  Fast numerics: round_half_even(product *
+    fm) in float32 (the product of two 8-bit differences is exact
+    there).  A constant operand broadcasts, also over a stacked window."""
+    out_td = ctx.graph.tensor(op.outputs[0])
+    x1, x2 = _binary_inputs(ctx, op)
+    if f"op{op.index}/fm" in ctx.meta:
+        acc = (x1.to(torch.float32) - float(ctx.smeta(op, "zp1"))) * \
+            (x2.to(torch.float32) - float(ctx.smeta(op, "zp2")))
+        _store_clamped(ctx, op, torch.round(acc * float(ctx.smeta(op, "fm"))))
+        return
+    acc = (x1.to(torch.int64) - int(ctx.smeta(op, "zp1"))) * \
+        (x2.to(torch.int64) - int(ctx.smeta(op, "zp2")))
+    out = Q.multiply_by_quantized_multiplier(
+        acc, int(ctx.smeta(op, "qm")), int(ctx.smeta(op, "sh")),
+        rounding="double",
     ).to(torch.int64) + int(ctx.smeta(op, "zpo"))
     out = out.clamp(int(ctx.smeta(op, "qmin")), int(ctx.smeta(op, "qmax")))
     ctx.set(op.outputs[0], out.to(Q.torch_dtype(out_td.dtype)))
@@ -522,6 +624,121 @@ def _softmax(ctx: LowerCtx, op: OpNode) -> None:
         ctx.arr(op.inputs[0]), ctx.param(op, "sm_table"), os_, ozp,
         out_td.dtype,
     ))
+
+
+# --------------------------------------------------------------------------
+# QUANTIZE, DEQUANTIZE
+# --------------------------------------------------------------------------
+
+def _prepare_quantize(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    in_td = graph.tensor(op.inputs[0])
+    out_td = graph.tensor(op.outputs[0])
+    if out_td.quant is None or out_td.quant.per_channel:
+        raise LoweringError(
+            f"QUANTIZE op {op.index}: only per-tensor quantized outputs are "
+            "ported to PyTorch yet"
+        )
+    if in_td.quant is None or in_td.dtype.kind == "f":
+        return {}
+    s_i, _ = _scalar_qp(in_td.quant)
+    s_o, _ = _scalar_qp(out_td.quant)
+    qm, sh = Q.quantize_multiplier(np.float64(s_i) / np.float64(s_o))
+    return {"qm": np.int32(qm), "sh": sh}
+
+
+@register("QUANTIZE", prepare=_prepare_quantize)
+def _quantize_op(ctx: LowerCtx, op: OpNode) -> None:
+    """float -> int: round_half_even(x / s) + zp, clamped (band_tpu's
+    quantize).  int -> int: TFLite's Requantize, MBQM(q - zp_in) + zp_out
+    with ruy's rounding, clamped."""
+    g = ctx.graph
+    out_td = g.tensor(op.outputs[0])
+    s_o, zp_o = _scalar_qp(out_td.quant)
+    x = ctx.arr(op.inputs[0])
+    if not ctx.is_quantized(op.inputs[0]):
+        ctx.set(op.outputs[0], Q.quantize(x, s_o, zp_o, out_td.dtype))
+        return
+    _, zp_i = _scalar_qp(g.tensor(op.inputs[0]).quant)
+    out = Q.multiply_by_quantized_multiplier(
+        x.to(torch.int64) - zp_i, int(ctx.smeta(op, "qm")),
+        int(ctx.smeta(op, "sh")), rounding="ruy",
+    ).to(torch.int64) + zp_o
+    qmin, qmax = Q.quantized_range(out_td.dtype)
+    ctx.set(op.outputs[0],
+            out.clamp(qmin, qmax).to(Q.torch_dtype(out_td.dtype)))
+
+
+def _prepare_dequantize(graph: Graph, op: OpNode,
+                        exact: bool) -> Dict[str, Any]:
+    td = graph.tensor(op.inputs[0])
+    if (td.quant is None or td.quant.per_channel or td.is_constant
+            or td.dtype.kind == "f"):
+        raise LoweringError(
+            f"DEQUANTIZE op {op.index}: only per-tensor quantized "
+            "activations are ported to PyTorch yet"
+        )
+    return {}
+
+
+@register("DEQUANTIZE", prepare=_prepare_dequantize)
+def _dequantize_op(ctx: LowerCtx, op: OpNode) -> None:
+    """(q - zp) * s in float32."""
+    s, zp = _scalar_qp(ctx.qp(op.inputs[0]))
+    ctx.set(op.outputs[0], Q.dequantize(ctx.arr(op.inputs[0]), s, zp))
+
+
+# --------------------------------------------------------------------------
+# LOGISTIC, TANH, ELU
+# --------------------------------------------------------------------------
+
+# Quantized LOGISTIC/TANH/ELU run through TFLite's 256-entry lookup
+# tables (activations.cc PopulateLookupTable/EvalUsingLookupTable),
+# built from these float transforms (band_tpu/ops/lowerings.py:1782-1786).
+_LUT_TRANSFORMS = {
+    "LOGISTIC": lambda v: 1.0 / (1.0 + math.exp(-v)),
+    "TANH": math.tanh,
+    "ELU": lambda v: v if v >= 0.0 else math.expm1(v),
+}
+
+
+def _prepare_unary_lut(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    in_td = graph.tensor(op.inputs[0])
+    out_td = graph.tensor(op.outputs[0])
+    if op.opname == "ELU" and in_td.quant is None and out_td.quant is None \
+            and in_td.dtype == np.float32:
+        return {}
+    if (
+        in_td.quant is None or in_td.dtype.itemsize != 1
+        or in_td.dtype.kind == "f"
+        or out_td.quant is None or out_td.dtype.itemsize != 1
+    ):
+        raise LoweringError(
+            f"{op.opname} op {op.index}: only the 8-bit quantized form"
+            + (" and the float32 ELU" if op.opname == "ELU" else "")
+            + " are ported to PyTorch yet"
+        )
+    xs, xzp = _scalar_qp(in_td.quant)
+    os_, ozp = _scalar_qp(out_td.quant)
+    return {"lut": Q.activation_lut(_LUT_TRANSFORMS[op.opname], xs, xzp,
+                                    os_, ozp, out_td.dtype)}
+
+
+def _unary_lut(ctx: LowerCtx, op: OpNode) -> None:
+    """table[uint8(x)].  The float32 ELU is where(x > 0, x, expm1(x)) with
+    expm1 taken in float64 and rounded once to float32: the correctly
+    rounded value, the same on the CPU and the card (float32 expm1
+    differs by an ulp between libraries; XLA's, in band_tpu, on 11 of
+    quant_act_int8's 256 ELU inputs, none of which moves its QUANTIZE)."""
+    x = ctx.arr(op.inputs[0])
+    if f"op{op.index}/lut" in ctx.params:
+        ctx.set(op.outputs[0], Q.apply_lut(x, ctx.param(op, "lut")))
+        return
+    neg = torch.expm1(torch.clamp(x, max=0.0).to(torch.float64))
+    ctx.set(op.outputs[0], torch.where(x > 0, x, neg.to(torch.float32)))
+
+
+for _name in _LUT_TRANSFORMS:
+    register(_name, prepare=_prepare_unary_lut)(_unary_lut)
 
 
 # --------------------------------------------------------------------------

@@ -10,8 +10,10 @@ one add and one arithmetic shift.  The same formulas run inside the
 CUDA kernels (ops/kernels/csrc/requant.cuh).
 
 Which rounding each op uses: CONV_2D, DEPTHWISE_CONV_2D and
-FULLY_CONNECTED requantize through ruy (``rounding="ruy"``), ADD through
-single rounding, MEAN through double rounding (ops/lowerings.py).
+FULLY_CONNECTED requantize through ruy (``rounding="ruy"``), ADD and SUB
+through single rounding, MUL and MEAN through double rounding
+(ops/lowerings.py).  Fast numerics replace those epilogues with the
+float32 forms below (``requantize_fast``).
 """
 
 from __future__ import annotations
@@ -193,6 +195,101 @@ def requantize_exact(
     scaled = multiply_by_quantized_multiplier(acc, qm, shift, rounding)
     out = wrap32(scaled.to(torch.int64) + int(out_zp))
     return out.clamp(int(qmin), int(qmax)).to(torch_dtype(out_dtype))
+
+
+# --------------------------------------------------------------------------
+# Fast numerics (RuntimeConfig.numerics == "fast"): float32 epilogues
+# --------------------------------------------------------------------------
+
+def _as_f32(v, like: torch.Tensor):
+    """A float32 operand: a tensor on ``like``'s device, or a Python float
+    for a scalar (float32 arithmetic rounds it to float32 either way)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.float32)
+    a = np.asarray(v, np.float32)
+    if a.ndim == 0:
+        return float(a)
+    return torch.as_tensor(a, device=like.device)
+
+
+def clamp_rounded(r: torch.Tensor, out_zp: int, qmin: int, qmax: int,
+                  out_dtype) -> torch.Tensor:
+    """clamp(r + out_zp, qmin, qmax) of a float32 tensor of integers ``r``,
+    as ``out_dtype``.  The clamp comes first, to [qmin - out_zp, qmax -
+    out_zp], so that the add stays exact however large r is; for |r| <
+    2^31 this is band_tpu's int32 add and clip."""
+    r = r.clamp(float(qmin - out_zp), float(qmax - out_zp)) + float(out_zp)
+    return r.to(torch_dtype(out_dtype))
+
+
+def requantize_fast(
+    acc: torch.Tensor,
+    multiplier,
+    out_zp: int,
+    qmin: int,
+    qmax: int,
+    out_dtype,
+) -> torch.Tensor:
+    """int32 accumulator -> quantized output through a float32 multiply
+    and round half to even (band_tpu/ops/quant.py:344 requantize_fast).
+    The accumulator converts to float32 with round to nearest; the
+    multiply is one float32 product, so nothing is fused into an FMA.
+    ``multiplier`` broadcasts against the last axis."""
+    scaled = torch.round(acc.to(torch.float32) * _as_f32(multiplier, acc))
+    return clamp_rounded(scaled, out_zp, qmin, qmax, out_dtype)
+
+
+def round_ties_away(x: torch.Tensor) -> torch.Tensor:
+    """std::round semantics: round half away from zero (TfLiteRound)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def dequantize(q: torch.Tensor, scale, zero_point) -> torch.Tensor:
+    """(q - zero_point) * scale in float32."""
+    return (q.to(torch.int32) - int(zero_point)).to(torch.float32) * \
+        _as_f32(scale, q)
+
+
+def quantize(x: torch.Tensor, scale, zero_point, dtype) -> torch.Tensor:
+    """round_half_even(x / scale) + zero_point, clamped to the dtype, as
+    band_tpu's quantize (band_tpu/ops/quant.py:407).  TFLite's own
+    QUANTIZE mixes a half-even main loop with a half-away scalar tail;
+    half-even matches the main loop."""
+    qmin, qmax = quantized_range(np.dtype(dtype))
+    s = _as_f32(scale, x)
+    if not isinstance(s, torch.Tensor):
+        # CUDA divides by a host scalar as a multiply by its reciprocal,
+        # which can be an ulp off the quotient; a 0-d tensor on x's
+        # device (filled there, no copy) gets the true division
+        s = torch.full((), s, dtype=torch.float32, device=x.device)
+    r = torch.round(x.to(torch.float32) / s)
+    return clamp_rounded(r, int(zero_point), qmin, qmax, dtype)
+
+
+def activation_lut(fn, in_scale: float, in_zp: int, out_scale: float,
+                   out_zp: int, dtype) -> np.ndarray:
+    """TFLite PopulateLookupTable (lite/kernels/activations.cc): the
+    256-entry int8/uint8 table for a quantized elementwise activation,
+    indexed by the uint8 reinterpretation of the input byte.  TfLiteRound
+    is half away from zero."""
+    dtype = np.dtype(dtype)
+    info = np.iinfo(dtype)
+    table = np.zeros(256, dtype)
+    inv = np.float32(1.0) / np.float32(out_scale)
+    for val in range(info.min, info.max + 1):
+        deq = np.float32(in_scale) * np.float32(val - in_zp)
+        tr = np.float32(fn(float(deq)))
+        x = np.float32(tr * inv)
+        rescaled = np.float32(np.sign(x) * np.floor(np.abs(x) + 0.5))
+        quantized = int(rescaled) + out_zp
+        table[val & 0xFF] = np.clip(quantized, info.min, info.max)
+    return table
+
+
+def apply_lut(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[uint8(x[i])] (TFLite EvalUsingLookupTable)."""
+    idx = x.view(torch.uint8) if x.dtype == torch.int8 else x
+    return table[idx.to(torch.int64)]
 
 
 # --------------------------------------------------------------------------

@@ -17,8 +17,8 @@ tensors carried on the job record.
 Counterpart: band_tpu/runtime/engine.py.  Not ported yet, and refused
 with ConfigError when a config asks for them: the global-queue worker,
 every scheduler but fixed_worker, co-dispatch, link costs, the
-resource monitor, multi-process serving, mesh workers, fast numerics
-and a compilation cache.  The shortest-latency DP is the Python one
+resource monitor, multi-process serving, mesh workers and a
+compilation cache.  The shortest-latency DP is the Python one
 (the native plan core is not ported).
 """
 
@@ -75,8 +75,6 @@ def _refuse_unported(config: RuntimeConfig) -> None:
         asks.append("link costs (link_costs / probe_link_costs)")
     if config.monitor.enable:
         asks.append("the resource monitor")
-    if config.numerics != "exact":
-        asks.append(f"numerics {config.numerics!r} (only 'exact')")
     if config.planner.worker_type == WorkerType.GLOBAL_QUEUE:
         asks.append("the global-queue worker")
     for s in config.planner.schedulers:
@@ -279,16 +277,16 @@ class Engine(EngineBase):
         """Register a model (reference: engine.cc:51-289): partition it,
         prepare every subgraph with its weights on its worker's device,
         profile bucket 1 and schedule the batch buckets' warm-up.
-        ``numerics`` must be "exact" (fast numerics are not ported)."""
+
+        ``numerics`` overrides the engine-wide RuntimeConfig.numerics for
+        this model ("exact" | "fast"), so exact and fast models can be
+        served side by side on one worker."""
         from ..backend.executor import ModelExecutor
 
         if numerics is None:
             numerics = self.config.numerics
-        if numerics != "exact":
-            raise ConfigError(
-                f"numerics {numerics!r} is not ported to PyTorch yet "
-                "(only 'exact')"
-            )
+        if numerics not in ("exact", "fast"):
+            raise ConfigError("numerics must be 'exact' or 'fast'")
 
         with self._lock:
             model_id = self._model_counter
@@ -313,7 +311,8 @@ class Engine(EngineBase):
             wid = sdef.worker_id
             if wid not in rec.executors:
                 rec.executors[wid] = ModelExecutor(
-                    model_id, graph, wid, self._worker_devices[wid]
+                    model_id, graph, wid, self._worker_devices[wid],
+                    exact=numerics != "fast",
                 )
             key = rec.executors[wid].prepare_subgraph(
                 sorted(sdef.op_indices), sorted(sdef.unit_indices)

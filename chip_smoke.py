@@ -13,15 +13,18 @@ Phases:
  3. kernels  each kernel held byte-equal (tolerance 0) to its plain
              PyTorch version on the card:
              - on every call a full-width MobileNetV2 request makes, at
-               b1 and at b8 (captured from the model's program run on
-               the card, real weights and activations);
+               b1 and at b8, with exact numerics and with fast numerics
+               (captured from the model's programs run on the card, real
+               weights and activations);
              - on synthetic cases: all three roundings, w_zp 0 and != 0,
                int8 and uint8 outputs, ragged K, conv strides 1/2 and
                dilation 2, depthwise stride 2, dilation 2 and depth
-               multiplier 2.
+               multiplier 2; for the fast kernels also per-tensor and
+               per-channel mult, mult 0.5 on odd sums (ties to even) and
+               sums above 2^24.
              At MobileNetV2's b1 calls each kernel is timed (a CUDA graph
              of 20 launches, replayed), beside its plain version (eager,
-             CUDA events), its bound, and for the int8 GEMM one
+             CUDA events), its bound, and for the int8 GEMMs one
              torch._int_mm call per GEMM as a yardstick.
  4. engine   Engine.create with one GPU worker (fixed_worker, max_batch
              8); the full-width MobileNetV2 and the three tests/data CNNs
@@ -29,12 +32,25 @@ Phases:
              request_sync, then a burst of 32 request_async.  Every
              output is byte-equal to the TFLite golden.  Launch counts
              are zeroed just before this phase and read just after; each
-             kernel must have launched.
- 5. depth    the logits below each model's SOFTMAX, from the program on
+             exact kernel must have launched, and no fast one.
+ 5. fast     the same with numerics("fast") engine-wide, and
+             quant_act_int8 besides: every output byte-equal to the fast
+             golden (tests/data/torch_fast_goldens.npz); each fast
+             kernel must have launched in this phase, and none of the
+             exact GEMM and conv kernels.
+ 6. mixed    one engine with the default exact numerics registers
+             MobileNetV2 and quant_act_int8 twice each, once with
+             register_model(numerics="fast"), and serves them
+             interleaved: exact models byte-equal to the TFLite goldens,
+             fast models to the fast goldens.
+ 7. depth    the logits below each model's SOFTMAX, from the program on
              the card at b1 and stacked b8, byte-equal to the golden
-             logits.
- 6. profile  a b1 MobileNetV2 request through the executor: its wall
-             time, and the device time of its kernels (torch.profiler).
+             logits; and the fast program's output below the first MEAN,
+             byte-equal to band_tpu's fast output stored in the fast
+             goldens.
+ 8. profile  a b1 MobileNetV2 request through the executor, exact and
+             fast: its wall time, and the device time of its kernels
+             (torch.profiler).
 Then it prints the kernels line, and last the device line.
 """
 
@@ -49,8 +65,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLDENS = os.path.join(DATA, "torch_goldens.npz")
+FAST_GOLDENS = os.path.join(DATA, "torch_fast_goldens.npz")
 FULL_WIDTH = "mobilenet_v2_int8"
 MODELS = (FULL_WIDTH, "effnetlite_int8", "resnetish_int8", "fc_int8")
+QUANT_ACT = "quant_act_int8"
+FAST_MODELS = MODELS + (QUANT_ACT,)
 MAX_BATCH = 8
 SYNC_CHECKED = 4
 SYNC_TIMED = 32
@@ -74,7 +93,19 @@ KERNELS = {
     "lut_softmax": dict(
         source="band_tpu_torch/ops/kernels/csrc/lut_softmax.cu",
         replaces="band_tpu/ops/quant.py:443"),
+    "qmatmul_fast": dict(
+        source="band_tpu_torch/ops/kernels/csrc/qmatmul.cu",
+        replaces="band_tpu/ops/pallas/qmatmul.py:42"),
+    # the fast convs were XLA convs + requantize_fast on the TPU
+    "qconv2d_fast": dict(
+        source="band_tpu_torch/ops/kernels/csrc/qconv.cu",
+        replaces="band_tpu/ops/lowerings.py:563"),
+    "qdwconv2d_fast": dict(
+        source="band_tpu_torch/ops/kernels/csrc/qdwconv.cu",
+        replaces="band_tpu/ops/lowerings.py:943"),
 }
+FAST = ("qmatmul_fast", "qconv2d_fast", "qdwconv2d_fast")
+EXACT_ONLY = ("qmatmul_exact", "qconv2d_exact", "qdwconv2d_exact")
 
 
 def log(msg):
@@ -98,21 +129,47 @@ def golden_inputs(seed, shape, dtype, n):
                         dtype=np.int64).astype(dtype)
 
 
-def load_goldens(graphs):
+def _inputs(z, name, g, n):
     import hashlib
 
+    td = g.tensor(g.inputs[0])
+    xs = golden_inputs(int(z[f"{name}/seed"]), td.shape, td.dtype, n)
+    sha = hashlib.sha256(np.ascontiguousarray(xs).tobytes()).hexdigest()
+    check(sha == str(z[f"{name}/input_sha"]),
+          f"{name}: regenerated inputs differ from the goldens'")
+    return xs
+
+
+def load_goldens(graphs):
+    """Exact goldens (TFLite) of MODELS: xs, output (one array per model
+    output), logits."""
     z = np.load(GOLDENS)
     out = {}
-    for name, g in graphs.items():
-        td = g.tensor(g.inputs[0])
+    for name in MODELS:
         want = z[f"{name}/output"]
-        xs = golden_inputs(int(z[f"{name}/seed"]), td.shape, td.dtype,
-                           len(want))
-        sha = hashlib.sha256(np.ascontiguousarray(xs).tobytes()).hexdigest()
-        check(sha == str(z[f"{name}/input_sha"]),
-              f"{name}: regenerated inputs differ from the goldens'")
-        out[name] = dict(xs=xs, output=want, logits=z[f"{name}/logits"],
+        out[name] = dict(xs=_inputs(z, name, graphs[name], len(want)),
+                         output=[want], logits=z[f"{name}/logits"],
                          logits_tid=int(z[f"{name}/logits_tid"]))
+    return out
+
+
+def load_fast_goldens(graphs):
+    """Fast goldens (tests/gen_torch_fast_goldens.py) of FAST_MODELS:
+    xs, output (one array per model output), seg0 (band_tpu's fast output
+    of the program below the first MEAN, and its op range); for
+    quant_act_int8 also its TFLite goldens, ``exact``."""
+    z = np.load(FAST_GOLDENS)
+    out = {}
+    for name in FAST_MODELS:
+        n_out = len(graphs[name].outputs)
+        want = [z[f"{name}/fast_output{j}"] for j in range(n_out)]
+        a, b = (int(v) for v in z[f"{name}/seg0/ops"])
+        out[name] = dict(xs=_inputs(z, name, graphs[name], len(want[0])),
+                         output=want, seg0_ops=range(a, b),
+                         seg0=z[f"{name}/seg0/out0"])
+        if f"{name}/tflite_output0" in z:
+            out[name]["exact"] = [z[f"{name}/tflite_output{j}"]
+                                  for j in range(n_out)]
     return out
 
 
@@ -158,19 +215,12 @@ def eager_ms(torch, fn, iters=5):
 def work(name, args, kw, out):
     """(bytes, ops, ops per second) of one kernel call: each input read
     once, each output written once; int8 MACs count two operations."""
-    if name == "qmatmul_exact":
-        a, b = args[0], args[1]
-        m, k = a.shape
-        n = b.shape[1]
-        nbytes = m * k + k * n + 12 * n + out.numel()
-        return nbytes, 2 * m * n * k, INT8_OPS_PER_S
-    if name == "qconv2d_exact":
+    if name != "lut_softmax":
+        # int8 GEMM or conv: inputs, weights, the epilogue's vectors
+        # (bias, qm, shift; or bias, mult) and the output
         x, w = args[0], args[1]
-        nbytes = x.numel() + w.numel() + 12 * w.shape[1] + out.numel()
-        return nbytes, 2 * out.numel() * w.shape[0], INT8_OPS_PER_S
-    if name == "qdwconv2d_exact":
-        x, w = args[0], args[1]
-        nbytes = x.numel() + w.numel() + 12 * w.shape[1] + out.numel()
+        epi = sum(4 * t.numel() for t in args[2:] if hasattr(t, "numel"))
+        nbytes = x.numel() + w.numel() + epi + out.numel()
         return nbytes, 2 * out.numel() * w.shape[0], INT8_OPS_PER_S
     # lut_softmax: a table read, an add, a multiply and a round per
     # element, in float32 outside the tensor cores
@@ -306,6 +356,7 @@ def synthetic_cases(torch, K, Q, dev):
                           K.qdwconv2d_plain(x, wk, *ep, **kw),
                           f"c{c} x{mult} s{st} d{dil} {rounding} "
                           f"w_zp={w_zp} {od}"))
+    cases += fast_synthetic_cases(torch, K, rng, t, i8, out_args)
     for in_dtype, od, depth in ((np.int8, torch.int8, 1000),
                                 (np.uint8, torch.uint8, 10),
                                 (np.int8, torch.int8, 37)):
@@ -323,6 +374,78 @@ def synthetic_cases(torch, K, Q, dev):
     return cases
 
 
+def fast_synthetic_cases(torch, K, rng, t, i8, out_args):
+    """The fast kernels' synthetic cases: per-tensor and per-channel mult,
+    w_zp 0 and != 0, int8 and uint8 outputs, ragged K, mult 0.5 on odd
+    sums (exact ties, rounded to even), and sums above 2^24 (where the
+    int32 -> float32 conversion itself rounds)."""
+    def fast_args(od, w_zp):
+        kw = out_args(od, "ruy", w_zp)
+        del kw["rounding"]
+        return kw
+
+    def mult(n, k, per_channel, value=None):
+        if value is None:
+            # map the accumulator's spread to ~30 units
+            m = (30.0 / max(np.sqrt(k) * 73.0 * 73.0, 1.0)
+                 * rng.uniform(0.5, 2.0, n))
+        else:
+            m = np.full(n, value)
+        m = m.astype(np.float32)
+        return t(m if per_channel else m[:1])
+
+    def bias(n):
+        return t(rng.integers(-20000, 20000, n).astype(np.int32))
+
+    def pair(name, args, kw, label):
+        kern, plain = getattr(K, name), getattr(K, name + "_plain")
+        return (name, lambda: kern(*args, **kw), lambda: plain(*args, **kw),
+                label)
+
+    cases = []
+    for w_zp in (0, 7):
+        for od in (torch.int8, torch.uint8):
+            for per_channel in (False, True):
+                for m, k, n in ((200, 96, 72), (33, 27, 10)):
+                    a, b = i8(m, k), i8(k, n)
+                    for value in (None, 0.5):
+                        cases.append(pair(
+                            "qmatmul_fast",
+                            (a, b, bias(n), mult(n, k, per_channel, value)),
+                            fast_args(od, w_zp),
+                            f"M{m} K{k} N{n} mult={value or 'spread'} "
+                            f"per_channel={per_channel} w_zp={w_zp} {od}"))
+    # every sum above 2^24: constant operands 120 x 110 over K = 1536
+    a = t(np.full((40, 1536), 120, np.int8))
+    b = t(np.full((1536, 8), 110, np.int8))
+    for per_channel in (False, True):
+        cases.append(pair("qmatmul_fast",
+                          (a, b, bias(8), mult(8, 0, per_channel, 2e-6)),
+                          fast_args(torch.int8, 0),
+                          f"sums 2.03e7 > 2^24 per_channel={per_channel}"))
+    for i, (st, dil, pad) in enumerate((((1, 1), (1, 1), ((1, 1), (1, 1))),
+                                        ((2, 2), (1, 1), ((0, 1), (0, 1))),
+                                        ((1, 1), (2, 2), ((2, 2), (2, 2))))):
+        od = (torch.int8, torch.uint8)[i % 2]
+        for w_zp in (0, -5):
+            ci, oc = (3, 8, 16)[i], 24
+            x, wk = i8(2, 13, 12, ci), i8(9 * ci, oc)
+            kw = dict(fast_args(od, w_zp), kh=3, kw=3, stride=st,
+                      dilation=dil, padding=pad, x_zp=-9)
+            cases.append(pair("qconv2d_fast",
+                              (x, wk, bias(oc), mult(oc, 9 * ci, i != 1)),
+                              kw, f"3x3 ci{ci} s{st} d{dil} w_zp={w_zp} {od}"))
+            c, dm = (32, 12, 16)[i], (1, 2, 1)[i]
+            x, wd = i8(2, 11, 13, c), i8(9, c * dm)
+            kw = dict(fast_args(od, w_zp), kh=3, kw=3, stride=st,
+                      dilation=dil, padding=pad, x_zp=11)
+            cases.append(pair("qdwconv2d_fast",
+                              (x, wd, bias(c * dm),
+                               mult(c * dm, 9, i != 2, 0.5 if i else None)),
+                              kw, f"c{c} x{dm} s{st} d{dil} w_zp={w_zp} {od}"))
+    return cases
+
+
 def kernel_phase(torch, dev, graphs, goldens):
     from band_tpu_torch.backend.program import build_program, params_from_jax
     from band_tpu_torch.ops import kernels as K
@@ -332,7 +455,10 @@ def kernel_phase(torch, dev, graphs, goldens):
     plain = {"qmatmul_exact": K.qmatmul_plain,
              "qconv2d_exact": K.qconv2d_plain,
              "qdwconv2d_exact": K.qdwconv2d_plain,
-             "lut_softmax": K.lut_softmax_plain}
+             "lut_softmax": K.lut_softmax_plain,
+             "qmatmul_fast": K.qmatmul_fast_plain,
+             "qconv2d_fast": K.qconv2d_fast_plain,
+             "qdwconv2d_fast": K.qdwconv2d_fast_plain}
     worst = {n: 0 for n in KERNELS}
 
     # synthetic cases
@@ -342,31 +468,41 @@ def kernel_phase(torch, dev, graphs, goldens):
         worst[name] = max(worst[name], same(torch, name, got, want, label))
     log("kernels: synthetic cases byte-equal to plain (tolerance 0)")
 
-    # every call of a full-width MobileNetV2 request, at b1 and b8
+    # every call of a full-width MobileNetV2 request, at b1 and b8, with
+    # exact and with fast numerics
     g = graphs[FULL_WIDTH]
-    prog = build_program(g, range(len(g.ops)))
-    params = params_from_jax(prog.params, dev)
-    fn = prog.make_fn()
     xs = goldens[FULL_WIDTH]["xs"]
-    per_b = {}
+    per_b = {1: [], MAX_BATCH: []}
     with torch.inference_mode():
-        for b in (1, MAX_BATCH):
-            x = torch.from_numpy(np.concatenate(list(xs[:b]))).to(dev)
-            calls = capture_calls(L, fn, params, [x])
-            torch.cuda.synchronize()
-            for name, args, kw, out in calls:
-                want = plain[name](*args, **kw)
+        for exact in (True, False):
+            prog = build_program(g, range(len(g.ops)), exact=exact)
+            params = params_from_jax(prog.params, dev)
+            fn = prog.make_fn()
+            what = "exact" if exact else "fast"
+            for b in (1, MAX_BATCH):
+                x = torch.from_numpy(np.concatenate(list(xs[:b]))).to(dev)
+                calls = capture_calls(L, fn, params, [x])
                 torch.cuda.synchronize()
-                worst[name] = max(worst[name], same(
-                    torch, name, out, want,
-                    f"MobileNetV2 b{b} {tuple(args[0].shape)}"))
-            per_b[b] = calls
-            log(f"kernels: MobileNetV2 b{b}: {len(calls)} calls byte-equal "
-                f"to plain (tolerance 0)")
+                for name, args, kw, out in calls:
+                    want = plain[name](*args, **kw)
+                    torch.cuda.synchronize()
+                    worst[name] = max(worst[name], same(
+                        torch, name, out, want,
+                        f"MobileNetV2 {what} b{b} {tuple(args[0].shape)}"))
+                check(not any(n in (EXACT_ONLY if not exact else FAST)
+                              for n, *_ in calls),
+                      f"MobileNetV2 {what}: a kernel of the other numerics")
+                per_b[b] += calls
+                log(f"kernels: MobileNetV2 {what} b{b}: {len(calls)} calls "
+                    f"byte-equal to plain (tolerance 0)")
 
+        # (lut_softmax's b1 call is the same in both numerics: timed once)
         stats = {n: dict(launches_b1=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                          bytes_s=0.0, ops_s=0.0, library_ms=None)
                  for n in KERNELS}
+        softmax_calls = [c for c in per_b[1] if c[0] == "lut_softmax"]
+        per_b[1] = [c for c in per_b[1] if c[0] != "lut_softmax"] + \
+            softmax_calls[:1]
         wrapper = {n: getattr(K, n) for n in KERNELS}
         for name, args, kw, out in per_b[1]:
             s = stats[name]
@@ -378,7 +514,7 @@ def kernel_phase(torch, dev, graphs, goldens):
             s["bytes_s"] += bt
             s["ops_s"] += ot
             s["bound_ms"] += max(bt, ot)
-            if name == "qmatmul_exact":
+            if name in ("qmatmul_exact", "qmatmul_fast"):
                 a, b = args[0], args[1]
                 if a.shape[0] <= 16:
                     # torch._int_mm takes more than 16 rows: zero rows pad
@@ -397,72 +533,148 @@ def kernel_phase(torch, dev, graphs, goldens):
 # engine and depth phases
 # --------------------------------------------------------------------------
 
-def engine_phase(torch, bt, K, goldens, card, flag):
+def _engine(bt, flag, numerics):
+    return bt.Engine.create(
+        bt.RuntimeConfigBuilder()
+        .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+        .add_worker(bt.WorkerSpec(device=flag, device_ids=(0,),
+                                  max_batch=MAX_BATCH))
+        .numerics(numerics)
+        .build())
+
+
+def _same_outputs(outs, want, i, what):
+    """Check one request's outputs against the goldens' request i."""
+    check(len(outs) == len(want) and all(
+        np.array_equal(o, w[i]) for o, w in zip(outs, want)),
+        f"{what} request {i}: output differs from the golden")
+
+
+def engine_phase(torch, bt, K, models, goldens, card, flag, numerics):
+    """Serve ``models`` through one engine with ``numerics`` engine-wide;
+    returns (launch counts of this phase, rates by model)."""
     K.reset_launches()
-    cfg = (bt.RuntimeConfigBuilder()
-           .add_scheduler(bt.SchedulerType.FIXED_WORKER)
-           .add_worker(bt.WorkerSpec(device=flag, device_ids=(0,),
-                                     max_batch=MAX_BATCH))
-           .build())
-    eng = bt.Engine.create(cfg)
+    eng = _engine(bt, flag, numerics)
+    phase = "engine" if numerics == "exact" else "fast"
     rates = {}
     try:
         mids = {}
         t0 = time.perf_counter()
-        for name in MODELS:
+        for name in models:
             mids[name] = eng.register_model(
                 bt.Model.from_path(os.path.join(DATA, f"{name}.tflite")))
         check(eng.wait_buckets_ready(timeout=600), "bucket warm-up timed out")
-        log(f"engine: 4 models registered and buckets 2..{MAX_BATCH} warm "
-            f"in {time.perf_counter() - t0:.2f} s")
-        for name in MODELS:
+        log(f"{phase}: {len(models)} models registered ({numerics} "
+            f"numerics) and buckets 2..{MAX_BATCH} warm in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for name in models:
             mid, gd = mids[name], goldens[name]
             xs, want = gd["xs"], gd["output"]
             n = len(xs)
-
-            def expect(i, outs, how):
-                check(len(outs) == 1 and np.array_equal(outs[0], want[i]),
-                      f"{name} {how} request {i}: output differs from the "
-                      "TFLite golden")
-
+            what = f"{phase}: {name}"
             for i in range(SYNC_CHECKED):
-                expect(i, eng.request_sync(mid, [xs[i]]), "sync")
+                _same_outputs(eng.request_sync(mid, [xs[i]]), want, i,
+                              f"{what} sync")
             t0 = time.perf_counter()
             outs = [eng.request_sync(mid, [xs[i % n]])
                     for i in range(SYNC_TIMED)]
             b1 = SYNC_TIMED / (time.perf_counter() - t0)
             for i, o in enumerate(outs):
-                expect(i % n, o, "sync")
+                _same_outputs(o, want, i % n, f"{what} sync")
             ex = eng.model_record(mid).executors[0]
+            check(ex.exact == (numerics == "exact"),
+                  f"{what}: executor numerics")
             before = dict(ex.windows)
             t0 = time.perf_counter()
             ids = [eng.request_async(mid, [xs[i % n]]) for i in range(BURST)]
             outs = [eng.wait(j) for j in ids]
             burst = BURST / (time.perf_counter() - t0)
             for i, o in enumerate(outs):
-                expect(i % n, o, "burst")
+                _same_outputs(o, want, i % n, f"{what} burst")
             windows = {b: c - before.get(b, 0) for b, c in ex.windows.items()
                        if c - before.get(b, 0)}
-            check(max(windows) > 1, f"{name}: the burst ran no batch window")
+            check(max(windows) > 1, f"{what}: the burst ran no batch window")
             rates[name] = dict(b1_req_s=b1, burst_req_s=burst,
                                burst_windows=dict(sorted(windows.items())))
-            log(f"engine: {name}: {SYNC_CHECKED + SYNC_TIMED} sync and "
+            log(f"{what}: {SYNC_CHECKED + SYNC_TIMED} sync and "
                 f"{BURST} burst outputs byte-equal to the golden; b1 "
                 f"{b1:.1f} req/s, burst {burst:.1f} req/s, windows "
                 f"{dict(sorted(windows.items()))} ({card})")
     finally:
         eng.shutdown()
     counts = K.launch_counts()
-    for name in KERNELS:
-        check(counts.get(name, 0) > 0,
-              f"kernel {name} never launched on the main path")
+    ran, idle = ((EXACT_ONLY + ("lut_softmax",), FAST) if numerics == "exact"
+                 else (FAST + ("lut_softmax",), EXACT_ONLY))
+    for name in ran:
+        check(counts[name] > 0,
+              f"{phase}: kernel {name} never launched on the main path")
+    for name in idle:
+        check(counts[name] == 0,
+              f"{phase}: kernel {name} launched with {numerics} numerics")
+    log(f"{phase}: launches {json.dumps(counts)}")
     return counts, rates
 
 
-def depth_phase(torch, dev, graphs, goldens):
+def mixed_phase(bt, K, goldens, fast_goldens, flag):
+    """One engine, default exact numerics: MobileNetV2 and quant_act_int8
+    registered twice each, once with numerics="fast", served
+    interleaved.  Exact models give the TFLite goldens, fast models the
+    fast goldens."""
+    K.reset_launches()
+    eng = _engine(bt, flag, "exact")
+    try:
+        served = []  # (model id, inputs, expected outputs, label)
+        for name in (FULL_WIDTH, QUANT_ACT):
+            path = os.path.join(DATA, f"{name}.tflite")
+            fg = fast_goldens[name]
+            # quant_act_int8's TFLite goldens sit in the fast goldens
+            ex = goldens.get(name, dict(xs=fg["xs"], output=fg.get("exact")))
+            served.append((eng.register_model(bt.Model.from_path(path)),
+                           ex["xs"], ex["output"], f"{name} exact"))
+            served.append((eng.register_model(bt.Model.from_path(path),
+                                              numerics="fast"),
+                           fg["xs"], fg["output"], f"{name} fast"))
+        for mid, _, _, label in served:
+            check(eng.model_record(mid).executors[0].exact
+                  == label.endswith("exact"), f"mixed: {label} numerics")
+        check(eng.wait_buckets_ready(timeout=600), "bucket warm-up timed out")
+        n = len(served[0][1])
+        pending = []
+        for r in range(2 * n):  # interleaved: one request of each in turn
+            for mid, xs, want, label in served:
+                pending.append((eng.request_async(mid, [xs[r % n]]), want,
+                                r % n, label))
+        for j, want, i, label in pending:
+            _same_outputs(eng.wait(j), want, i, f"mixed: {label}")
+        sync = [(eng.request_sync(mid, [xs[0]]), want, label)
+                for mid, xs, want, label in served]
+        for outs, want, label in sync:
+            _same_outputs(outs, want, 0, f"mixed: {label} sync")
+    finally:
+        eng.shutdown()
+    counts = K.launch_counts()
+    for name in KERNELS:
+        check(counts[name] > 0, f"mixed: kernel {name} never launched")
+    log(f"mixed: {len(pending) + len(sync)} interleaved requests of "
+        f"{len(served)} models (exact and fast side by side) byte-equal to "
+        f"their goldens; launches {json.dumps(counts)}")
+    return counts
+
+
+def depth_phase(torch, dev, graphs, goldens, fast_goldens):
     """Logits below the SOFTMAX of each model, from the program on the
-    card, b1 and stacked b8, against the golden logits."""
+    card, b1 and stacked b8, against the golden logits; and the fast
+    program below the first MEAN against band_tpu's fast output."""
     from band_tpu_torch.backend.executor import ModelExecutor
+
+    def run(ex, key, xs, want, what):
+        pos = 0
+        one = ex.execute(key, [xs[0]])[pos].cpu().numpy()
+        check(np.array_equal(one, want[0]), f"{what} at b1")
+        many = ex.execute_batched(key, [[x] for x in xs])
+        for i, t in enumerate(many):
+            check(np.array_equal(t[pos].cpu().numpy(), want[i]),
+                  f"{what} at b{len(xs)}, request {i}")
 
     for name in MODELS:
         g, gd = graphs[name], goldens[name]
@@ -470,18 +682,22 @@ def depth_phase(torch, dev, graphs, goldens):
         key = ex.prepare_subgraph(range(len(g.ops) - 1), [0])
         check(ex.output_ids(key) == (gd["logits_tid"],),
               f"{name}: the logits are not the program's output")
-        xs = list(gd["xs"])
-        one = ex.execute(key, [xs[0]])[0].cpu().numpy()
-        check(np.array_equal(one, gd["logits"][0]), f"{name}: b1 logits")
-        many = ex.execute_batched(key, [[x] for x in xs])
-        for i, t in enumerate(many):
-            check(np.array_equal(t[0].cpu().numpy(), gd["logits"][i]),
-                  f"{name}: b{len(xs)} logits of request {i}")
-        log(f"depth: {name}: logits byte-equal to the golden at b1 and "
-            f"b{len(xs)} ({len(np.unique(gd['logits']))} distinct values)")
+        run(ex, key, list(gd["xs"]), gd["logits"], f"depth: {name} logits")
+        fg = fast_goldens[name]
+        fex = ModelExecutor(-1, g, 0, dev, exact=False)
+        fkey = fex.prepare_subgraph(fg["seg0_ops"], [0])
+        check(len(fex.output_ids(fkey)) == 1,
+              f"{name}: the fast segment has more than one output")
+        run(fex, fkey, list(fg["xs"]), fg["seg0"],
+            f"depth: {name} fast segment")
+        log(f"depth: {name}: logits byte-equal to the golden and the fast "
+            f"program below the first MEAN (ops {fg['seg0_ops'].start}-"
+            f"{fg['seg0_ops'].stop - 1}) byte-equal to band_tpu's at b1 "
+            f"and b{len(gd['xs'])} ({len(np.unique(gd['logits']))} and "
+            f"{len(np.unique(fg['seg0']))} distinct values)")
 
 
-def profile_phase(torch, dev, graphs, goldens):
+def profile_phase(torch, dev, graphs, goldens, exact):
     """Where a b1 MobileNetV2 request's time goes below the engine: the
     executor's wall time per request (launch and wait), and the device
     time of every kernel it launches (torch.profiler), whose ratio is
@@ -490,7 +706,7 @@ def profile_phase(torch, dev, graphs, goldens):
 
     g = graphs[FULL_WIDTH]
     x = goldens[FULL_WIDTH]["xs"][0]
-    ex = ModelExecutor(-2, g, 0, dev)
+    ex = ModelExecutor(-2, g, 0, dev, exact=exact)
     key = ex.prepare_subgraph(range(len(g.ops)), [0])
     reps = 20
     for _ in range(3):
@@ -516,6 +732,7 @@ def profile_phase(torch, dev, graphs, goldens):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     out = {
         "model": FULL_WIDTH, "batch": 1,
+        "numerics": "exact" if exact else "fast",
         "executor_wall_ms": wall_ms,
         "device_kernel_ms": device_ms if device_ms > 0 else "not measured",
         "device_busy_share": (device_ms / wall_ms if device_ms > 0
@@ -563,22 +780,34 @@ def main():
     log(f"build: {len(build.sources())} kernel libraries in {secs:.1f} s")
 
     graphs = {n: parse_tflite_file(os.path.join(DATA, f"{n}.tflite"))
-              for n in MODELS}
+              for n in FAST_MODELS}
     goldens = load_goldens(graphs)
+    fast_goldens = load_fast_goldens(graphs)
 
     worst, stats = kernel_phase(torch, dev, graphs, goldens)
-    counts, rates = engine_phase(torch, bt, K, goldens, card,
-                                 bt.DeviceFlag.GPU)
-    depth_phase(torch, dev, graphs, goldens)
-    profile_phase(torch, dev, graphs, goldens)
+    counts, rates = engine_phase(torch, bt, K, MODELS, goldens, card,
+                                 bt.DeviceFlag.GPU, "exact")
+    fast_counts, fast_rates = engine_phase(torch, bt, K, FAST_MODELS,
+                                           fast_goldens, card,
+                                           bt.DeviceFlag.GPU, "fast")
+    mixed_phase(bt, K, goldens, fast_goldens, bt.DeviceFlag.GPU)
+    depth_phase(torch, dev, graphs, goldens, fast_goldens)
+    profile_phase(torch, dev, graphs, goldens, exact=True)
+    profile_phase(torch, dev, graphs, goldens, exact=False)
 
-    log("engine: " + json.dumps({"card": smi, "models": rates}))
+    log("engine: " + json.dumps({"card": smi, "numerics": "exact",
+                                 "models": rates}))
+    log("fast: " + json.dumps({"card": smi, "numerics": "fast",
+                               "models": fast_rates}))
     line = []
     for name, meta in KERNELS.items():
         s = stats[name]
+        # each kernel's launches on its own main path: the exact kernels
+        # in the exact engine phase, the fast ones in the fast phase
+        launched = fast_counts if name in FAST else counts
         line.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": counts[name],
+            "replaces": meta["replaces"], "launches": launched[name],
             "max_abs_err": worst[name],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"],

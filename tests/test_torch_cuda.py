@@ -81,6 +81,79 @@ def test_kernels_match_plain(dev, rounding, w_zp, out_dtype):
     assert K.launch_counts()["qdwconv2d_exact"] == 1
 
 
+def _fast_args(out_dtype, w_zp):
+    args = _args(out_dtype, "ruy", w_zp)
+    del args["rounding"]
+    return args
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("w_zp,out_dtype", [(0, torch.int8),
+                                            (5, torch.uint8)])
+def test_fast_kernels_match_plain(dev, per_channel, w_zp, out_dtype):
+    """The fast-numerics instances, byte-equal to their plain versions:
+    ragged K, mult 0.5 on odd sums (ties to even), and sums above 2^24."""
+    rng = np.random.default_rng(19)
+    args = _fast_args(out_dtype, w_zp)
+
+    def mult(n, value=None):
+        m = (np.full(n, value) if value is not None
+             else rng.uniform(2e-4, 2e-3, n)).astype(np.float32)
+        return torch.from_numpy(m[: n if per_channel else 1]).to(dev)
+
+    def bias(n):
+        return torch.from_numpy(
+            rng.integers(-20000, 20000, n).astype(np.int32)).to(dev)
+
+    K.reset_launches()
+    a, b = _i8(rng, dev, 70, 27), _i8(rng, dev, 27, 20)
+    bi = bias(20)
+    for m in (mult(20), mult(20, 0.5)):
+        assert torch.equal(K.qmatmul_fast(a, b, bi, m, **args),
+                           K.qmatmul_fast_plain(a, b, bi, m, **args))
+    big = torch.full((40, 1536), 120, dtype=torch.int8, device=dev)
+    wb = torch.full((1536, 8), 110, dtype=torch.int8, device=dev)
+    m, bi = mult(8, 2e-6), bias(8)  # ~40 units: rounded, not clamped
+    assert torch.equal(K.qmatmul_fast(big, wb, bi, m, **args),
+                       K.qmatmul_fast_plain(big, wb, bi, m, **args))
+    x = _i8(rng, dev, 2, 9, 10, 4)
+    wk = _i8(rng, dev, 9 * 4, 20)
+    conv = dict(args, kh=3, kw=3, stride=(2, 1), dilation=(1, 2),
+                padding=((1, 1), (2, 2)), x_zp=-6)
+    m, bi = mult(20), bias(20)
+    assert torch.equal(K.qconv2d_fast(x, wk, bi, m, **conv),
+                       K.qconv2d_fast_plain(x, wk, bi, m, **conv))
+    wd = _i8(rng, dev, 9, 8)
+    dw = dict(args, kh=3, kw=3, stride=(2, 2), padding=((0, 1), (0, 1)),
+              x_zp=4, dilation=(1, 1))
+    m, bi = mult(8), bias(8)
+    assert torch.equal(K.qdwconv2d_fast(x, wd, bi, m, **dw),
+                       K.qdwconv2d_fast_plain(x, wd, bi, m, **dw))
+    counts = K.launch_counts()
+    assert counts["qmatmul_fast"] == 3
+    assert counts["qconv2d_fast"] == 1 and counts["qdwconv2d_fast"] == 1
+    assert counts["qmatmul_exact"] == 0
+
+
+def test_quantize_on_the_card_matches_the_cpu(dev):
+    """QUANTIZE's float32 division on the card gives the CPU's bytes on
+    exact ties k + 0.5 of the scale and their float32 neighbours (a
+    multiply by the reciprocal would flip ~5% of them)."""
+    rng = np.random.default_rng(20)
+    s = np.float32(0.0371)
+    ties = ((np.arange(-3000, 3000) + 0.5) * s).astype(np.float32)
+    x = np.concatenate([ties, np.nextafter(ties, np.float32(np.inf)),
+                        np.nextafter(ties, np.float32(-np.inf)),
+                        rng.normal(0, 4, 20000).astype(np.float32)])
+    for dtype, zp in ((np.int8, -7), (np.uint8, 131)):
+        cpu = Q.quantize(torch.from_numpy(x), float(s), zp, dtype)
+        card = Q.quantize(torch.from_numpy(x).to(dev), float(s), zp, dtype)
+        assert torch.equal(card.cpu(), cpu)
+        q = cpu.to(dev)
+        assert torch.equal(Q.dequantize(q, float(s), zp).cpu(),
+                           Q.dequantize(cpu, float(s), zp))
+
+
 @pytest.mark.parametrize("depth,in_dtype", [(1000, torch.int8),
                                             (10, torch.uint8)])
 def test_softmax_kernel_matches_plain(dev, depth, in_dtype):
@@ -95,14 +168,15 @@ def test_softmax_kernel_matches_plain(dev, depth, in_dtype):
                                            in_dtype))
 
 
-def _golden_inputs(z, name, td):
-    """tests/gen_torch_goldens.py's inputs of ``name``, regenerated from
-    their seed (this file imports nothing of the tests package) and
-    checked against the digest the generator stored."""
+def _golden_inputs(z, name, td, key="output"):
+    """tests/gen_torch_goldens.py's (or gen_torch_fast_goldens.py's)
+    inputs of ``name``, regenerated from their seed (this file imports
+    nothing of the tests package) and checked against the digest the
+    generator stored."""
     import hashlib
 
     info = np.iinfo(td.dtype)
-    n = len(z[f"{name}/output"])
+    n = len(z[f"{name}/{key}"])
     xs = np.random.default_rng(int(z[f"{name}/seed"])).integers(
         info.min, info.max + 1, size=(n, *td.shape), dtype=np.int64
     ).astype(td.dtype)
@@ -131,5 +205,36 @@ def test_gpu_worker_serves_the_goldens(dev):
         for i, j in enumerate(ids):
             np.testing.assert_array_equal(eng.wait(j)[0], want[i])
         assert K.launch_counts()["qmatmul_exact"] > 0
+    finally:
+        eng.shutdown()
+
+
+def test_gpu_worker_serves_the_fast_goldens(dev):
+    """numerics="fast" on a GPU worker: quant_act_int8 and fc_int8 give
+    the fast goldens (tests/gen_torch_fast_goldens.py) through the fast
+    kernels."""
+    zf = np.load(os.path.join(DATA, "torch_fast_goldens.npz"))
+    cfg = (bt.RuntimeConfigBuilder()
+           .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0,), max_batch=4))
+           .numerics("fast")
+           .build())
+    eng = bt.Engine.create(cfg)
+    try:
+        K.reset_launches()
+        for name in ("quant_act_int8", "fc_int8"):
+            mid = eng.register_model(
+                bt.Model.from_path(os.path.join(DATA, f"{name}.tflite")))
+            g = eng.model_record(mid).model.graph
+            xs = _golden_inputs(zf, name, g.tensor(g.inputs[0]),
+                                key="fast_output0")
+            ids = [eng.request_async(mid, [x]) for x in xs]
+            for i, j in enumerate(ids):
+                for o, out in enumerate(eng.wait(j)):
+                    np.testing.assert_array_equal(
+                        out, zf[f"{name}/fast_output{o}"][i])
+        assert K.launch_counts()["qmatmul_fast"] > 0
+        assert K.launch_counts()["qmatmul_exact"] == 0
     finally:
         eng.shutdown()

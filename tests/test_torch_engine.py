@@ -1,8 +1,8 @@
 """The PyTorch port's Engine on a CPU worker under fixed_worker: the
 same outputs as band_tpu's Engine for sync and async requests, and the
 TFLite goldens for every request, byte for byte (tolerance 0).  Plus
-the engine's refusals: a GPU worker without CUDA, and every config part
-that is not ported yet."""
+the engine's refusals: a GPU worker without CUDA, every config part
+that is not ported yet, and an unknown per-model numerics."""
 
 import os
 
@@ -136,7 +136,6 @@ def _refused_configs():
             b._cfg.distributed, "coordinator_address", "localhost:1234"),
         "compilation_cache": lambda b: setattr(
             b._cfg, "compilation_cache_dir", "cache"),
-        "fast_numerics": lambda b: b.numerics("fast"),
         "backend": lambda b: setattr(
             b._cfg.worker.workers[0], "backend", "xla"),
     }
@@ -153,12 +152,16 @@ def test_unported_config_is_refused(ask):
 
 
 def test_fast_numerics_per_model_is_refused():
+    """Per-model numerics other than "exact" and "fast" are refused;
+    "fast" itself is served (tests/test_torch_fast.py holds its
+    outputs)."""
     eng = _engine(tb)
     try:
-        with pytest.raises(tb.ConfigError, match="not ported"):
-            eng.register_model(
-                tb.Model.from_path(os.path.join(DATA, "fc_int8.tflite")),
-                numerics="fast")
+        path = os.path.join(DATA, "fc_int8.tflite")
+        with pytest.raises(tb.ConfigError, match="'exact' or 'fast'"):
+            eng.register_model(tb.Model.from_path(path), numerics="sloppy")
+        mid = eng.register_model(tb.Model.from_path(path), numerics="fast")
+        assert not eng.model_record(mid).executors[0].exact
     finally:
         eng.shutdown()
 
