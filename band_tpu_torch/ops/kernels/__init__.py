@@ -25,7 +25,7 @@ from .qconv import (qconv2d_exact, qconv2d_fast, qconv2d_fast_plain,  # noqa: F4
                     qconv2d_plain)
 from .qdwconv import (qdwconv2d_exact, qdwconv2d_fast,  # noqa: F401
                       qdwconv2d_fast_plain, qdwconv2d_plain)
-from .qmatmul import (qmatmul_exact, qmatmul_fast,  # noqa: F401
+from .qmatmul import (gemm_plan, qmatmul_exact, qmatmul_fast,  # noqa: F401
                       qmatmul_fast_plain, qmatmul_plain)
 from .softmax import lut_softmax, lut_softmax_plain  # noqa: F401
 from . import qconv as _qc, qdwconv as _qd, qmatmul as _qm, softmax as _sm

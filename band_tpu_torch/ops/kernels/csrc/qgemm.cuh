@@ -1,8 +1,8 @@
 // Tiled s8 x s8 -> s32 GEMM main loop with a fused requant epilogue
-// (exact or fast, requant.cuh), shared by the int8 matmul (qmatmul.cu)
-// and the implicit-GEMM conv (qconv.cu).  The two differ only in how a 4-byte group of the A
-// operand is fetched: a dense [M, K] row, or an im2col window of an
-// NHWC image read straight from the unpadded input.
+// (exact or fast, requant.cuh) for the implicit-GEMM conv (qconv.cu): the A
+// operand is the im2col window of an NHWC image, read straight from the
+// unpadded input.  (The int8 matmul has its own tensor-core kernel,
+// qmatmul.cu.)
 //
 // Design (simple and right first; wgmma/TMA are later work): one block
 // computes a 64 x 64 output tile with 256 threads, each a 4 x 4
@@ -29,33 +29,6 @@ constexpr int kGemmThreads = 256;
 __device__ __forceinline__ uint32_t byte_at(int8_t v, int e) {
   return static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * e);
 }
-
-// A = dense row-major [M, K] int8.  kVec: K % 4 == 0 and the base is
-// 4-byte aligned, so a 4-byte group is one aligned 32-bit load.
-template <bool kVec>
-struct DenseA {
-  const int8_t* a;
-  int K;
-
-  struct Row {
-    const int8_t* p;  // nullptr past the last row
-  };
-
-  __device__ __forceinline__ Row row(int m, int M) const {
-    return Row{m < M ? a + static_cast<size_t>(m) * K : nullptr};
-  }
-
-  // bytes k..k+3 of the row, zero past K
-  __device__ __forceinline__ uint32_t load(const Row& r, int k) const {
-    if (r.p == nullptr) return 0u;
-    if (kVec) return k < K ? *reinterpret_cast<const uint32_t*>(r.p + k) : 0u;
-    uint32_t v = 0u;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (k + e < K) v |= byte_at(r.p[k + e], e);
-    return v;
-  }
-};
 
 // A = the im2col matrix of an NHWC int8 image: row m = (n, oh, ow), column
 // k = (dy, dx, ci) in that order (the weight layout [kh*kw*Ci, Oc]).  Taps

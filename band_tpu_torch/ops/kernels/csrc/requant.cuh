@@ -70,17 +70,29 @@ struct Epilogue {
   int qmax;
   int rounding;
 
+  // channel c's parameters, for a kernel that loads them once per column
+  struct Params {
+    int32_t bias, qm, shift;
+  };
+  __device__ __forceinline__ Params params(int c) const {
+    return Params{bias[c], qm[c * qstride], shift[c * qstride]};
+  }
+
   // acc: the raw s8 x s8 sum; wsum: the window (row) sum of the input,
   // which the weight zero point multiplies.  Returns the output byte.
-  __device__ __forceinline__ int8_t operator()(int32_t acc, int32_t wsum,
-                                               int c) const {
+  __device__ __forceinline__ int8_t apply(int32_t acc, int32_t wsum,
+                                          const Params& p) const {
     const uint32_t a = static_cast<uint32_t>(acc) -
                        static_cast<uint32_t>(w_zp) * static_cast<uint32_t>(wsum) +
-                       static_cast<uint32_t>(bias[c]);
-    const int32_t q = requantize(static_cast<int32_t>(a), qm[c * qstride],
-                                 shift[c * qstride], out_zp, qmin, qmax,
-                                 rounding);
+                       static_cast<uint32_t>(p.bias);
+    const int32_t q = requantize(static_cast<int32_t>(a), p.qm, p.shift,
+                                 out_zp, qmin, qmax, rounding);
     return static_cast<int8_t>(static_cast<uint8_t>(q));
+  }
+
+  __device__ __forceinline__ int8_t operator()(int32_t acc, int32_t wsum,
+                                               int c) const {
+    return apply(acc, wsum, params(c));
   }
 };
 
@@ -104,16 +116,29 @@ struct FastEpilogue {
   int qmin;
   int qmax;
 
-  __device__ __forceinline__ int8_t operator()(int32_t acc, int32_t wsum,
-                                               int c) const {
+  struct Params {
+    int32_t bias;
+    float mult;
+  };
+  __device__ __forceinline__ Params params(int c) const {
+    return Params{bias[c], mult[c * mstride]};
+  }
+
+  __device__ __forceinline__ int8_t apply(int32_t acc, int32_t wsum,
+                                          const Params& p) const {
     const uint32_t a = static_cast<uint32_t>(acc) -
                        static_cast<uint32_t>(w_zp) * static_cast<uint32_t>(wsum) +
-                       static_cast<uint32_t>(bias[c]);
+                       static_cast<uint32_t>(p.bias);
     const int v = __float2int_rn(
-        __fmul_rn(__int2float_rn(static_cast<int32_t>(a)), mult[c * mstride]));
+        __fmul_rn(__int2float_rn(static_cast<int32_t>(a)), p.mult));
     const long long q = static_cast<long long>(v) + out_zp;
     const long long r = q < qmin ? qmin : (q > qmax ? qmax : q);
     return static_cast<int8_t>(static_cast<uint8_t>(r));
+  }
+
+  __device__ __forceinline__ int8_t operator()(int32_t acc, int32_t wsum,
+                                               int c) const {
+    return apply(acc, wsum, params(c));
   }
 };
 

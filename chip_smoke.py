@@ -21,11 +21,18 @@ Phases:
                dilation 2, depthwise stride 2, dilation 2 and depth
                multiplier 2; for the fast kernels also per-tensor and
                per-channel mult, mult 0.5 on odd sums (ties to even) and
-               sums above 2^24.
+               sums above 2^24; for both GEMMs every branch of gemm_plan
+               (M 0..12545, K 16..1280, N 16..1000: each tile, K split or
+               not, 16-, 8- and 1-byte copies, A one byte off alignment)
+               and a bias near +-2^31 under split-K.
              At MobileNetV2's b1 calls each kernel is timed (a CUDA graph
              of 20 launches, replayed), beside its plain version (eager,
              CUDA events), its bound, and for the int8 GEMMs one
-             torch._int_mm call per GEMM as a yardstick.
+             torch._int_mm call per GEMM as a yardstick; one ``gemm:``
+             line per distinct b1 GEMM shape (plan, exact, fast and
+             _int_mm times), and the ``launch floor:`` line: one trivial
+             PyTorch kernel in the same CUDA-graph harness, and 35 times
+             it.
  4. engine   Engine.create with one GPU worker (fixed_worker, max_batch
              8); the full-width MobileNetV2 and the three tests/data CNNs
              registered and served: 4 checked request_sync, 32 timed
@@ -260,7 +267,8 @@ def same(torch, name, got, want, what):
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{name} {what}: {got.dtype}{tuple(got.shape)} vs "
           f"{want.dtype}{tuple(want.shape)}")
-    err = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+    err = ((got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+           if got.numel() else 0)
     check(err == 0, f"{name} {what}: max |kernel - plain| = {err}")
     return err
 
@@ -356,6 +364,7 @@ def synthetic_cases(torch, K, Q, dev):
                           K.qdwconv2d_plain(x, wk, *ep, **kw),
                           f"c{c} x{mult} s{st} d{dil} {rounding} "
                           f"w_zp={w_zp} {od}"))
+    cases += gemm_plan_cases(torch, K, Q, rng, t, i8, epilogue, out_args)
     cases += fast_synthetic_cases(torch, K, rng, t, i8, out_args)
     for in_dtype, od, depth in ((np.int8, torch.int8, 1000),
                                 (np.uint8, torch.uint8, 10),
@@ -371,6 +380,68 @@ def synthetic_cases(torch, K, Q, dev):
                       lambda x=x, table=table, od=od, zp=zp:
                       K.lut_softmax_plain(x, table, 1.0 / 256, zp, od),
                       f"rows 8 depth {depth} {od}"))
+    return cases
+
+
+def gemm_plan_cases(torch, K, Q, rng, t, i8, epilogue, out_args):
+    """Both GEMMs on every branch of gemm_plan: each block tile, K split
+    or not, A and B rows copied 16, 8 or 1 byte at a time (a third of the
+    cases take A one byte into a buffer); all roundings, w_zp 0 and 5,
+    int8 and uint8 out, per-channel and per-tensor multipliers in turn.
+    Then a bias near +-2^31, so that the sums wrap, under split-K."""
+    cases = []
+    shapes = [(m, k, n) for m in (0, 1, 7, 49, 392, 12545)
+              for k in (16, 24, 27, 960, 1280) for n in (16, 24, 1000)]
+    for i, (m, k, n) in enumerate(shapes):
+        if i % 3 == 1:
+            a = i8(m * k + 1)[1:].view(m, k)
+        else:
+            a = i8(m, k)
+        b = i8(k, n)
+        rounding = ("single", "double", "ruy")[i % 3]
+        kw = out_args((torch.int8, torch.uint8)[i % 2], rounding,
+                      (0, 5)[(i // 2) % 2])
+        ep = epilogue(n, k, per_channel=i % 4 < 2)
+        plan = K.gemm_plan(m, n, k)
+        label = (f"M{m} K{k} N{n} tile {plan.bm}x{plan.bn} splits "
+                 f"{plan.splits} {rounding} w_zp={kw['w_zp']} "
+                 f"{kw['out_dtype']}{' A+1' if i % 3 == 1 else ''}")
+        cases.append(("qmatmul_exact",
+                      lambda a=a, b=b, ep=ep, kw=kw:
+                      K.qmatmul_exact(a, b, *ep, **kw),
+                      lambda a=a, b=b, ep=ep, kw=kw:
+                      K.qmatmul_plain(a, b, *ep, **kw), label))
+        mult = t((30.0 / (np.sqrt(k) * 73.0 * 73.0) * rng.uniform(
+            0.5, 2.0, n if i % 4 < 2 else 1)).astype(np.float32))
+        fkw = dict(kw)
+        del fkw["rounding"]
+        cases.append(("qmatmul_fast",
+                      lambda a=a, b=b, ep=ep, mult=mult, fkw=fkw:
+                      K.qmatmul_fast(a, b, ep[0], mult, **fkw),
+                      lambda a=a, b=b, ep=ep, mult=mult, fkw=fkw:
+                      K.qmatmul_fast_plain(a, b, ep[0], mult, **fkw), label))
+    # split-K with wrapping sums: 49 x 160 x 960 splits K over 8 blocks
+    m, k, n = 49, 960, 160
+    a, b = i8(m, k), i8(k, n)
+    big = rng.integers(0, 5000, n)
+    bias = t(np.where(np.arange(n) % 2 == 1, 2 ** 31 - 1 - big,
+                      -(2 ** 31) + big).astype(np.int32))
+    qm, sh = Q.quantize_multipliers(2.0 ** -24 * rng.uniform(0.5, 1.5, n))
+    mult = t((2.0 ** -24 * rng.uniform(0.5, 1.5, n)).astype(np.float32))
+    for w_zp in (0, 5):
+        kw = out_args(torch.int8, "double", w_zp)
+        label = f"M{m} K{k} N{n} bias near +-2^31 w_zp={w_zp}"
+        cases.append(("qmatmul_exact",
+                      lambda kw=kw: K.qmatmul_exact(a, b, bias, t(qm), t(sh),
+                                                    **kw),
+                      lambda kw=kw: K.qmatmul_plain(a, b, bias, t(qm), t(sh),
+                                                    **kw), label))
+        fkw = dict(kw)
+        del fkw["rounding"]
+        cases.append(("qmatmul_fast",
+                      lambda fkw=fkw: K.qmatmul_fast(a, b, bias, mult, **fkw),
+                      lambda fkw=fkw: K.qmatmul_fast_plain(a, b, bias, mult,
+                                                           **fkw), label))
     return cases
 
 
@@ -504,10 +575,12 @@ def kernel_phase(torch, dev, graphs, goldens):
         per_b[1] = [c for c in per_b[1] if c[0] != "lut_softmax"] + \
             softmax_calls[:1]
         wrapper = {n: getattr(K, n) for n in KERNELS}
+        gemms = {}  # (M, N, K) -> calls and times of one call
         for name, args, kw, out in per_b[1]:
             s = stats[name]
             s["launches_b1"] += 1
-            s["ms"] += graph_ms(torch, lambda: wrapper[name](*args, **kw))
+            ms = graph_ms(torch, lambda: wrapper[name](*args, **kw))
+            s["ms"] += ms
             s["plain_ms"] += eager_ms(torch, lambda: plain[name](*args, **kw))
             nbytes, ops, rate = work(name, args, kw, out)
             bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / rate
@@ -516,6 +589,7 @@ def kernel_phase(torch, dev, graphs, goldens):
             s["bound_ms"] += max(bt, ot)
             if name in ("qmatmul_exact", "qmatmul_fast"):
                 a, b = args[0], args[1]
+                shape = (a.shape[0], b.shape[1], a.shape[1])
                 if a.shape[0] <= 16:
                     # torch._int_mm takes more than 16 rows: zero rows pad
                     pad = torch.zeros((32, a.shape[1]), dtype=a.dtype,
@@ -524,8 +598,29 @@ def kernel_phase(torch, dev, graphs, goldens):
                     a = pad
                 # cuBLASLt's int8 GEMM takes B column-major (TN layout)
                 b = b.t().contiguous().t()
-                s["library_ms"] = (s["library_ms"] or 0.0) + graph_ms(
-                    torch, lambda a=a, b=b: torch._int_mm(a, b))
+                lib = graph_ms(torch, lambda a=a, b=b: torch._int_mm(a, b))
+                s["library_ms"] = (s["library_ms"] or 0.0) + lib
+                g = gemms.setdefault(shape, dict(
+                    calls=0, qmatmul_exact=[], qmatmul_fast=[], int_mm=[],
+                    bound_ms=max(bt, ot)))
+                g["calls"] += name == "qmatmul_exact"
+                g[name].append(ms)
+                g["int_mm"].append(lib)
+        mean = lambda v: sum(v) / len(v)  # noqa: E731
+        for (m, n, k), g in sorted(gemms.items(), key=lambda kv: -kv[0][0]):
+            p = K.gemm_plan(m, n, k)
+            log("gemm: " + json.dumps({
+                "M": m, "N": n, "K": k, "calls_b1": g["calls"],
+                "tile": f"{p.bm}x{p.bn}", "splits": p.splits,
+                "blocks": p.blocks,
+                "exact_ms": mean(g["qmatmul_exact"]),
+                "fast_ms": mean(g["qmatmul_fast"]),
+                "int_mm_ms": mean(g["int_mm"]), "bound_ms": g["bound_ms"]}))
+        # the per-launch floor of the timing harness
+        z = torch.zeros(1, device=dev)
+        floor = graph_ms(torch, lambda: z.add_(1))
+        log(f"launch floor: one trivial PyTorch kernel {floor:.6f} ms in the "
+            f"same CUDA-graph harness; x35 = {35 * floor:.6f} ms")
     return worst, stats
 
 

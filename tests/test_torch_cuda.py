@@ -10,6 +10,7 @@ without them; there, skip the repository's conftest (which sets up jax):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import itertools
 import os
 
 import numpy as np
@@ -43,6 +44,24 @@ def _epilogue(rng, n, k, dev):
 def _i8(rng, dev, *shape):
     return torch.from_numpy(
         rng.integers(-128, 128, shape).astype(np.int8)).to(dev)
+
+
+# GEMM shapes that reach every branch of gemm_plan (each tile width, tall
+# and short tiles, K split or not) and every copy width (row strides of
+# 16, 8 and 1 bytes); a third of them take A one byte into a buffer, so
+# that the kernel copies A byte by byte
+GEMM_SHAPES = list(itertools.product((0, 1, 7, 49, 392, 12545),
+                                     (16, 24, 27, 960, 1280),
+                                     (16, 24, 1000)))
+
+
+def _gemm_operands(rng, dev, i, m, k, n):
+    if i % 3 == 1:
+        a = _i8(rng, dev, m * k + 1)[1:].view(m, k)
+        assert m == 0 or a.data_ptr() % 2 == 1
+    else:
+        a = _i8(rng, dev, m, k)
+    return a, _i8(rng, dev, k, n)
 
 
 def _args(out_dtype, rounding, w_zp):
@@ -79,6 +98,17 @@ def test_kernels_match_plain(dev, rounding, w_zp, out_dtype):
                        K.qdwconv2d_plain(x, wd, *epi8, **dw))
     assert K.launch_counts()["qconv2d_exact"] == 1
     assert K.launch_counts()["qdwconv2d_exact"] == 1
+    # every plan branch; qm/shift per channel and per tensor in turn
+    for i, (m, k, n) in enumerate(GEMM_SHAPES):
+        a, b = _gemm_operands(rng, dev, i, m, k, n)
+        bias, qm, sh = _epilogue(rng, n, k, dev)
+        if i % 2:
+            qm, sh = qm[:1], sh[:1]
+        got = K.qmatmul_exact(a, b, bias, qm, sh, **args)
+        want = K.qmatmul_plain(a, b, bias, qm, sh, **args)
+        assert torch.equal(got, want), (m, k, n, K.gemm_plan(m, n, k))
+    assert K.launch_counts()["qmatmul_exact"] == 1 + sum(
+        m > 0 for m, _, _ in GEMM_SHAPES)
 
 
 def _fast_args(out_dtype, w_zp):
@@ -129,8 +159,17 @@ def test_fast_kernels_match_plain(dev, per_channel, w_zp, out_dtype):
     m, bi = mult(8), bias(8)
     assert torch.equal(K.qdwconv2d_fast(x, wd, bi, m, **dw),
                        K.qdwconv2d_fast_plain(x, wd, bi, m, **dw))
+    for i, (mm, k, n) in enumerate(GEMM_SHAPES):
+        a, b = _gemm_operands(rng, dev, i, mm, k, n)
+        # map the accumulator's spread to ~30 units
+        m = torch.from_numpy((30.0 / (np.sqrt(k) * 73.0 * 73.0) * rng.uniform(
+            0.5, 2.0, n if per_channel else 1)).astype(np.float32)).to(dev)
+        bi = bias(n)
+        got = K.qmatmul_fast(a, b, bi, m, **args)
+        want = K.qmatmul_fast_plain(a, b, bi, m, **args)
+        assert torch.equal(got, want), (mm, k, n, K.gemm_plan(mm, n, k))
     counts = K.launch_counts()
-    assert counts["qmatmul_fast"] == 3
+    assert counts["qmatmul_fast"] == 3 + sum(m > 0 for m, _, _ in GEMM_SHAPES)
     assert counts["qconv2d_fast"] == 1 and counts["qdwconv2d_fast"] == 1
     assert counts["qmatmul_exact"] == 0
 
