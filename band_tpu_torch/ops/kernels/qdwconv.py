@@ -6,9 +6,14 @@ Replaces ``band_tpu/ops/pallas/qdwconv.py:114 qdwconv2d_exact`` (Pallas
 kernel ``_qdwconv_kernel``).  On the TPU it ran only for narrow
 boundary inputs; on the card it carries every int8 DEPTHWISE_CONV_2D,
 with strides, dilation, depth multiplier > 1 and padding (taps outside
-the image read ``x_zp``).  The CUDA source is ``csrc/qdwconv.cu``: one
-thread per output element over its taps.  It does 9 MACs per output
-byte, so the card's memory rate bounds it.
+the image read ``x_zp``).  The CUDA source is ``csrc/qdwconv.cu``: a
+thread owns a vector of channels and a strip of output columns, loads
+its input window once and sums each vertical tap column with one
+``__dp4a``.  ``dwconv_plan`` picks the strip and the block per shape;
+geometries the strip kernel does not take (a ragged C or a misaligned
+base among them) run a general one-thread-per-output loop.  At
+MobileNetV2's shapes latency bounds it, not the card's memory or ALUs;
+see PERF.md.
 
 ``qdwconv2d_fast`` is the same kernel with the float32 epilogue of fast
 numerics, which on the TPU was XLA's grouped conv followed by
@@ -18,6 +23,8 @@ numerics, which on the TPU was XLA's grouped conv followed by
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +38,123 @@ from .qconv import conv_out_size
 launches = LaunchCount("qdwconv2d_exact")
 fast_launches = LaunchCount("qdwconv2d_fast")
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 22 + [ctypes.c_void_p]
-_FAST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 28 + [ctypes.c_void_p]
+_FAST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 27 + [ctypes.c_void_p]
 _fn = None
 _fast_fn = None
+
+# The strip kernel's variants (kh = kw, horizontal stride, output columns
+# per thread), in the order of the switch in csrc/qdwconv.cu.
+VARIANTS = tuple([(3, sw, r) for sw in (1, 2) for r in (1, 2, 4)]
+                 + [(5, sw, 2) for sw in (1, 2)])
+VEC = 4                 # channels per strip thread: one 32-bit load per
+                        # pixel, so C and the bases must be multiples of 4
+MAX_THREADS = 256       # the kernels' launch bound
+GENERAL_THREADS = 256   # block of the general loop
+MAX_GRID_Z = 65535      # n * oh rides on grid z, strips on grid y
+# The plan's thresholds, from sweep_dwconv.py on MobileNetV2's depthwise
+# convs at b1 and b8 (PERF.md).
+STRIP_2 = 100_000       # outputs (n * oh * ow * c) from which a thread
+STRIP_4 = 400_000       # computes 2, and 4, neighbouring columns
+BLOCK_STRIPS = 32       # strips of one block, at most
+MIN_BLOCKS = 66         # blocks shrink (down to 32 threads) to fill half
+                        # of the card's 132 SMs
+
+
+class DwPlan(NamedTuple):
+    variant: int   # index into VARIANTS; -1: the general loop
+    r: int         # output columns per thread
+    block: tuple   # (threads along channel groups, along column strips)
+    grid: tuple    # (channel-group blocks, strip blocks, n * oh)
+
+    @property
+    def vec(self) -> int:
+        """Channels per thread."""
+        return VEC if self.variant >= 0 else 1
+
+    @property
+    def threads(self) -> int:
+        return self.block[0] * self.block[1]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def name(self) -> str:
+        """kh x kw / horizontal stride / vec / r / block, or "general"."""
+        if self.variant < 0:
+            return "general"
+        kh, sw, r = VARIANTS[self.variant]
+        return f"{kh}x{kh}/s{sw}/v{VEC}/r{r}/{self.block[0]}x{self.block[1]}"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def general_plan(n: int, oh: int, ow: int, co: int) -> DwPlan:
+    """One thread per output byte, GENERAL_THREADS to a block."""
+    return DwPlan(-1, 1, (GENERAL_THREADS, 1),
+                  (_cdiv(n * oh * ow * co, GENERAL_THREADS), 1, 1))
+
+
+def strip_plan(variant: int, n: int, oh: int, ow: int, c: int,
+               threads: int = MAX_THREADS,
+               block_strips: int = BLOCK_STRIPS) -> DwPlan:
+    """The grid and block of strip variant ``variant``: channel groups
+    fastest (neighbouring threads load neighbouring bytes), up to
+    ``threads`` of them, then up to ``block_strips`` column strips within
+    ``threads``; the grid adds n * oh on z."""
+    r = VARIANTS[variant][2]
+    groups, strips = c // VEC, _cdiv(ow, r)
+    bx = min(groups, threads)
+    by = max(1, min(strips, block_strips, threads // bx))
+    return DwPlan(variant, r, (bx, by),
+                  (_cdiv(groups, bx), _cdiv(strips, by), n * oh))
+
+
+def alignment(*tensors) -> int:
+    """The largest power of two up to 16 dividing every base address."""
+    a = 16
+    for t in tensors:
+        p = t.data_ptr()
+        a = min(a, p & -p)
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def dwconv_plan(n: int, oh: int, ow: int, c: int, mult: int, kh: int,
+                kw: int, stride, dilation, align: int) -> DwPlan:
+    """Variant, block and grid of a depthwise conv with output [n, oh,
+    ow, c * mult], kh x kw taps, ``stride`` and ``dilation`` (sh, sw)
+    pairs, and base addresses (x, w, out) aligned to ``align`` bytes.
+
+    The strip kernel takes VEC channels per thread where VEC divides c and
+    ``align``, multiplier 1, dilation 1, 3x3 and 5x5 taps and a
+    horizontal stride of 1 or 2; anything else, or more than MAX_GRID_Z
+    rows or columns of output, runs the general loop.  A strip thread
+    computes 4 columns from STRIP_4 outputs on, 2 from STRIP_2, else 1
+    (of the strips the variant table has, the nearest).  Blocks are as
+    in strip_plan, of 256 threads, or halved down to 32 while that gives
+    fewer than MIN_BLOCKS blocks."""
+    sh, sw = stride
+    if (c % VEC or align % VEC or mult != 1 or tuple(dilation) != (1, 1)
+            or kh != kw or n * oh > MAX_GRID_Z or ow > MAX_GRID_Z):
+        return general_plan(n, oh, ow, c * mult)
+    strips = {r: i for i, (k, s, r) in enumerate(VARIANTS)
+              if (k, s) == (kh, sw)}
+    if not strips:
+        return general_plan(n, oh, ow, c * mult)
+    outputs = n * oh * ow * c
+    want = 4 if outputs >= STRIP_4 else (2 if outputs >= STRIP_2 else 1)
+    r = min(strips, key=lambda r: (abs(r - want), -r))
+    threads = MAX_THREADS
+    plan = strip_plan(strips[r], n, oh, ow, c, threads)
+    while plan.blocks < MIN_BLOCKS and threads > 32:
+        threads //= 2
+        plan = strip_plan(strips[r], n, oh, ow, c, threads)
+    return plan
 
 
 def _acc_plain(x, w, bias, kh, kw, stride, dilation, padding, x_zp, w_zp):
@@ -129,13 +249,17 @@ def qdwconv2d_exact(x, w, bias, qm, shift, kh, kw, stride=(1, 1),
     require(n * oh * ow * co < 2**31 and x.numel() < 2**31,
             "tensor too large for 32-bit indexing")
     out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
+    if n == 0:
+        return out
     if _fn is None:
         _fn = build.bind("qdwconv", "band_qdwconv2d_exact", _ARGTYPES)
+    p = dwconv_plan(n, oh, ow, ci, mult, kh, kw, (sh, sw), (dh, dw),
+                    alignment(x, w, out))
     build.launch(_fn, x.device, build.ptr(x), build.ptr(w), build.ptr(bias),
                  build.ptr(qm), build.ptr(shift), build.ptr(out), n, h, wd,
                  ci, mult, oh, ow, kh, kw, sh, sw, dh, dw, pt, pl, qstride,
                  int(x_zp), int(w_zp), int(out_zp), int(qmin), int(qmax),
-                 Q.ROUNDING_CODES[rounding])
+                 Q.ROUNDING_CODES[rounding], p.variant, *p.grid, *p.block)
     launches.add()
     return out
 
@@ -160,12 +284,17 @@ def qdwconv2d_fast(x, w, bias, mult, kh, kw, stride=(1, 1), dilation=(1, 1),
     require(n * oh * ow * co < 2**31 and x.numel() < 2**31,
             "tensor too large for 32-bit indexing")
     out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=x.device)
+    if n == 0:
+        return out
     if _fast_fn is None:
         _fast_fn = build.bind("qdwconv", "band_qdwconv2d_fast",
                               _FAST_ARGTYPES)
+    p = dwconv_plan(n, oh, ow, ci, dm, kh, kw, (sh, sw), (dh, dw),
+                    alignment(x, w, out))
     build.launch(_fast_fn, x.device, build.ptr(x), build.ptr(w),
                  build.ptr(bias), build.ptr(mult), build.ptr(out), n, h, wd,
                  ci, dm, oh, ow, kh, kw, sh, sw, dh, dw, pt, pl, mstride,
-                 int(x_zp), int(w_zp), int(out_zp), int(qmin), int(qmax))
+                 int(x_zp), int(w_zp), int(out_zp), int(qmin), int(qmax),
+                 p.variant, *p.grid, *p.block)
     fast_launches.add()
     return out

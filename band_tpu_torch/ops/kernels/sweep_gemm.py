@@ -24,35 +24,46 @@ from . import qmatmul as QM
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
-MODEL = os.path.join(ROOT, "tests", "data", "mobilenet_v2_int8.tflite")
+DATA = os.path.join(ROOT, "tests", "data")
+
+
+def capture_calls(model, batch, lowering, key):
+    """key(*args, **kwargs) -> calls, over every call that one run of
+    ``model`` (a tests/data model) at ``batch`` makes to the kernel that
+    ops/lowerings.py binds as ``lowering``, from the port's program run
+    on the CPU."""
+    from ...backend.program import build_program, params_from_jax
+    from ...tflite.parser import parse_tflite_file
+    from .. import lowerings as L
+
+    g = parse_tflite_file(os.path.join(DATA, f"{model}.tflite"))
+    prog = build_program(g, range(len(g.ops)), exact=True)
+    params = params_from_jax(prog.params, torch.device("cpu"))
+    calls = {}
+    kernel = getattr(L, lowering)
+
+    def capture(*args, **kw):
+        k = key(*args, **kw)
+        calls[k] = calls.get(k, 0) + 1
+        return kernel(*args, **kw)
+
+    shape = g.tensor(g.inputs[0]).shape[1:]
+    setattr(L, lowering, capture)
+    try:
+        with torch.inference_mode():
+            prog.make_fn()(params, [torch.zeros((batch, *shape),
+                                                dtype=torch.int8)])
+    finally:
+        setattr(L, lowering, kernel)
+    return calls
 
 
 def mobilenet_v2_gemms(batch):
     """(M, N, K) -> calls of every int8 GEMM of one MobileNetV2 run at
     ``batch``, from the port's program run on the CPU."""
-    from ...backend.program import build_program, params_from_jax
-    from ...tflite.parser import parse_tflite_file
-    from .. import lowerings as L
-
-    g = parse_tflite_file(MODEL)
-    prog = build_program(g, range(len(g.ops)), exact=True)
-    params = params_from_jax(prog.params, torch.device("cpu"))
-    shapes = {}
-    kernel = L.qmatmul_exact
-
-    def capture(a, b, *args, **kw):
-        key = (a.shape[0], b.shape[1], a.shape[1])
-        shapes[key] = shapes.get(key, 0) + 1
-        return kernel(a, b, *args, **kw)
-
-    L.qmatmul_exact = capture
-    try:
-        with torch.inference_mode():
-            prog.make_fn()(params, [torch.zeros((batch, 224, 224, 3),
-                                                dtype=torch.int8)])
-    finally:
-        L.qmatmul_exact = kernel
-    return shapes
+    return capture_calls("mobilenet_v2_int8", batch, "qmatmul_exact",
+                         lambda a, b, *_, **__: (a.shape[0], b.shape[1],
+                                                 a.shape[1]))
 
 
 def graph_ms(fn, launches=20, replays=10):

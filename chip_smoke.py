@@ -19,7 +19,11 @@ Phases:
              - on synthetic cases: all three roundings, w_zp 0 and != 0,
                int8 and uint8 outputs, ragged K, conv strides 1/2 and
                dilation 2, depthwise stride 2, dilation 2 and depth
-               multiplier 2; for the fast kernels also per-tensor and
+               multiplier 2; for both depthwise kernels every branch of
+               dwconv_plan and every variant of the strip kernel, each
+               with w_zp 0 and != 0 and int8 and uint8 outputs (ragged
+               C 7/13/33, multiplier 3, 5x5, stride (2, 1), x one byte
+               off alignment, ...); for the fast kernels also per-tensor and
                per-channel mult, mult 0.5 on odd sums (ties to even) and
                sums above 2^24; for both GEMMs every branch of gemm_plan
                (M 0..12545, K 16..1280, N 16..1000: each tile, K split or
@@ -27,10 +31,15 @@ Phases:
                and a bias near +-2^31 under split-K.
              At MobileNetV2's b1 calls each kernel is timed (a CUDA graph
              of 20 launches, replayed), beside its plain version (eager,
-             CUDA events), its bound, and for the int8 GEMMs one
-             torch._int_mm call per GEMM as a yardstick; one ``gemm:``
+             CUDA events), its bound, and a yardstick: for the int8
+             GEMMs one torch._int_mm call per GEMM, for the depthwise
+             convs one cuDNN call per conv; one ``gemm:``
              line per distinct b1 GEMM shape (plan, exact, fast and
-             _int_mm times), and the ``launch floor:`` line: one trivial
+             _int_mm times), one ``dwconv:`` line per distinct b1
+             depthwise shape (plan, exact, fast, library and bound; the
+             library is one cuDNN float32 depthwise conv, checked equal
+             to the kernel's accumulator first), and the ``launch
+             floor:`` line: one trivial
              PyTorch kernel in the same CUDA-graph harness, and 35 times
              it.
  4. engine   Engine.create with one GPU worker (fixed_worker, max_batch
@@ -239,6 +248,51 @@ def work(name, args, kw, out):
 # kernel phase
 # --------------------------------------------------------------------------
 
+def dwconv_plan_of(args, kw, out):
+    """The dwconv_plan a depthwise kernel call ran under."""
+    from band_tpu_torch.ops.kernels import qdwconv as QD
+
+    x, w = args[0], args[1]
+    n, _, _, c = x.shape
+    return QD.dwconv_plan(n, out.shape[1], out.shape[2], c, w.shape[1] // c,
+                          kw["kh"], kw["kw"], tuple(kw["stride"]),
+                          tuple(kw["dilation"]), QD.alignment(x, w, out))
+
+
+def dwconv_library(torch, dev, args, kw):
+    """B3's yardstick: one cuDNN float32 depthwise conv (channels_last,
+    groups = C, TF32 off) on inputs already converted (x_zp-padded and
+    float), which computes the kernel's accumulator exactly (|acc| <=
+    kh * kw * 128 * 128 < 2^24).  Checked equal to _acc_plain without
+    bias first; returns the call to time.  The port never calls it."""
+    import torch.nn.functional as F
+    from band_tpu_torch.ops.kernels import qdwconv as QD
+
+    x, w = args[0], args[1]
+    kh, kw_ = kw["kh"], kw["kw"]
+    (pt, pb), (pl, pr) = kw["padding"]
+    ci, co = x.shape[3], w.shape[1]
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN with TF32")
+    xf = F.pad(x.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb),
+               value=float(kw["x_zp"])).contiguous(
+                   memory_format=torch.channels_last)
+    wf = (w.float().reshape(kh, kw_, co).permute(2, 0, 1).unsqueeze(1)
+          .contiguous(memory_format=torch.channels_last))
+
+    def run():
+        return F.conv2d(xf, wf, stride=tuple(kw["stride"]),
+                        dilation=tuple(kw["dilation"]), groups=ci)
+
+    want = QD._acc_plain(x, w, torch.zeros(co, dtype=torch.int32,
+                                           device=dev),
+                         kh, kw_, kw["stride"], kw["dilation"],
+                         kw["padding"], kw["x_zp"], 0)
+    got = run().permute(0, 2, 3, 1).to(torch.int64)
+    check(torch.equal(got, want),
+          f"cuDNN depthwise conv {tuple(x.shape)} differs from _acc_plain")
+    return run
+
+
 def capture_calls(L, fn, params, inputs):
     """Every kernel call one run of ``fn`` makes: (name, args, kwargs,
     output).  The lowerings call the kernels through their module
@@ -365,6 +419,7 @@ def synthetic_cases(torch, K, Q, dev):
                           f"c{c} x{mult} s{st} d{dil} {rounding} "
                           f"w_zp={w_zp} {od}"))
     cases += gemm_plan_cases(torch, K, Q, rng, t, i8, epilogue, out_args)
+    cases += dwconv_plan_cases(torch, K, rng, i8, epilogue, out_args)
     cases += fast_synthetic_cases(torch, K, rng, t, i8, out_args)
     for in_dtype, od, depth in ((np.int8, torch.int8, 1000),
                                 (np.uint8, torch.uint8, 10),
@@ -442,6 +497,119 @@ def gemm_plan_cases(torch, K, Q, rng, t, i8, epilogue, out_args):
                       lambda fkw=fkw: K.qmatmul_fast(a, b, bias, mult, **fkw),
                       lambda fkw=fkw: K.qmatmul_fast_plain(a, b, bias, mult,
                                                            **fkw), label))
+    return cases
+
+
+def dwconv_plan_cases(torch, K, rng, i8, epilogue, out_args):
+    """Both depthwise kernels (B3 and its fast instance) on every branch
+    of dwconv_plan and on every variant of the strip kernel: ragged C (7,
+    13, 33), depth multiplier 3 (C*mult = 5x3), 5x5, stride (2, 1),
+    dilation 2, 3x5 and 1x1 taps, stride 3, more rows than grid z holds,
+    x one, four and eight bytes into a buffer (the general loop, then
+    word loads), strips of 1, 2 and 4 columns, blocks shrunk for small
+    outputs, output widths that no strip divides, w_zp 0 and 3, int8 and
+    uint8 outputs in turn; then each variant forced through the plan,
+    under each block size in turn, with each w_zp (the kernel's WZP
+    template flag) and each output type.  Per-channel and per-tensor
+    multipliers in turn."""
+    from band_tpu_torch.ops.kernels import qdwconv as QD
+
+    def x_at(n, h, w, c, offset):
+        if offset == 0:
+            return i8(n, h, w, c)
+        return i8(n * h * w * c + offset)[offset:].view(n, h, w, c)
+
+    def same_pads(k, dil=1):
+        e = (k - 1) * dil
+        return (e // 2, e - e // 2)
+
+    def add(geom, i, plan=None, w_zp=None, od=None):
+        n, h, w, c, mult, kh, kw, st, dil, offset = geom
+        x = x_at(n, h, w, c, offset)
+        co = c * mult
+        wk = i8(kh * kw, co)
+        od = (torch.int8, torch.uint8)[i % 2] if od is None else od
+        w_zp = (0, 3)[(i // 2) % 2] if w_zp is None else w_zp
+        rounding = ("single", "double", "ruy")[i % 3]
+        ep = epilogue(co, kh * kw, per_channel=i % 4 < 2)
+        kw_ = dict(out_args(od, rounding, w_zp), kh=kh, kw=kw, stride=st,
+                   dilation=dil, x_zp=-7,
+                   padding=(same_pads(kh, dil[0]), same_pads(kw, dil[1])))
+        fkw = dict(kw_)
+        del fkw["rounding"]
+        mult_f = ep[0].new_tensor(  # per channel or per tensor, as qm
+            (30.0 / (3.0 * 73.0 * 73.0) * rng.uniform(
+                0.5, 2.0, ep[1].numel())).astype(np.float32),
+            dtype=torch.float32)
+        oh = (h + sum(kw_["padding"][0]) - (kh - 1) * dil[0] - 1) // st[0] + 1
+        ow = (w + sum(kw_["padding"][1]) - (kw - 1) * dil[1] - 1) // st[1] + 1
+        if plan is None:
+            # the wrapper plans the call itself (out is 16-byte aligned)
+            what = "plan " + QD.dwconv_plan(n, oh, ow, c, mult, kh, kw, st,
+                                            dil, QD.alignment(x, wk)).name
+
+            def forced(f):
+                return f
+        else:
+            plan = plan(n, oh, ow, c)
+            what = f"forced {plan.name}"
+
+            def forced(f):
+                def g():
+                    saved = QD.dwconv_plan
+                    QD.dwconv_plan = lambda *a: plan
+                    try:
+                        return f()
+                    finally:
+                        QD.dwconv_plan = saved
+                return g
+        label = (f"dw {n}x{h}x{w}x{c} x{mult} {kh}x{kw} s{st} d{dil} "
+                 f"x+{offset} {what} {rounding} w_zp={w_zp} {od}")
+
+        return [("qdwconv2d_exact",
+                 forced(lambda: K.qdwconv2d_exact(x, wk, *ep, **kw_)),
+                 lambda: K.qdwconv2d_plain(x, wk, *ep, **kw_), label),
+                ("qdwconv2d_fast",
+                 forced(lambda: K.qdwconv2d_fast(x, wk, ep[0], mult_f,
+                                                 **fkw)),
+                 lambda: K.qdwconv2d_fast_plain(x, wk, ep[0], mult_f, **fkw),
+                 label)]
+
+    geoms = [
+        # (n, h, w, c, mult, kh, kw, stride, dilation, x's byte offset)
+        (2, 13, 11, 7, 1, 3, 3, (1, 1), (1, 1), 0),      # ragged C: general
+        (1, 12, 17, 13, 1, 3, 3, (2, 2), (1, 1), 0),
+        (2, 9, 10, 33, 1, 3, 3, (1, 1), (1, 1), 0),
+        (2, 11, 12, 5, 3, 3, 3, (1, 1), (1, 1), 0),      # multiplier 3
+        (2, 15, 14, 24, 1, 5, 5, (1, 1), (1, 1), 0),     # 5x5
+        (1, 16, 15, 40, 1, 5, 5, (2, 2), (1, 1), 0),
+        (2, 14, 13, 32, 1, 3, 3, (2, 1), (1, 1), 0),     # stride (2, 1)
+        (1, 15, 15, 16, 1, 3, 3, (1, 1), (2, 2), 0),     # dilation 2
+        (1, 9, 9, 8, 1, 3, 5, (1, 1), (1, 1), 0),        # 3x5: general
+        (2, 7, 7, 16, 1, 1, 1, (1, 1), (1, 1), 0),       # 1x1: general
+        (1, 9, 9, 16, 1, 3, 3, (1, 3), (1, 1), 0),       # stride 3: general
+        (1, 65540, 1, 4, 1, 3, 3, (1, 1), (1, 1), 0),    # n*oh > grid z
+        (2, 17, 19, 48, 1, 3, 3, (1, 1), (1, 1), 1),     # x + 1: general
+        (2, 17, 19, 48, 1, 3, 3, (2, 2), (1, 1), 4),     # x + 4: v4
+        (2, 17, 19, 48, 1, 3, 3, (1, 1), (1, 1), 8),     # x + 8: v4
+        (8, 56, 56, 144, 1, 3, 3, (1, 1), (1, 1), 0),    # strips of 4
+        (1, 28, 28, 192, 1, 3, 3, (1, 1), (1, 1), 0),    # strips of 2
+        (1, 7, 7, 960, 1, 3, 3, (1, 1), (1, 1), 0),      # 1, small blocks
+        (1, 14, 14, 576, 1, 3, 3, (2, 2), (1, 1), 0),
+    ]
+    cases = []
+    i = 0
+    for geom in geoms:
+        cases += add(geom, i)
+        i += 1
+    for v, (kh, sw, _) in enumerate(QD.VARIANTS):
+        t = (32, 64, 128, QD.MAX_THREADS)[v % 4]
+        geom = (2, 13, 11, 3 * QD.VEC, 1, kh, kh, (1 + v % 2, sw), (1, 1), 0)
+        for w_zp in (0, 3):
+            for od in (torch.int8, torch.uint8):
+                cases += add(geom, i, lambda n, oh, ow, c, v=v, t=t:
+                             QD.strip_plan(v, n, oh, ow, c, t), w_zp, od)
+                i += 1
     return cases
 
 
@@ -576,6 +744,7 @@ def kernel_phase(torch, dev, graphs, goldens):
             softmax_calls[:1]
         wrapper = {n: getattr(K, n) for n in KERNELS}
         gemms = {}  # (M, N, K) -> calls and times of one call
+        dwconvs = {}  # (input shape, stride) -> plan, calls, times
         for name, args, kw, out in per_b[1]:
             s = stats[name]
             s["launches_b1"] += 1
@@ -606,6 +775,19 @@ def kernel_phase(torch, dev, graphs, goldens):
                 g["calls"] += name == "qmatmul_exact"
                 g[name].append(ms)
                 g["int_mm"].append(lib)
+            if name in ("qdwconv2d_exact", "qdwconv2d_fast"):
+                lib = graph_ms(torch, dwconv_library(torch, dev, args, kw))
+                s["library_ms"] = (s["library_ms"] or 0.0) + lib
+                x = args[0]
+                d = dwconvs.setdefault((tuple(x.shape), tuple(kw["stride"])),
+                                       dict(calls=0, qdwconv2d_exact=[],
+                                            qdwconv2d_fast=[], library=[],
+                                            bound_ms=max(bt, ot),
+                                            plan=dwconv_plan_of(args, kw,
+                                                                out)))
+                d["calls"] += name == "qdwconv2d_exact"
+                d[name].append(ms)
+                d["library"].append(lib)
         mean = lambda v: sum(v) / len(v)  # noqa: E731
         for (m, n, k), g in sorted(gemms.items(), key=lambda kv: -kv[0][0]):
             p = K.gemm_plan(m, n, k)
@@ -616,6 +798,16 @@ def kernel_phase(torch, dev, graphs, goldens):
                 "exact_ms": mean(g["qmatmul_exact"]),
                 "fast_ms": mean(g["qmatmul_fast"]),
                 "int_mm_ms": mean(g["int_mm"]), "bound_ms": g["bound_ms"]}))
+        for (shape, stride), d in sorted(dwconvs.items(),
+                                         key=lambda kv: -np.prod(kv[0][0])):
+            p = d["plan"]
+            log("dwconv: " + json.dumps({
+                "shape": "x".join(map(str, shape)), "stride": list(stride),
+                "calls_b1": d["calls"], "plan": p.name,
+                "threads": p.grid[0] * p.grid[1] * p.grid[2] * p.threads,
+                "exact_ms": mean(d["qdwconv2d_exact"]),
+                "fast_ms": mean(d["qdwconv2d_fast"]),
+                "library_ms": mean(d["library"]), "bound_ms": d["bound_ms"]}))
         # the per-launch floor of the timing harness
         z = torch.zeros(1, device=dev)
         floor = graph_ms(torch, lambda: z.add_(1))

@@ -20,6 +20,7 @@ import torch
 import band_tpu_torch as bt
 from band_tpu_torch.ops import kernels as K
 from band_tpu_torch.ops import quant as Q
+from band_tpu_torch.ops.kernels import qdwconv as QD
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 ROUNDINGS = ["single", "double", "ruy"]
@@ -109,6 +110,37 @@ def test_kernels_match_plain(dev, rounding, w_zp, out_dtype):
         assert torch.equal(got, want), (m, k, n, K.gemm_plan(m, n, k))
     assert K.launch_counts()["qmatmul_exact"] == 1 + sum(
         m > 0 for m, _, _ in GEMM_SHAPES)
+
+
+@pytest.mark.parametrize("w_zp,out_dtype", [(0, torch.int8),
+                                            (3, torch.uint8)])
+def test_dwconv_ragged_channels_match_plain(dev, w_zp, out_dtype):
+    """C = 13 (not a multiple of the strip kernel's 4-channel vector): the
+    plan takes the general loop; exact and fast, stride 1 and 2,
+    byte-equal."""
+    rng = np.random.default_rng(21)
+    args = _args(out_dtype, "double", w_zp)
+    fast = _fast_args(out_dtype, w_zp)
+    x = _i8(rng, dev, 2, 11, 9, 13)
+    wd = _i8(rng, dev, 9, 13)
+    epi = _epilogue(rng, 13, 9, dev)
+    mult = torch.from_numpy(rng.uniform(2e-3, 8e-3, 13).astype(
+        np.float32)).to(dev)
+    K.reset_launches()
+    for st, pad in (((1, 1), ((1, 1), (1, 1))), ((2, 2), ((0, 1), (0, 1)))):
+        conv = dict(kh=3, kw=3, stride=st, dilation=(1, 1), padding=pad,
+                    x_zp=-7)
+        oh = (11 + sum(pad[0]) - 3) // st[0] + 1
+        ow = (9 + sum(pad[1]) - 3) // st[1] + 1
+        plan = QD.dwconv_plan(2, oh, ow, 13, 1, 3, 3, st, (1, 1), 16)
+        assert plan.variant < 0 and plan.vec == 1, plan
+        assert torch.equal(K.qdwconv2d_exact(x, wd, *epi, **conv, **args),
+                           K.qdwconv2d_plain(x, wd, *epi, **conv, **args))
+        assert torch.equal(
+            K.qdwconv2d_fast(x, wd, epi[0], mult, **conv, **fast),
+            K.qdwconv2d_fast_plain(x, wd, epi[0], mult, **conv, **fast))
+    counts = K.launch_counts()
+    assert counts["qdwconv2d_exact"] == 2 and counts["qdwconv2d_fast"] == 2
 
 
 def _fast_args(out_dtype, w_zp):
