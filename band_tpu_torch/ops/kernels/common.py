@@ -78,6 +78,15 @@ def pair(v) -> Sequence[int]:
     return (int(v), int(v)) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
 
+def alignment(*tensors) -> int:
+    """The largest power of two up to 16 dividing every base address."""
+    a = 16
+    for t in tensors:
+        p = t.data_ptr()
+        a = min(a, p & -p)
+    return a
+
+
 def on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor (whose caller takes
     the plain version); any other device raises."""

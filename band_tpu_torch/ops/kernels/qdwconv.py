@@ -31,8 +31,9 @@ import torch.nn.functional as F
 
 from .. import quant as Q
 from . import build
-from .common import (LaunchCount, check_epilogue, check_fast_epilogue,
-                     check_tensor, on_card, pair, require)
+from .common import (LaunchCount, alignment,  # noqa: F401
+                     check_epilogue, check_fast_epilogue, check_tensor,
+                     on_card, pair, require)
 from .qconv import conv_out_size
 
 launches = LaunchCount("qdwconv2d_exact")
@@ -112,15 +113,6 @@ def strip_plan(variant: int, n: int, oh: int, ow: int, c: int,
     by = max(1, min(strips, block_strips, threads // bx))
     return DwPlan(variant, r, (bx, by),
                   (_cdiv(groups, bx), _cdiv(strips, by), n * oh))
-
-
-def alignment(*tensors) -> int:
-    """The largest power of two up to 16 dividing every base address."""
-    a = 16
-    for t in tensors:
-        p = t.data_ptr()
-        a = min(a, p & -p)
-    return a
 
 
 @functools.lru_cache(maxsize=None)

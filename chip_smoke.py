@@ -23,7 +23,14 @@ Phases:
                dwconv_plan and every variant of the strip kernel, each
                with w_zp 0 and != 0 and int8 and uint8 outputs (ragged
                C 7/13/33, multiplier 3, 5x5, stride (2, 1), x one byte
-               off alignment, ...); for the fast kernels also per-tensor and
+               off alignment, ...); for both convs every branch of
+               conv_plan (its own plan on stems and small-Ci convs, the
+               general loop) and every direct variant and the general
+               loop forced, each with w_zp 0 and != 0 and int8 and uint8
+               outputs; for the softmax every branch of softmax_plan
+               (the thread kernel, the row kernel at 32, 64 and 256
+               threads) on 1 and 8 rows of depth 10, 1000 and 1001, int8
+               and uint8 in and out; for the fast kernels also per-tensor and
                per-channel mult, mult 0.5 on odd sums (ties to even) and
                sums above 2^24; for both GEMMs every branch of gemm_plan
                (M 0..12545, K 16..1280, N 16..1000: each tile, K split or
@@ -41,7 +48,14 @@ Phases:
              to the kernel's accumulator first), and the ``launch
              floor:`` line: one trivial
              PyTorch kernel in the same CUDA-graph harness, and 35 times
-             it.
+             it.  Then, from the real calls of the five tests/data models
+             at b1 and b8, one ``qconv:`` line per distinct B2 shape
+             (plan, B2 and B2 fast, both with the general loop forced,
+             a cuDNN float32 conv as yardstick, bound) and one
+             ``softmax:`` line per distinct SOFTMAX shape (plan, the
+             thread and the row kernel forced, torch.softmax in float32
+             as yardstick, the bytes bound and the serial floor of the
+             float32 row sum).
  4. engine   Engine.create with one GPU worker (fixed_worker, max_batch
              8); the full-width MobileNetV2 and the three tests/data CNNs
              registered and served: 4 checked request_sync, 32 timed
@@ -95,6 +109,7 @@ BURST = 32
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
+FADD_CYCLES = 4  # latency of a dependent float32 add (the softmax's serial sum)
 
 KERNELS = {
     "qmatmul_exact": dict(
@@ -259,13 +274,16 @@ def dwconv_plan_of(args, kw, out):
                           tuple(kw["dilation"]), QD.alignment(x, w, out))
 
 
-def dwconv_library(torch, dev, args, kw):
-    """B3's yardstick: one cuDNN float32 depthwise conv (channels_last,
-    groups = C, TF32 off) on inputs already converted (x_zp-padded and
-    float), which computes the kernel's accumulator exactly (|acc| <=
-    kh * kw * 128 * 128 < 2^24).  Checked equal to _acc_plain without
-    bias first; returns the call to time.  The port never calls it."""
+def conv_library(torch, dev, args, kw, depthwise):
+    """The conv kernels' yardstick (B2 and B3, exact and fast): one cuDNN
+    float32 convolution (channels_last, TF32 off; groups = C for the
+    depthwise conv) on inputs already converted (x_zp-padded and float),
+    which computes the kernel's accumulator exactly (|acc| <= kh * kw *
+    Ci * 128 * 128 < 2^24 at these sizes).  Checked equal to _acc_plain
+    without bias first; returns the call to time.  The port never calls
+    it, and no PyTorch call computes either conv with its requant."""
     import torch.nn.functional as F
+    from band_tpu_torch.ops.kernels import qconv as QC
     from band_tpu_torch.ops.kernels import qdwconv as QD
 
     x, w = args[0], args[1]
@@ -276,21 +294,34 @@ def dwconv_library(torch, dev, args, kw):
     xf = F.pad(x.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb),
                value=float(kw["x_zp"])).contiguous(
                    memory_format=torch.channels_last)
-    wf = (w.float().reshape(kh, kw_, co).permute(2, 0, 1).unsqueeze(1)
-          .contiguous(memory_format=torch.channels_last))
+    if depthwise:
+        wt = w.float().reshape(kh, kw_, co).permute(2, 0, 1).unsqueeze(1)
+    else:
+        wt = w.float().reshape(kh, kw_, ci, co).permute(3, 2, 0, 1)
+    wf = wt.contiguous(memory_format=torch.channels_last)
+    groups = ci if depthwise else 1
 
     def run():
         return F.conv2d(xf, wf, stride=tuple(kw["stride"]),
-                        dilation=tuple(kw["dilation"]), groups=ci)
+                        dilation=tuple(kw["dilation"]), groups=groups)
 
-    want = QD._acc_plain(x, w, torch.zeros(co, dtype=torch.int32,
-                                           device=dev),
-                         kh, kw_, kw["stride"], kw["dilation"],
-                         kw["padding"], kw["x_zp"], 0)
+    acc_plain = (QD if depthwise else QC)._acc_plain
+    want = acc_plain(x, w, torch.zeros(co, dtype=torch.int32, device=dev),
+                     kh, kw_, kw["stride"], kw["dilation"], kw["padding"],
+                     kw["x_zp"], 0)
     got = run().permute(0, 2, 3, 1).to(torch.int64)
     check(torch.equal(got, want),
-          f"cuDNN depthwise conv {tuple(x.shape)} differs from _acc_plain")
+          f"cuDNN conv {tuple(x.shape)} differs from _acc_plain")
     return run
+
+
+def softmax_library(torch, args):
+    """lut_softmax's yardstick: torch.softmax in float32 over the same
+    rows (the int8 input as float).  Not the quantized function: no
+    PyTorch call computes TFLite's table softmax with its float32 row
+    sum and requant.  The port never calls it."""
+    xf = args[0].float()
+    return lambda: torch.softmax(xf, dim=-1)
 
 
 def capture_calls(L, fn, params, inputs):
@@ -420,6 +451,8 @@ def synthetic_cases(torch, K, Q, dev):
                           f"w_zp={w_zp} {od}"))
     cases += gemm_plan_cases(torch, K, Q, rng, t, i8, epilogue, out_args)
     cases += dwconv_plan_cases(torch, K, rng, i8, epilogue, out_args)
+    cases += conv_plan_cases(torch, K, rng, i8, epilogue, out_args)
+    cases += softmax_plan_cases(torch, K, Q, rng, t)
     cases += fast_synthetic_cases(torch, K, rng, t, i8, out_args)
     for in_dtype, od, depth in ((np.int8, torch.int8, 1000),
                                 (np.uint8, torch.uint8, 10),
@@ -613,6 +646,146 @@ def dwconv_plan_cases(torch, K, rng, i8, epilogue, out_args):
     return cases
 
 
+def forced(module, name, value):
+    """Wrap a thunk so that it runs with ``module.<name>`` returning
+    ``value`` (a plan) for every call."""
+    def wrap(f):
+        def g():
+            saved = getattr(module, name)
+            setattr(module, name, lambda *a: value)
+            try:
+                return f()
+            finally:
+                setattr(module, name, saved)
+        return g
+    return wrap
+
+
+def conv_plan_cases(torch, K, rng, i8, epilogue, out_args):
+    """Both convs (B2 and its fast instance) on every branch of conv_plan:
+    its own plan on stems and small-Ci convs (Ci 1, 3, 8, 16; stride 1
+    and 2; Oc 16 to 64; x one byte into a buffer) and on shapes that take
+    the general loop (Oc 70, 5x5 with Oc 9); then on geometries that
+    reach every compiled instance (1, 2 and 4 words per pixel; 3x3 and
+    other taps) each direct variant forced onto a ragged 2x4 tile and
+    the general loop forced, each with w_zp 0 and 3 and int8 and uint8
+    outputs.
+    Per-channel and per-tensor multipliers in turn."""
+    from band_tpu_torch.ops.kernels import qconv as QC
+
+    def add(geom, i, plan=None, w_zp=None, od=None):
+        n, h, w, ci, oc, kh, kw, st, pad, offset = geom
+        x = (i8(n, h, w, ci) if offset == 0 else
+             i8(n * h * w * ci + offset)[offset:].view(n, h, w, ci))
+        wk = i8(kh * kw * ci, oc)
+        od = (torch.int8, torch.uint8)[i % 2] if od is None else od
+        w_zp = (0, 3)[(i // 2) % 2] if w_zp is None else w_zp
+        rounding = ("single", "double", "ruy")[i % 3]
+        ep = epilogue(oc, kh * kw * ci, per_channel=i % 4 < 2)
+        kw_ = dict(out_args(od, rounding, w_zp), kh=kh, kw=kw, stride=st,
+                   dilation=(1, 1), padding=pad, x_zp=-7)
+        fkw = dict(kw_)
+        del fkw["rounding"]
+        mult = ep[0].new_tensor(
+            (30.0 / (np.sqrt(kh * kw * ci) * 73.0 * 73.0) * rng.uniform(
+                0.5, 2.0, ep[1].numel())).astype(np.float32),
+            dtype=torch.float32)
+        oh = (h + sum(pad[0]) - kh) // st[0] + 1
+        ow = (w + sum(pad[1]) - kw) // st[1] + 1
+        if plan is None:
+            what = "plan " + QC.conv_plan(n, oh, ow, ci, oc, kh, kw, st,
+                                          (1, 1), QC.alignment(wk)).name
+            wrap = (lambda f: f)
+        else:
+            plan = plan(n, oh, ow, ci, oc, kh, kw, st)
+            what = f"forced {plan.name}"
+            wrap = forced(QC, "conv_plan", plan)
+        label = (f"conv {n}x{h}x{w}x{ci} oc{oc} {kh}x{kw} s{st} x+{offset} "
+                 f"{what} {rounding} w_zp={w_zp} {od}")
+        return [("qconv2d_exact",
+                 wrap(lambda: K.qconv2d_exact(x, wk, *ep, **kw_)),
+                 lambda: K.qconv2d_plain(x, wk, *ep, **kw_), label),
+                ("qconv2d_fast",
+                 wrap(lambda: K.qconv2d_fast(x, wk, ep[0], mult, **fkw)),
+                 lambda: K.qconv2d_fast_plain(x, wk, ep[0], mult, **fkw),
+                 label)]
+
+    same = ((1, 1), (1, 1))
+    s2 = ((0, 1), (0, 1))
+    geoms = [
+        # (n, h, w, ci, oc, kh, kw, stride, padding, x's byte offset)
+        (1, 30, 28, 3, 32, 3, 3, (2, 2), s2, 0),        # stems
+        (2, 20, 20, 3, 16, 3, 3, (2, 2), s2, 1),
+        (2, 12, 13, 3, 16, 3, 3, (1, 1), same, 0),
+        (2, 9, 11, 1, 8, 3, 3, (2, 2), s2, 0),
+        (2, 10, 9, 8, 16, 3, 3, (1, 1), same, 0),       # small Ci
+        (1, 9, 10, 16, 16, 3, 3, (1, 1), same, 4),
+        (1, 9, 10, 16, 64, 3, 3, (2, 2), s2, 0),
+        (2, 11, 10, 5, 24, 5, 5, (1, 2), ((2, 2), (2, 2)), 0),
+        (1, 9, 9, 16, 70, 3, 3, (1, 1), same, 0),       # general
+        (2, 12, 12, 5, 9, 5, 5, (1, 2), ((2, 2), (1, 2)), 0),
+        (1, 10, 11, 3, 16, 3, 5, (1, 1), ((1, 1), (2, 2)), 0),
+        (1, 9, 8, 16, 16, 5, 3, (2, 1), ((2, 2), (1, 1)), 1),
+    ]
+    cases = []
+    i = 0
+    for geom in geoms:
+        cases += add(geom, i)
+        i += 1
+    # every instance: 1, 2 and 4 words per pixel, 3x3 and other taps
+    for geom in (geoms[1], geoms[4], geoms[5], geoms[7], geoms[10],
+                 geoms[11]):
+        plans = [lambda n, oh, ow, ci, oc, kh, kw, st: QC.general_plan(
+            n, oh, ow, oc)]
+        plans += [lambda n, oh, ow, ci, oc, kh, kw, st, v=v: QC.direct_plan(
+            v, n, oh, ow, ci, oc, kh, kw, st, (1, 1), 2, 4)
+            for v in range(len(QC.DIRECT_VARIANTS))]
+        for plan in plans:
+            for w_zp in (0, 3):
+                for od in (torch.int8, torch.uint8):
+                    cases += add(geom, i, plan, w_zp, od)
+                    i += 1
+    return cases
+
+
+def softmax_plan_cases(torch, K, Q, rng, t):
+    """lut_softmax on every branch of softmax_plan: its own plan, the
+    thread kernel and the row kernel (32, 64 and 256 threads) forced, on
+    1 and 8 rows of depth 10, 1000 and 1001, int8 and uint8 in and out,
+    x at offset 0 and 1 from alignment."""
+    from band_tpu_torch.ops.kernels import softmax as SM
+
+    cases = []
+    table = t(Q.softmax_table(0.05, 1.0))
+    for rows in (1, 8):
+        for depth in (10, 1000, 1001):
+            for in_dtype, od, offset in ((np.int8, torch.int8, 0),
+                                         (np.uint8, torch.uint8, 1),
+                                         (np.int8, torch.uint8, 1),
+                                         (np.uint8, torch.int8, 0)):
+                info = np.iinfo(in_dtype)
+                buf = t(rng.integers(info.min, info.max + 1,
+                                     rows * depth + offset).astype(in_dtype))
+                x = buf[offset:].view(rows, depth)
+                zp = -128 if od == torch.int8 else 0
+                plans = [None, SM.thread_plan(rows)] + [
+                    SM.row_plan(rows, depth, n) for n in (32, 64, 256)]
+                for plan in plans:
+                    what = ("plan " + SM.softmax_plan(rows, depth).name
+                            if plan is None else f"forced {plan.name}")
+                    wrap = ((lambda f: f) if plan is None
+                            else forced(SM, "softmax_plan", plan))
+                    cases.append((
+                        "lut_softmax",
+                        wrap(lambda x=x, zp=zp, od=od:
+                             K.lut_softmax(x, table, 1.0 / 256, zp, od)),
+                        lambda x=x, zp=zp, od=od:
+                        K.lut_softmax_plain(x, table, 1.0 / 256, zp, od),
+                        f"softmax rows {rows} depth {depth} x+{offset} "
+                        f"{what} {in_dtype.__name__} -> {od}"))
+    return cases
+
+
 def fast_synthetic_cases(torch, K, rng, t, i8, out_args):
     """The fast kernels' synthetic cases: per-tensor and per-channel mult,
     w_zp 0 and != 0, int8 and uint8 outputs, ragged K, mult 0.5 on odd
@@ -775,8 +948,16 @@ def kernel_phase(torch, dev, graphs, goldens):
                 g["calls"] += name == "qmatmul_exact"
                 g[name].append(ms)
                 g["int_mm"].append(lib)
+            if name in ("qconv2d_exact", "qconv2d_fast"):
+                lib = graph_ms(torch, conv_library(torch, dev, args, kw,
+                                                   depthwise=False))
+                s["library_ms"] = (s["library_ms"] or 0.0) + lib
+            if name == "lut_softmax":
+                lib = graph_ms(torch, softmax_library(torch, args))
+                s["library_ms"] = (s["library_ms"] or 0.0) + lib
             if name in ("qdwconv2d_exact", "qdwconv2d_fast"):
-                lib = graph_ms(torch, dwconv_library(torch, dev, args, kw))
+                lib = graph_ms(torch, conv_library(torch, dev, args, kw,
+                                                   depthwise=True))
                 s["library_ms"] = (s["library_ms"] or 0.0) + lib
                 x = args[0]
                 d = dwconvs.setdefault((tuple(x.shape), tuple(kw["stride"])),
@@ -814,6 +995,110 @@ def kernel_phase(torch, dev, graphs, goldens):
         log(f"launch floor: one trivial PyTorch kernel {floor:.6f} ms in the "
             f"same CUDA-graph harness; x35 = {35 * floor:.6f} ms")
     return worst, stats
+
+
+def model_calls(torch, dev, graphs, xs, names, exact, batch):
+    """Every kernel call of one run of each model in ``names`` at
+    ``batch`` (its golden inputs), with exact or fast numerics, from the
+    port's program on the card."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import lowerings as L
+
+    calls = []
+    for name in names:
+        g = graphs[name]
+        prog = build_program(g, range(len(g.ops)), exact=exact)
+        params = params_from_jax(prog.params, dev)
+        x = torch.from_numpy(np.concatenate(list(xs[name][:batch]))).to(dev)
+        calls += capture_calls(L, prog.make_fn(), params, [x])
+    torch.cuda.synchronize()
+    return calls
+
+
+def bound_ms(name, args, kw, out):
+    nbytes, ops, rate = work(name, args, kw, out)
+    return max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / rate)
+
+
+def conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens, sm_ghz):
+    """One ``qconv:`` line per distinct B2 shape and one ``softmax:`` line
+    per distinct SOFTMAX shape of the slice models, at b1 and b8, from
+    their real calls on the card: the plan and its times beside the other
+    branches forced (for B2 the general implicit-GEMM loop, the parent
+    commit's kernel; for the softmax the thread and the row kernel), the
+    yardstick, the bound, and for the softmax the serial floor: depth
+    dependent float32 adds at FADD_CYCLES each, at the card's top SM
+    clock."""
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops.kernels import qconv as QC
+    from band_tpu_torch.ops.kernels import softmax as SM
+
+    xs = {n: goldens[n]["xs"] for n in MODELS}
+    xs[QUANT_ACT] = fast_goldens[QUANT_ACT]["xs"]
+    names = MODELS + (QUANT_ACT,)
+    with torch.inference_mode():
+        for b in (1, MAX_BATCH):
+            calls = (model_calls(torch, dev, graphs, xs, names, True, b)
+                     + model_calls(torch, dev, graphs, xs, names, False, b))
+            convs, softmaxes = {}, {}
+            for name, args, kw, out in calls:
+                if name in ("qconv2d_exact", "qconv2d_fast"):
+                    x, w = args[0], args[1]
+                    key = (tuple(x.shape), w.shape[1], tuple(kw["stride"]),
+                           tuple(tuple(p) for p in kw["padding"]))
+                    d = convs.setdefault(key, dict(calls=0))
+                    d["calls"] += name == "qconv2d_exact"
+                    d.setdefault(name, (args, kw, out))
+                if name == "lut_softmax":
+                    d = softmaxes.setdefault(tuple(args[0].shape),
+                                             dict(calls=0))
+                    d["calls"] += 1
+                    d.setdefault("call", (args, kw, out))
+            for (shape, oc, stride, pad), d in sorted(
+                    convs.items(), key=lambda kv: -np.prod(kv[0][0])):
+                args, kw, out = d["qconv2d_exact"]
+                fargs, fkw, _ = d["qconv2d_fast"]
+                n, h, w, ci = shape
+                plan = QC.conv_plan(n, out.shape[1], out.shape[2], ci, oc,
+                                    kw["kh"], kw["kw"], stride,
+                                    tuple(kw["dilation"]),
+                                    QC.alignment(args[1]))
+                general = QC.general_plan(n, out.shape[1], out.shape[2], oc)
+                exact = lambda: K.qconv2d_exact(*args, **kw)  # noqa: E731
+                fast = lambda: K.qconv2d_fast(*fargs, **fkw)  # noqa: E731
+                gen = forced(QC, "conv_plan", general)
+                log("qconv: " + json.dumps({
+                    "shape": "x".join(map(str, shape)), "oc": oc,
+                    "stride": list(stride), "batch": b,
+                    "calls": d["calls"], "plan": plan.name,
+                    "blocks": plan.blocks, "threads": plan.threads,
+                    "exact_ms": graph_ms(torch, exact),
+                    "fast_ms": graph_ms(torch, fast),
+                    "general_exact_ms": graph_ms(torch, gen(exact)),
+                    "general_fast_ms": graph_ms(torch, gen(fast)),
+                    "library_ms": graph_ms(torch, conv_library(
+                        torch, dev, args, kw, depthwise=False)),
+                    "bound_ms": bound_ms("qconv2d_exact", args, kw, out)}))
+            for shape, d in sorted(softmaxes.items(),
+                                   key=lambda kv: -np.prod(kv[0])):
+                args, kw, out = d["call"]
+                depth = shape[-1]
+                rows = int(np.prod(shape)) // depth
+                plan = SM.softmax_plan(rows, depth)
+                run = lambda: K.lut_softmax(*args, **kw)  # noqa: E731
+                log("softmax: " + json.dumps({
+                    "shape": list(shape), "batch": b,
+                    "calls": d["calls"] // 2, "plan": plan.name,
+                    "plan_ms": graph_ms(torch, run),
+                    "thread_ms": graph_ms(torch, forced(
+                        SM, "softmax_plan", SM.thread_plan(rows))(run)),
+                    "row_ms": graph_ms(torch, forced(
+                        SM, "softmax_plan", SM.row_plan(rows, depth))(run)),
+                    "library_ms": graph_ms(torch,
+                                           softmax_library(torch, args)),
+                    "bound_ms": bound_ms("lut_softmax", args, kw, out),
+                    "serial_floor_ms": depth * FADD_CYCLES / (sm_ghz * 1e6),
+                }))
 
 
 # --------------------------------------------------------------------------
@@ -1060,6 +1345,12 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"device: {smi}")
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    log(f"device: top SM clock {sm_mhz:.0f} MHz")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} card(s)")
 
@@ -1072,6 +1363,8 @@ def main():
     fast_goldens = load_fast_goldens(graphs)
 
     worst, stats = kernel_phase(torch, dev, graphs, goldens)
+    conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
+                       sm_mhz / 1e3)
     counts, rates = engine_phase(torch, bt, K, MODELS, goldens, card,
                                  bt.DeviceFlag.GPU, "exact")
     fast_counts, fast_rates = engine_phase(torch, bt, K, FAST_MODELS,

@@ -20,7 +20,9 @@ import torch
 import band_tpu_torch as bt
 from band_tpu_torch.ops import kernels as K
 from band_tpu_torch.ops import quant as Q
+from band_tpu_torch.ops.kernels import qconv as QC
 from band_tpu_torch.ops.kernels import qdwconv as QD
+from band_tpu_torch.ops.kernels import softmax as SM
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 ROUNDINGS = ["single", "double", "ruy"]
@@ -237,6 +239,102 @@ def test_softmax_kernel_matches_plain(dev, depth, in_dtype):
     assert torch.equal(K.lut_softmax(x, table, 1.0 / 256, zp, in_dtype),
                        K.lut_softmax_plain(x, table, 1.0 / 256, zp,
                                            in_dtype))
+
+
+def _forced(module, planner, plan):
+    """Run with ``module.<planner>`` returning ``plan`` for every call."""
+    class Forced:
+        def __enter__(self):
+            self.saved = getattr(module, planner)
+            setattr(module, planner, lambda *a: plan)
+
+        def __exit__(self, *exc):
+            setattr(module, planner, self.saved)
+    return Forced()
+
+
+# (n, h, w, ci, oc, stride, padding, x's byte offset in its buffer): the
+# stem and small-Ci shapes of the slice models' convs, Ci 1 and 16 too,
+# and x one byte off alignment
+CONV_GEOMS = [
+    (2, 13, 12, 1, 16, (2, 2), ((0, 1), (0, 1)), 0),
+    (2, 13, 12, 3, 32, (2, 2), ((0, 1), (0, 1)), 0),
+    (1, 10, 9, 8, 16, (1, 1), ((1, 1), (1, 1)), 0),
+    (2, 9, 11, 16, 16, (1, 1), ((1, 1), (1, 1)), 0),
+    (2, 9, 11, 16, 48, (2, 1), ((1, 1), (1, 1)), 1),
+    (1, 12, 10, 3, 24, (1, 1), ((1, 1), (1, 1)), 1),
+]
+
+
+@pytest.mark.parametrize("geom", CONV_GEOMS)
+@pytest.mark.parametrize("w_zp,out_dtype", [(0, torch.int8),
+                                            (3, torch.uint8)])
+def test_conv_plan_branches_match_plain(dev, geom, w_zp, out_dtype):
+    """B2 and its fast instance under conv_plan's own plan, every direct
+    variant forced onto a ragged tile, and the general implicit-GEMM loop
+    forced: byte-equal to the plain versions."""
+    n, h, w, ci, oc, st, pad, offset = geom
+    rng = np.random.default_rng(23 + ci + oc)
+    x = _i8(rng, dev, n * h * w * ci + offset)[offset:].view(n, h, w, ci)
+    wk = _i8(rng, dev, 9 * ci, oc)
+    epi = _epilogue(rng, oc, 9 * ci, dev)
+    mult = torch.from_numpy((30.0 / (np.sqrt(9 * ci) * 73.0 * 73.0)
+                             * rng.uniform(0.5, 2.0, oc)).astype(
+                                 np.float32)).to(dev)
+    conv = dict(kh=3, kw=3, stride=st, dilation=(1, 1), padding=pad,
+                x_zp=-7)
+    args = dict(_args(out_dtype, "double", w_zp), **conv)
+    fast = dict(_fast_args(out_dtype, w_zp), **conv)
+    want = K.qconv2d_plain(x, wk, *epi, **args)
+    want_fast = K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast)
+    oh = (h + sum(pad[0]) - 3) // st[0] + 1
+    ow = (w + sum(pad[1]) - 3) // st[1] + 1
+    plans = [QC.conv_plan(n, oh, ow, ci, oc, 3, 3, st, (1, 1),
+                          QC.alignment(wk)),
+             QC.general_plan(n, oh, ow, oc)]
+    plans += [p for p in (QC.direct_plan(v, n, oh, ow, ci, oc, 3, 3, st,
+                                         (1, 1), 2, 4)
+                          for v in range(len(QC.DIRECT_VARIANTS)))
+              if QC.fits(p, ci, oc)]
+    assert plans[0].variant >= 0
+    assert len(plans) == 2 + len(QC.DIRECT_VARIANTS)
+    K.reset_launches()
+    for plan in plans:
+        with _forced(QC, "conv_plan", plan):
+            got = K.qconv2d_exact(x, wk, *epi, **args)
+            got_fast = K.qconv2d_fast(x, wk, epi[0], mult, **fast)
+        assert torch.equal(got, want), plan
+        assert torch.equal(got_fast, want_fast), plan
+    counts = K.launch_counts()
+    assert counts["qconv2d_exact"] == counts["qconv2d_fast"] == len(plans)
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("depth", [10, 1000])
+@pytest.mark.parametrize("in_dtype,out_dtype", [(torch.int8, torch.int8),
+                                                (torch.uint8, torch.uint8)])
+def test_softmax_plan_branches_match_plain(dev, rows, depth, in_dtype,
+                                           out_dtype):
+    """The softmax kernel under softmax_plan's plan, the thread kernel
+    and the row kernel forced (32, 64 and 256 threads), with x one byte
+    off alignment too: byte-equal to the plain version."""
+    rng = np.random.default_rng(24 + depth + rows)
+    lo, hi = (-128, 128) if in_dtype == torch.int8 else (0, 256)
+    table = torch.from_numpy(Q.softmax_table(0.05, 1.0)).to(dev)
+    zp = -128 if out_dtype == torch.int8 else 0
+    plans = [SM.softmax_plan(rows, depth), SM.thread_plan(rows)] + [
+        SM.row_plan(rows, depth, t) for t in (32, 64, 256)]
+    K.reset_launches()
+    for offset in (0, 1):
+        buf = torch.from_numpy(rng.integers(lo, hi, rows * depth + offset)
+                               ).to(in_dtype).to(dev)
+        x = buf[offset:].view(rows, depth)
+        want = K.lut_softmax_plain(x, table, 1.0 / 256, zp, out_dtype)
+        for plan in plans:
+            with _forced(SM, "softmax_plan", plan):
+                got = K.lut_softmax(x, table, 1.0 / 256, zp, out_dtype)
+            assert torch.equal(got, want), (plan, offset)
+    assert K.launch_counts()["lut_softmax"] == 2 * len(plans)
 
 
 def _golden_inputs(z, name, td, key="output"):
