@@ -13,7 +13,9 @@ every input (a hand-written kernel has no vmap rule) after padding the
 window to the next power of two with copies of its first request, so
 a subgraph runs at log2(max_batch) + 1 batch sizes; outputs are split
 back per request.  ``exact=False`` builds the programs with the fast
-numerics epilogues.  No mesh path, no custom-op path.
+numerics epilogues.  On a host worker (``host=True``) a subgraph may
+hold custom ops (backend/program.py); such a program takes one request
+at a time, so its windows run request by request.  No mesh path.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ class ModelExecutor:
         worker_id: int,
         device: torch.device,
         exact: bool = True,
+        host: bool = False,
     ):
         self.model_id = model_id
         self.graph = graph
@@ -65,6 +68,8 @@ class ModelExecutor:
         # numerics: True reproduces the TFLite interpreter bit for bit;
         # False prepares the float32 epilogues of fast numerics
         self.exact = exact
+        # a host worker's executor: its programs may hold custom ops
+        self.host = host
         self._lock = threading.Lock()
         self._programs: Dict[SubgraphKey, SubgraphProgram] = {}
         self._fns: Dict[SubgraphKey, object] = {}
@@ -99,7 +104,8 @@ class ModelExecutor:
                     break
             waiter.wait(timeout=600)
         try:
-            prog = build_program(self.graph, op_indices, exact=self.exact)
+            prog = build_program(self.graph, op_indices, exact=self.exact,
+                                 host=self.host)
             # weights move to the worker's device once, here
             params = params_from_jax(prog.params, self.device)
             with self._lock:
@@ -149,8 +155,10 @@ class ModelExecutor:
         self._mark_warm(key, 1)
         return out
 
-    def _mark_warm(self, key: SubgraphKey, bucket: int) -> None:
-        self.windows[bucket] += 1
+    def _mark_warm(self, key: SubgraphKey, bucket: int,
+                   window: bool = True) -> None:
+        if window:
+            self.windows[bucket] += 1
         self._warm.add((key, bucket))
         if bucket > self._warm_max.get(key, 1):
             self._warm_max[key] = bucket
@@ -178,6 +186,12 @@ class ModelExecutor:
         if key not in self._programs:
             raise ExecutionError(f"subgraph {key} not prepared")
         bucket = 1 << (B - 1).bit_length()
+        if self._programs[key].has_custom:
+            # host ops take one request at a time (the SSD post-process
+            # flattens its inputs): the window runs request by request
+            out = [self.execute(key, ins) for ins in inputs_batch]
+            self._mark_warm(key, bucket, window=False)
+            return out
         padded = list(inputs_batch) + [inputs_batch[0]] * (bucket - B)
         args = []
         for pos in range(len(padded[0])):

@@ -6,6 +6,12 @@ zero-point corrections, fixed-point multipliers), and produces a
 function ``fn(params, inputs) -> outputs`` over torch tensors that runs
 the ops in order, eagerly.
 
+A program prepared for a host (CPU) worker may also hold custom ops
+with a host implementation (ops/host_ops.py, e.g. SSD's detection
+post-process): they run as numpy functions between the PyTorch ops,
+CPU tensors in and out (band_tpu's ``_build_custom_program`` and
+``_execute_eager``, backend/executor.py:151-177, :374-400).
+
 Counterpart: band_tpu/backend/program.py, which builds a function for
 ``jax.jit``; here there is nothing to trace or compile, no named scopes
 and no fusion barriers.
@@ -21,6 +27,7 @@ import torch
 
 from ..errors import LoweringError
 from ..ir.graph import Graph
+from ..ops.host_ops import has_host_impl, run_host_op
 from ..ops.lowerings import LowerCtx
 from ..ops.registry import REGISTRY, get_lowering
 
@@ -116,6 +123,8 @@ class SubgraphProgram:
     output_ids: Tuple[int, ...]
     params: Dict[str, np.ndarray]
     meta: Dict[str, Any]
+    # holds a host op: runs on a host worker, one request at a time
+    has_custom: bool = False
 
     @property
     def input_specs(self):
@@ -147,28 +156,58 @@ class SubgraphProgram:
                 ctx.set(tid, v)
             for oi in op_indices:
                 op = graph.ops[oi]
-                get_lowering(op.opname).trace(ctx, op)
+                if op.is_custom:
+                    _run_custom(ctx, op)
+                else:
+                    get_lowering(op.opname).trace(ctx, op)
             return [ctx.arr(t) for t in output_ids]
 
         return fn
 
+def _run_custom(ctx: LowerCtx, op) -> None:
+    """One host op: its inputs leave torch as numpy arrays and its
+    outputs come back as CPU tensors.  ``Tensor.numpy`` raises on a
+    card's tensor, so a host op never runs on a GPU worker's data."""
+    ins = [ctx.arr(t).numpy() for t in op.inputs if t >= 0]
+    outs = run_host_op(op.opname, ctx.graph, op, ins)
+    for tid, o in zip(op.outputs, outs):
+        ctx.set(tid, torch.from_numpy(np.ascontiguousarray(o)))
 
 
 def build_program(
-    graph: Graph, op_indices: Sequence[int], exact: bool = True
+    graph: Graph, op_indices: Sequence[int], exact: bool = True,
+    host: bool = False,
 ) -> SubgraphProgram:
+    """A program over ``op_indices``.  ``host`` (a host worker's program)
+    admits custom ops with a host implementation; on any other worker a
+    custom op raises LoweringError."""
+    custom = [oi for oi in op_indices if graph.ops[oi].is_custom]
+    if custom and not host:
+        raise LoweringError("custom ops can only be prepared on host workers")
     missing = sorted(
         {
             graph.ops[oi].opname
             for oi in op_indices
-            if graph.ops[oi].opname not in REGISTRY
+            if (not has_host_impl(graph.ops[oi].opname)
+                if graph.ops[oi].is_custom
+                else graph.ops[oi].opname not in REGISTRY)
         }
     )
     if missing:
         raise LoweringError(f"unsupported ops in subgraph: {missing}")
     op_indices = tuple(sorted(op_indices))
     inputs, outputs = subgraph_boundary(graph, op_indices)
-    params, meta = prepare_params(graph, op_indices, exact)
+    params, meta = prepare_params(
+        graph, [oi for oi in op_indices if oi not in custom], exact
+    )
+    # custom ops read their constant inputs (e.g. SSD anchors) as plain
+    # params; prepare_params only covered the lowered ops
+    for oi in custom:
+        for tid in graph.ops[oi].inputs:
+            if tid >= 0 and graph.tensor(tid).is_constant:
+                params.setdefault(
+                    f"t{tid}", np.ascontiguousarray(graph.tensor(tid).data)
+                )
     return SubgraphProgram(
         graph=graph,
         op_indices=op_indices,
@@ -176,4 +215,5 @@ def build_program(
         output_ids=tuple(outputs),
         params=params,
         meta=meta,
+        has_custom=bool(custom),
     )

@@ -12,8 +12,8 @@ Re-implements the *algorithms* of the reference's analyzer
     around unsupported ops (:627-789)
 
 "Supported" here means: the op has a PyTorch lowering (ops/lowerings.py)
-for the worker's device; custom ops run on no worker yet (band_tpu's
-host implementations are not ported).
+for the worker's device; host (CPU) workers additionally run custom ops
+with host implementations (ops/host_ops.py).
 """
 
 from __future__ import annotations
@@ -46,10 +46,10 @@ class SubgraphDef:
 def op_supported_on_worker(graph: Graph, op_index: int, is_host: bool) -> bool:
     op = graph.ops[op_index]
     if op.is_custom:
-        # custom ops (e.g. detection post-process) run on host workers in
-        # band_tpu (ops/host_ops.py); that host path is not ported yet,
-        # so no worker of this package runs them
-        return False
+        # custom ops (e.g. detection post-process) only run on host workers
+        from ..ops.host_ops import has_host_impl
+
+        return is_host and has_host_impl(op.opname)
     return is_supported(op.opname)
 
 

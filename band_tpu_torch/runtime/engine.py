@@ -11,15 +11,22 @@ Execution model: a worker is one CUDA card (or the host CPU) fed by a
 host dispatch thread; Invoke launches a subgraph's kernels on the
 dispatch thread's current stream without waiting, and the worker's
 retire thread waits on a CUDA event recorded after the launches
-(``record_completion``).  Inter-subgraph "tensor copies" are device
-tensors carried on the job record.
+(``record_completion``).  Inter-subgraph "tensor copies" are tensors
+carried on the job record; a hop to another device moves them with
+``Tensor.to`` when the next worker assembles its inputs.  Every worker
+of one card launches on that card's default stream, so a hop between
+them needs no cross-stream wait, and a hop to the host happens after
+the producing worker's retire thread waited on its event.
+
+Hops are priced by link class (runtime/link_costs.py) in the
+shortest-latency DP, which runs in the native plan core
+(runtime/native/plan_core.cc) when it builds, and in the Python DP
+here otherwise.
 
 Counterpart: band_tpu/runtime/engine.py.  Not ported yet, and refused
-with ConfigError when a config asks for them: the global-queue worker,
-every scheduler but fixed_worker, co-dispatch, link costs, the
-resource monitor, multi-process serving, mesh workers and a
-compilation cache.  The shortest-latency DP is the Python one
-(the native plan core is not ported).
+with ConfigError when a config asks for them: co-dispatch, the
+resource monitor, multi-process serving, mesh workers, a compilation
+cache and any backend but "torch" (backend/factory.py).
 """
 
 from __future__ import annotations
@@ -45,12 +52,56 @@ from ..ir.analyzer import ModelAnalyzer, build_model_spec
 from ..ir.model import Model
 from ..ir.model_spec import ModelSpec
 from ..tracing.job_tracer import tracer
+from ..tracing.logger import log_error
+from . import native as plan_native
 from .engine_interface import EngineBase
 from .latency_estimator import LatencyEstimator
-from .planner import PORTED_SCHEDULERS, Planner
+from .link_costs import (
+    DCN,
+    H2D,
+    HOST,
+    ICI,
+    LinkCostTable,
+    load_table as load_links,
+    measure as measure_links,
+    save_table as save_links,
+)
+from .planner import Planner
 from .ring_buffer import TensorRingBuffer
 from .tensor import StagedInput
-from .worker import DeviceQueueWorker, Worker
+from .worker import DeviceQueueWorker, GlobalQueueWorker, Worker
+
+
+def _boundary_bytes(graph, spec) -> Dict[int, int]:
+    """bytes of activations produced before and consumed at/after each
+    unit boundary (the payload of a cross-worker hop at that point)."""
+    unit_of_op = {}
+    for ui, ops in enumerate(spec.unit_subgraph_ops):
+        for oi in ops:
+            unit_of_op[oi] = ui
+    producer_unit = {}
+    for op in graph.ops:
+        for t in op.outputs:
+            producer_unit[t] = unit_of_op.get(op.index, 0)
+    out: Dict[int, int] = {}
+    for boundary in range(spec.num_unit_subgraphs):
+        total = 0
+        seen = set()
+        for op in graph.ops:
+            if unit_of_op.get(op.index, 0) < boundary:
+                continue
+            for t in op.inputs:
+                if t < 0 or t in seen:
+                    continue
+                td = graph.tensor(t)
+                if td.is_constant:
+                    continue
+                pu = producer_unit.get(t)
+                if pu is not None and pu < boundary:
+                    seen.add(t)
+                    total += td.nbytes
+        out[boundary] = total
+    return out
 
 
 def _pow2_buckets(max_batch: int) -> List[int]:
@@ -66,27 +117,23 @@ def _pow2_buckets(max_batch: int) -> List[int]:
 def _refuse_unported(config: RuntimeConfig) -> None:
     """ConfigError for every part of a config this package cannot honour
     yet, before any thread starts (nothing is silently ignored)."""
+    from ..backend.factory import available_backends
+
     asks = []
     if config.distributed.enabled:
         asks.append("multi-process serving (distributed)")
     if config.compilation_cache_dir:
         asks.append("compilation_cache_dir (nothing is compiled by a JIT)")
-    if config.link_costs or config.probe_link_costs:
-        asks.append("link costs (link_costs / probe_link_costs)")
     if config.monitor.enable:
         asks.append("the resource monitor")
-    if config.planner.worker_type == WorkerType.GLOBAL_QUEUE:
-        asks.append("the global-queue worker")
-    for s in config.planner.schedulers:
-        if s not in PORTED_SCHEDULERS:
-            asks.append(f"scheduler {s.value}")
     for i, spec in enumerate(config.worker.workers):
         if spec.is_mesh:
             asks.append(f"worker {i}: a mesh of devices {spec.device_ids}")
         if spec.co_dispatch > 1:
             asks.append(f"worker {i}: co_dispatch {spec.co_dispatch}")
-        if spec.backend != "torch":
-            asks.append(f"worker {i}: backend {spec.backend!r}")
+        if (spec.backend or "torch").lower() not in available_backends():
+            asks.append(f"worker {i}: backend {spec.backend!r} (registered: "
+                        f"{available_backends()})")
     if asks:
         raise ConfigError(
             "not ported to PyTorch yet: " + "; ".join(asks)
@@ -132,6 +179,11 @@ class _ModelRecord:
         self.input_ring: Optional[TensorRingBuffer] = None
         self.output_ring: Optional[TensorRingBuffer] = None
         self.worker_id: int = 0  # fixed-worker assignment
+        # boundary_bytes[u] = bytes of activations crossing the boundary
+        # just before unit u (for transfer costing)
+        self.boundary_bytes: Dict[int, int] = {}
+        # flat arrays for the native planner DP (runtime/native)
+        self.plan_tables = None
 
 
 class Engine(EngineBase):
@@ -156,6 +208,9 @@ class Engine(EngineBase):
         self._model_counter = 0
         self._fault_counts: Dict[int, int] = {}
         self._lock = threading.RLock()
+        # (torch.profiler session, log dir) while a device trace runs
+        self._device_trace = None
+        self._trace_seq = 0
 
         self.latency_estimator = LatencyEstimator(
             smoothing_factor=config.profile.smoothing_factor,
@@ -167,8 +222,13 @@ class Engine(EngineBase):
         )
 
         self.workers: List[Worker] = []
+        worker_cls = (
+            GlobalQueueWorker
+            if config.planner.worker_type == WorkerType.GLOBAL_QUEUE
+            else DeviceQueueWorker
+        )
         for wid, spec in enumerate(config.worker.workers):
-            w = DeviceQueueWorker(self, wid, spec)
+            w = worker_cls(self, wid, spec)
             if spec.availability_check_interval_ms <= 0:
                 # per-worker value 0 inherits the pool default
                 # (reference: band/config.h:53, default 30 s)
@@ -179,6 +239,40 @@ class Engine(EngineBase):
             tracer().register_worker(
                 wid, f"{spec.device.value}:{spec.device_ids}"
             )
+        # transfer-cost model: one table consumed by BOTH the Python DP
+        # (get_transfer_cost_us) and the native decision core (passed by
+        # pointer into band_plan_dp) — defaults -> config overrides ->
+        # live-transport probe (runtime/link_costs.py)
+        self.link_costs = LinkCostTable()
+        self._links_path = (
+            config.profile.profile_data_path + ".links.json"
+            if config.profile.profile_data_path
+            else ""
+        )
+        if config.link_costs:
+            self.link_costs.update_from_dict(config.link_costs)
+        if config.probe_link_costs:
+            # persisted probed tables are keyed by topology hash, like
+            # the latency profile DB (stale topologies re-probe)
+            if not (self._links_path
+                    and load_links(self._links_path, self.link_costs)):
+                measure_links(self._worker_devices, self.link_costs)
+                if self._links_path:
+                    save_links(self.link_costs, self._links_path)
+        # native planner decision core (C++, built with the host
+        # compiler); when it cannot be built the Python DP runs, and the
+        # reason is logged and kept in plan_core_error
+        self._plan_lib = plan_native.load()
+        self.plan_core = "native" if self._plan_lib is not None else "python"
+        self.plan_core_error = plan_native.load_error()
+        if self._plan_lib is None:
+            log_error("native plan core unavailable, the Python DP plans: "
+                      "%s", self.plan_core_error)
+        self._plan_tls = threading.local()
+        self._plan_workers = plan_native.WorkerTables(
+            [self._worker_is_host(w) for w in range(len(self.workers))],
+            self._worker_devices,
+        )
         for w in self.workers:
             w.start()
 
@@ -281,7 +375,7 @@ class Engine(EngineBase):
         ``numerics`` overrides the engine-wide RuntimeConfig.numerics for
         this model ("exact" | "fast"), so exact and fast models can be
         served side by side on one worker."""
-        from ..backend.executor import ModelExecutor
+        from ..backend.factory import create_executor
 
         if numerics is None:
             numerics = self.config.numerics
@@ -310,9 +404,11 @@ class Engine(EngineBase):
         for sdef in defs:
             wid = sdef.worker_id
             if wid not in rec.executors:
-                rec.executors[wid] = ModelExecutor(
+                rec.executors[wid] = create_executor(
+                    self.config.worker.workers[wid].backend,
                     model_id, graph, wid, self._worker_devices[wid],
                     exact=numerics != "fast",
+                    host=self._worker_is_host(wid),
                 )
             key = rec.executors[wid].prepare_subgraph(
                 sorted(sdef.op_indices), sorted(sdef.unit_indices)
@@ -326,6 +422,14 @@ class Engine(EngineBase):
         rec.output_ring = TensorRingBuffer(
             [graph.tensor(t) for t in graph.outputs]
         )
+        rec.boundary_bytes = _boundary_bytes(graph, spec)
+        rec.plan_tables = plan_native.PlanTables(
+            spec.num_unit_subgraphs, rec.subgraph_keys, rec.boundary_bytes
+        )
+        for i, key in enumerate(rec.plan_tables.keys):
+            self.latency_estimator.bind_slot(
+                key, rec.plan_tables.expected_us, i
+            )
         if target_worker >= 0:
             rec.worker_id = target_worker
         else:
@@ -663,6 +767,16 @@ class Engine(EngineBase):
             )
         return statuses
 
+    def list_models(self) -> Dict[int, "_ModelRecord"]:
+        """Consistent snapshot of the registered-model table, taken
+        under the engine's own lock."""
+        with self._lock:
+            return dict(self._models)
+
+    def model_ids(self) -> List[int]:
+        with self._lock:
+            return list(self._models)
+
     def get_outputs(self, job_id: int) -> List[np.ndarray]:
         job = self.planner.get_finished_job(job_id)
         if job is None:
@@ -677,6 +791,44 @@ class Engine(EngineBase):
         if rec.output_ring.is_valid(job.output_handle):
             rec.output_ring.put(job.output_handle, out)
         return [out[tid] for tid in rec.model.graph.outputs]
+
+    def start_device_trace(self, log_dir: str) -> None:
+        """Start a device-level trace (``torch.profiler``: host ops and,
+        on a card, its kernels) that ``stop_device_trace`` writes into
+        `log_dir` as a Chrome trace, one ``device_trace-<pid>-<n>.json``
+        per start/stop pair (open it in Perfetto or chrome://tracing).
+        Complements the job trace (tracing/job_tracer.py)."""
+        with self._lock:
+            if self._device_trace is not None:
+                raise ExecutionError("a device trace is already running")
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if any(d.type == "cuda" for d in self._worker_devices):
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            self._device_trace = (prof, log_dir)
+        tracer().instant("device_trace_start", {"log_dir": log_dir})
+
+    def stop_device_trace(self) -> str:
+        """Stop the running device trace and write it; returns the
+        trace file's path."""
+        import os
+
+        with self._lock:
+            running = self._device_trace
+            if running is None:
+                raise ExecutionError("no device trace is running")
+            self._device_trace = None
+        prof, log_dir = running
+        prof.stop()
+        tracer().instant("device_trace_stop")
+        os.makedirs(log_dir, exist_ok=True)
+        self._trace_seq += 1
+        path = os.path.join(
+            log_dir, f"device_trace-{os.getpid()}-{self._trace_seq}.json"
+        )
+        prof.export_chrome_trace(path)
+        return path
 
     def register_callback(self, cb) -> int:
         return self.planner.add_callback(cb)
@@ -758,16 +910,87 @@ class Engine(EngineBase):
                 out.append(key)
         return out
 
+    def get_transfer_cost_us(
+        self, model_id: int, begin_unit: int, src_worker: int,
+        dst_worker: int, batch: int = 1,
+    ) -> int:
+        """Expected µs to move the boundary activations entering
+        `begin_unit` from src to dst worker.
+
+        The reference's transport is an in-process memcpy it never
+        costs (engine.cc:1247-1365); here a hop may cross the host <->
+        card link or a card <-> card link, so the scheduler seam must
+        see the cost.  Model: fixed launch overhead + bytes / link
+        bandwidth, by link class, from the engine's LinkCostTable (the
+        same table the native DP consumes).  Two workers on one card
+        hop for free: cards are compared by index
+        (``native.card_key``), never by ``torch.device`` identity.
+        `batch` scales the bytes: a batched window's continuation moves
+        B x the boundary activations."""
+        if src_worker < 0 or src_worker == dst_worker:
+            return 0
+        rec = self._rec(model_id)
+        nbytes = rec.boundary_bytes.get(begin_unit, 0) * max(batch, 1)
+        src_host = self._worker_is_host(src_worker)
+        dst_host = self._worker_is_host(dst_worker)
+        if src_host != dst_host:
+            return self.link_costs.cost_us(H2D, nbytes)
+        if src_host:
+            return self.link_costs.cost_us(HOST, nbytes)
+        tables = self._plan_workers
+        if tables.dev[src_worker] == tables.dev[dst_worker]:
+            return 0
+        if tables.proc[src_worker] != tables.proc[dst_worker]:
+            return self.link_costs.cost_us(DCN, nbytes)
+        return self.link_costs.cost_us(ICI, nbytes)
+
     def get_subgraph_with_shortest_latency(
         self, job: Job, waiting: Dict[int, int]
     ) -> Tuple[Optional[SubgraphKey], int]:
-        """DP over (unit-range end, worker) states (reference DP,
-        engine.cc:966-1052): memo[j][w] = earliest finish of units <= j
-        with the last hop on worker w; returns the *first* hop of the
-        best path plus the path's expected end time.  Hops between
-        workers cost nothing here: the link-cost model is not ported
-        (a config that sets link costs is refused)."""
+        """DP over (unit-range end, worker) states (extends the
+        reference DP, engine.cc:966-1052, with inter-hop transfer
+        costs): memo[j][w] = earliest finish of units <= j with the last
+        hop on worker w; returns the *first* hop of the best path plus
+        the path's expected end time.
+
+        Runs in the native C++ core (runtime/native/plan_core.cc) —
+        schedulers price every window job through this each round,
+        making it the planner's decision hot loop — and in the Python
+        DP below, its reference, only when the core did not build.
+
+        Hop bytes scale with the job's window batch (a stacked window's
+        continuation moves B x the boundary activations)."""
+        if self._plan_lib is None:
+            return self._py_get_subgraph_with_shortest_latency(job, waiting)
         rec = self._rec(job.model_id)
+        batch = max(job.batch_size, 1)
+        resolved = job.resolved_unit_subgraphs
+        start = (max(resolved) + 1) if resolved else 0
+        if start >= rec.spec.num_unit_subgraphs:
+            return None, 0
+        n_workers = len(self.workers)
+        wvec = getattr(self._plan_tls, "wvec", None)
+        if wvec is None or len(wvec) != n_workers:
+            wvec = np.zeros(n_workers, np.int64)
+            self._plan_tls.wvec = wvec
+        else:
+            wvec[:] = 0
+        for wid, t in waiting.items():
+            if 0 <= wid < n_workers:
+                wvec[wid] = min(t, 1 << 62)
+        prev_worker = (
+            job.subgraph_key.worker_id if job.subgraph_key.is_valid() else -1
+        )
+        return plan_native.plan_dp(
+            self._plan_lib, rec.plan_tables, self._plan_workers,
+            self.link_costs.table, wvec, start, prev_worker, batch,
+        )
+
+    def _py_get_subgraph_with_shortest_latency(
+        self, job: Job, waiting: Dict[int, int]
+    ) -> Tuple[Optional[SubgraphKey], int]:
+        rec = self._rec(job.model_id)
+        batch = max(job.batch_size, 1)
         num_units = rec.spec.num_unit_subgraphs
         resolved = job.resolved_unit_subgraphs
         start = (max(resolved) + 1) if resolved else 0
@@ -777,6 +1000,7 @@ class Engine(EngineBase):
         prev_worker = (
             job.subgraph_key.worker_id if job.subgraph_key.is_valid() else -1
         )
+        # memo state: {(boundary_unit): {worker: (time, first_hop)}}
         memo: List[Dict[int, Tuple[int, Optional[SubgraphKey]]]] = [
             {} for _ in range(num_units + 1)
         ]
@@ -786,11 +1010,15 @@ class Engine(EngineBase):
                 continue
             for key in rec.keys_by_begin.get(begin, []):
                 expected = max(self.get_expected_latency(key), 0)
-                # waiting saturates at LARGE_WAITING_TIME ("never")
+                # waiting saturates at LARGE_WAITING_TIME ("never"), the
+                # same clamp the native path applies
                 w_wait = min(waiting.get(key.worker_id, 0), 1 << 62)
                 nxt = key.end_unit + 1
-                for t, hop in memo[begin].values():
-                    end_time = max(t, w_wait) + expected
+                for src_w, (t, hop) in memo[begin].items():
+                    xfer = self.get_transfer_cost_us(
+                        job.model_id, begin, src_w, key.worker_id, batch
+                    )
+                    end_time = max(t + xfer, w_wait) + expected
                     cur = memo[nxt].get(key.worker_id)
                     if cur is None or end_time < cur[0]:
                         memo[nxt][key.worker_id] = (
@@ -963,6 +1191,9 @@ class Engine(EngineBase):
                 job.final_outputs[tid] = val
         for fj in job.following_jobs:
             fj.final_outputs = job.final_outputs
+
+    def get_model_execution_counts(self) -> Dict[int, int]:
+        return self.planner.get_model_execution_counts()
 
     def model_record(self, model_id: int) -> _ModelRecord:
         return self._rec(model_id)

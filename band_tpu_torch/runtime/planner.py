@@ -40,18 +40,33 @@ NUM_FINISHED_RECORDS = 1000
 NUM_STATUS_RECORDS = 1_000_000
 
 
-PORTED_SCHEDULERS = (SchedulerType.FIXED_WORKER,)
-
-
 def make_scheduler(stype: SchedulerType, engine: EngineBase, window: int):
-    from ..schedulers.fixed_worker import FixedWorkerScheduler
+    from ..schedulers.fixed_worker import (
+        FixedWorkerGlobalQueueScheduler,
+        FixedWorkerScheduler,
+    )
+    from ..schedulers.heft import HEFTScheduler
+    from ..schedulers.least_slack_first import LeastSlackFirstScheduler
+    from ..schedulers.round_robin import RoundRobinScheduler
+    from ..schedulers.shortest_expected_latency import (
+        ShortestExpectedLatencyScheduler,
+    )
 
     if stype == SchedulerType.FIXED_WORKER:
         return FixedWorkerScheduler(engine, window)
-    raise ConfigError(
-        f"scheduler {stype.value} is not ported to PyTorch yet "
-        f"(ported: {[s.value for s in PORTED_SCHEDULERS]})"
-    )
+    if stype == SchedulerType.FIXED_WORKER_GLOBAL_QUEUE:
+        return FixedWorkerGlobalQueueScheduler(engine, window)
+    if stype == SchedulerType.ROUND_ROBIN:
+        return RoundRobinScheduler(engine, window)
+    if stype == SchedulerType.SHORTEST_EXPECTED_LATENCY:
+        return ShortestExpectedLatencyScheduler(engine, window)
+    if stype == SchedulerType.HETEROGENEOUS_EARLIEST_FINISH_TIME:
+        return HEFTScheduler(engine, window, reserve=False)
+    if stype == SchedulerType.HETEROGENEOUS_EARLIEST_FINISH_TIME_RESERVED:
+        return HEFTScheduler(engine, window, reserve=True)
+    if stype == SchedulerType.LEAST_SLACK_TIME_FIRST:
+        return LeastSlackFirstScheduler(engine, window)
+    raise ConfigError(f"unknown scheduler type {stype}")
 
 
 class Planner:

@@ -1,7 +1,7 @@
 """Workers: one host dispatch thread per CUDA card (or the host CPU).
 
 Re-implements the reference worker model (band/worker.{h,cc},
-band/worker_device_queue.cc) with the blocking invoke replaced by
+band/worker_device_queue.cc, band/worker_global_queue.cc) with the blocking invoke replaced by
 asynchronous launches plus a completion wait on a separate retire
 thread, so the waiting-time estimate stays truthful on an asynchronous
 device:
@@ -9,6 +9,8 @@ device:
  * DeviceQueueWorker — per-worker FIFO; waiting time = sum of expected
    latencies of queued jobs plus the remaining time of the in-flight
    job (reference: worker_device_queue.cc:44-69)
+ * GlobalQueueWorker — at most one in-flight dispatch; enqueue-ready
+   only while idle (reference: worker_global_queue.cc:25-53, 125-164)
 
 Completion: the dispatch thread records a CUDA event on the stream it
 launched on (PyTorch's current stream is per thread) right after a
@@ -16,8 +18,8 @@ window's launches, and the retire thread synchronises on that event,
 not on its own current stream.  On a CPU worker the launches complete
 before the dispatch returns and there is no event.
 
-Counterpart: band_tpu/runtime/worker.py.  The global-queue worker and
-the fused multi-window dispatch (co-dispatch) are not ported yet.
+Counterpart: band_tpu/runtime/worker.py.  The fused multi-window
+dispatch (co-dispatch) is not ported yet.
 
 On device error the worker throttles, re-enqueues its queue to the
 planner front and polls availability (reference: worker.cc:101-110,
@@ -766,3 +768,124 @@ class DeviceQueueWorker(Worker):
                 total += expected
             run_key, run_n = key, 1
         return total
+
+
+class GlobalQueueWorker(Worker):
+    """Single in-flight *dispatch*; jobs wait in the planner's global
+    queue (reference: band/worker_global_queue.cc).
+
+    Beyond the reference's one-job slot: a global-queue scheduler may
+    stack up to ``spec.max_batch`` same-subgraph jobs onto an idle
+    worker in one round; they execute as ONE stacked-bucket launch
+    sequence (backend/executor.py execute_batched), so the single-slot
+    semantics the waiting-time estimate assumes
+    (worker_global_queue.cc:25-53) still hold — the batch is one
+    dispatch, priced at its bucket's cost."""
+
+    def __init__(self, engine: EngineBase, worker_id: int, spec: WorkerSpec):
+        super().__init__(engine, worker_id, spec)
+        self._batch: List[Job] = []
+        self._started = False
+
+    def enqueue_job(self, job: Job) -> bool:
+        if not job.subgraph_key.is_valid():
+            return False
+        limit = max(
+            min(
+                self.spec.max_batch,
+                self.engine.ready_batch_limit(job.subgraph_key),
+            ),
+            1,
+        )
+        with self._cv:
+            if self._started:
+                return False
+            if self._batch and (
+                job.subgraph_key != self._batch[0].subgraph_key
+                or len(self._batch) >= limit
+            ):
+                return False
+            self._batch.append(job)
+            self._cv.notify_all()
+        return True
+
+    def is_enqueue_ready(self) -> bool:
+        return not self._batch and self.is_available()
+
+    def has_job(self) -> bool:
+        return bool(self._batch) and not self._started
+
+    def has_jobs_for(self, model_id: int) -> bool:
+        with self._cv:
+            return any(
+                j.model_id == model_id for j in self._inflight_jobs
+            ) or any(j.model_id == model_id for j in self._batch)
+
+    def _dequeue(self) -> Optional[Job]:
+        jobs = self._dequeue_many()
+        return jobs[0] if jobs else None
+
+    def _dequeue_many(self) -> List[Job]:
+        self._started = True
+        return list(self._batch)
+
+    def _requeue_all(self) -> List[Job]:
+        # an accepted-but-not-started batch can still be rescheduled
+        # elsewhere; a started batch is in _inflight_jobs (the
+        # quarantine fail path covers it)
+        with self._cv:
+            if self._started or not self._batch:
+                return []
+            jobs = list(self._batch)
+            self._batch = []
+        return jobs
+
+    def _max_depth(self) -> int:
+        return 1  # single in-flight dispatch by definition
+
+    def _finish(
+        self, rec, ready_hint: bool = False, gen: Optional[int] = None
+    ) -> None:
+        try:
+            super()._finish(rec, ready_hint=ready_hint, gen=gen)
+        finally:
+            with self._cv:
+                # a stale thread clearing the slot would wipe a batch
+                # the fresh generation has accepted
+                if gen is None or self._gen == gen:
+                    self._batch = []
+                    self._started = False
+
+    def _on_dispatch_consumed(
+        self, jobs: List[Job], gen: Optional[int] = None
+    ) -> None:
+        # error path consumed the dispatch: free the slot (without this
+        # the worker would report busy forever — the one-job slot is
+        # normally cleared by _finish)
+        with self._cv:
+            if gen is None or self._gen == gen:
+                self._batch = []
+                self._started = False
+
+    def _reset_dispatch_state(self) -> None:
+        # a wedged thread can leave the one-dispatch slot claimed
+        self._batch = []
+        self._started = False
+
+    def get_waiting_time(self) -> int:
+        """Remaining time of the in-flight dispatch
+        (reference: worker_global_queue.cc:125-164), priced at the
+        batch's bucket cost (the whole stacked window is one program)."""
+        if not self.is_available():
+            return LARGE_WAITING_TIME
+        cur = self._batch[0] if self._batch else None
+        if cur is None:
+            return 0
+        expected = self.engine.get_expected_latency(
+            cur.subgraph_key, len(self._batch)
+        )
+        if expected < 0:
+            return LARGE_WAITING_TIME
+        if not cur.invoke_time:
+            return expected
+        return max(expected - (now_us() - cur.invoke_time), 0)

@@ -1,7 +1,14 @@
-"""Schedulers of the PyTorch port.
+"""Schedulers of the PyTorch port: copies of band_tpu/schedulers/ on
+this package's ``common`` and ``EngineBase`` (they are
+framework-neutral)."""
 
-Only the fixed-worker schedulers are ported so far; the engine raises
-ConfigError for the others (round_robin, shortest_expected_latency,
-HEFT, least_slack_first), which band_tpu/schedulers/ still holds."""
-
-from .fixed_worker import FixedWorkerScheduler  # noqa: F401
+from .fixed_worker import (  # noqa: F401
+    FixedWorkerGlobalQueueScheduler,
+    FixedWorkerScheduler,
+)
+from .heft import HEFTScheduler  # noqa: F401
+from .least_slack_first import LeastSlackFirstScheduler  # noqa: F401
+from .round_robin import RoundRobinScheduler  # noqa: F401
+from .shortest_expected_latency import (  # noqa: F401
+    ShortestExpectedLatencyScheduler,
+)

@@ -282,29 +282,22 @@ def _parse_opcode(t: Table) -> str:
 def _decode_custom_options(raw: bytes) -> Dict[str, Any]:
     """Custom-op options are a flexbuffer-encoded map (the reference
     backend reads them through TFLite's flexbuffers, e.g. the
-    detection-postprocess op's NMS knobs).  Decoded with the
-    `flatbuffers` package's pure-python reader; degrades to {} so
-    models with exotic payloads still load (host ops then use kernel
-    defaults)."""
+    detection-postprocess op's NMS knobs), decoded by this package's own
+    reader (tflite/flexbuffers.py).  A payload it cannot decode (malformed,
+    or of a type the reader does not know) or whose root is not a map
+    raises ModelError: the op never runs on options it did not read."""
     if not raw:
         return {}
+    from . import flexbuffers
+
     try:
-        from flatbuffers import flexbuffers
-
-        decoded = flexbuffers.Loads(bytes(raw))
-        return decoded if isinstance(decoded, dict) else {"_custom": decoded}
-    except ImportError:
-        from ..tracing.logger import Logger, LogSeverity
-
-        Logger.get().log_once(
-            "no-flexbuffers", LogSeverity.WARNING,
-            "flatbuffers package unavailable: custom-op options (e.g. "
-            "detection post-process NMS thresholds) fall back to kernel "
-            "defaults",
-        )
-        return {}
-    except Exception:
-        return {}
+        decoded = flexbuffers.loads(bytes(raw))
+    except Exception as e:  # a malformed payload or a type it does not know
+        raise ModelError(f"custom-op options not decoded: {e!r}") from e
+    if not isinstance(decoded, dict):
+        raise ModelError(
+            f"custom-op options are a {type(decoded).__name__}, not a map")
+    return decoded
 
 
 def _parse_quant(t: Optional[Table]) -> Optional[QuantParams]:

@@ -16,6 +16,13 @@ Phases:
                b1 and at b8, with exact numerics and with fast numerics
                (captured from the model's programs run on the card, real
                weights and activations);
+             - on every call the SSD backbones (ssd_int8 and
+               ssd_regular_int8 but their detection post-process: the GPU
+               workers' part of them in the hetero phase) make at b1, b2
+               and b8, exact numerics: 3x3 convs with Ci 3 and 16, 1x1
+               head convs with N = 4; and the backbone's output byte-equal
+               to TFLite's detector input, every anchor
+               (tests/data/torch_hetero_goldens.npz, <name>/head);
              - on synthetic cases: all three roundings, w_zp 0 and != 0,
                int8 and uint8 outputs, ragged K, conv strides 1/2 and
                dilation 2, depthwise stride 2, dilation 2 and depth
@@ -81,6 +88,38 @@ Phases:
  8. profile  a b1 MobileNetV2 request through the executor, exact and
              fast: its wall time, and the device time of its kernels
              (torch.profiler).
+ 9. hetero   Band's heterogeneous path, laid out as
+             configs/benchmark_heft.json: two GPU workers on cuda:0
+             (max_batch 8) and one host CPU worker (max_batch 1),
+             minimum_subgraph_size 1, merged unit subgraphs, link costs
+             probed (the measured table is printed).  Full-width
+             MobileNetV2, ssd_int8 and ssd_regular_int8 (whose detection
+             post-process is a custom op that runs only on the host
+             worker) served under each of fixed_worker_global_queue,
+             round_robin, shortest_expected_latency, HEFT, HEFT-reserved
+             and least_slack_time_first, one engine each: sync and async
+             requests per model (2 + 4 for MobileNetV2; 2 + 2 for each
+             SSD model, a burst no wider than the GPU workers), every
+             output byte-equal to its golden
+             (MobileNetV2: tests/data/torch_goldens.npz; SSD:
+             tests/data/torch_hetero_goldens.npz, and within its stated
+             box tolerance of the TFLite interpreter).  Printed per
+             scheduler: executions per worker (the executors' launch
+             sequences) and per model (get_model_execution_counts), and
+             where each request's last hop ran (the job records).
+             Checked: under SEL, HEFT, HEFT-reserved and LSF every SSD
+             request took a GPU -> host hop (its last hop on the host
+             worker, fed the backbone's outputs from the card, which are
+             byte-equal to TFLite's detector input); the two
+             schedulers without fallback subgraphs (round_robin,
+             fixed_worker_global_queue) never split a model, so there an
+             SSD request runs whole on the host worker; SEL and HEFT keep
+             MobileNetV2 on a GPU worker; under LSF a request whose SLO
+             no worker can meet ends SLO_VIOLATION.  Every DP call of the
+             phase runs in the native plan core and again in the Python
+             DP, both under the latency estimator's lock: 0 mismatches.  B1, B2, B3 and lut_softmax must launch in
+             this phase.  Also: the host worker's time per MobileNetV2 b1
+             request and the phase's wall time.
 Then it prints the kernels line, and last the device line.
 """
 
@@ -96,6 +135,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLDENS = os.path.join(DATA, "torch_goldens.npz")
 FAST_GOLDENS = os.path.join(DATA, "torch_fast_goldens.npz")
+HETERO_GOLDENS = os.path.join(DATA, "torch_hetero_goldens.npz")
 FULL_WIDTH = "mobilenet_v2_int8"
 MODELS = (FULL_WIDTH, "effnetlite_int8", "resnetish_int8", "fc_int8")
 QUANT_ACT = "quant_act_int8"
@@ -135,6 +175,26 @@ KERNELS = {
         source="band_tpu_torch/ops/kernels/csrc/qdwconv.cu",
         replaces="band_tpu/ops/lowerings.py:943"),
 }
+SSD_MODELS = ("ssd_int8", "ssd_regular_int8")
+HETERO_SCHEDULERS = (
+    "fixed_worker_global_queue", "round_robin", "shortest_expected_latency",
+    "heterogeneous_earliest_finish_time",
+    "heterogeneous_earliest_finish_time_reserved", "least_slack_time_first")
+# schedulers that price paths through the DP and split models around
+# the custom op (the others run a model's largest subgraph on one worker)
+SPLITTING = HETERO_SCHEDULERS[2:]
+HETERO_SYNC = 2
+HETERO_ASYNC = 4
+# an SSD burst no wider than the GPU workers: a wider one may leave a
+# request whose fastest path is the whole model on the host (both GPU
+# workers booked), which SEL rightly takes (seen on the card), and the
+# GPU -> host hop is checked on every SSD request
+SSD_ASYNC = 2
+SSD_IMAGE = (1, 32, 32, 3)
+# the SSD backbones' batches in the hetero phase: b1 (sync requests), the
+# async burst's bucket, and the bucket warm-up's largest
+SSD_BATCHES = (1, SSD_ASYNC, MAX_BATCH)
+SSD_BOX_ATOL = 1e-6  # TFLite's box decode against band_tpu's numpy one
 FAST = ("qmatmul_fast", "qconv2d_fast", "qdwconv2d_fast")
 EXACT_ONLY = ("qmatmul_exact", "qconv2d_exact", "qdwconv2d_exact")
 
@@ -858,7 +918,23 @@ def fast_synthetic_cases(torch, K, rng, t, i8, out_args):
     return cases
 
 
-def kernel_phase(torch, dev, graphs, goldens):
+def ssd_backbone(graphs, name):
+    """The program of an SSD model's backbone (every op but the detection
+    post-process): what a GPU worker runs of it in the hetero phase."""
+    from band_tpu_torch.backend.program import build_program
+
+    g = graphs[name]
+    return build_program(g, [op.index for op in g.ops if not op.is_custom])
+
+
+def same_bytes(got, want):
+    """A tensor's bytes, dtype and shape equal to a numpy array's."""
+    got = got.detach().cpu().numpy()
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and got.tobytes() == want.tobytes())
+
+
+def kernel_phase(torch, dev, graphs, goldens, hetero_goldens):
     from band_tpu_torch.backend.program import build_program, params_from_jax
     from band_tpu_torch.ops import kernels as K
     from band_tpu_torch.ops import lowerings as L
@@ -907,6 +983,38 @@ def kernel_phase(torch, dev, graphs, goldens):
                 per_b[b] += calls
                 log(f"kernels: MobileNetV2 {what} b{b}: {len(calls)} calls "
                     f"byte-equal to plain (tolerance 0)")
+
+        # every call of the SSD backbones at the batches the hetero phase
+        # runs them (the 3x3 convs with Ci 3 and 16, the 1x1 head convs
+        # with N = 4), and the backbone's output byte-equal to TFLite's
+        # detector input (every anchor, before NMS)
+        for name in SSD_MODELS:
+            prog = ssd_backbone(graphs, name)
+            params = params_from_jax(prog.params, dev)
+            fn = prog.make_fn()
+            gd = hetero_goldens[name]
+            for b in SSD_BATCHES:
+                x = torch.from_numpy(np.concatenate(list(gd["xs"][:b]))).to(
+                    dev)
+                calls = capture_calls(L, fn, params, [x])
+                torch.cuda.synchronize()
+                for kname, args, kw, out in calls:
+                    want = plain[kname](*args, **kw)
+                    torch.cuda.synchronize()
+                    worst[kname] = max(worst[kname], same(
+                        torch, kname, out, want,
+                        f"{name} b{b} {tuple(args[0].shape)}"))
+                kinds = sorted({n for n, *_ in calls})
+                check({"qconv2d_exact", "qmatmul_exact"} <= set(kinds)
+                      and not set(kinds) & set(FAST),
+                      f"{name} b{b}: kernels {kinds}")
+                (head,) = fn(params, [x])
+                check(same_bytes(head, np.concatenate(list(gd["head"][:b]))),
+                      f"{name} b{b}: the backbone's output on the card "
+                      f"differs from TFLite's detector input")
+                log(f"kernels: {name} backbone b{b}: {len(calls)} calls "
+                    f"({', '.join(kinds)}) byte-equal to plain (tolerance "
+                    f"0); its output byte-equal to TFLite's head")
 
         # (lut_softmax's b1 call is the same in both numerics: timed once)
         stats = {n: dict(launches_b1=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -1317,6 +1425,246 @@ def profile_phase(torch, dev, graphs, goldens, exact):
 
 
 # --------------------------------------------------------------------------
+# hetero phase
+# --------------------------------------------------------------------------
+
+def load_hetero_goldens():
+    """SSD goldens (tests/gen_torch_hetero_goldens.py): the regenerated
+    images, per output the golden a served request must equal byte for
+    byte (band_tpu's detection post-process on TFLite's head), and the
+    head itself: the detection post-process's first input as TFLite
+    computes it, which the backbone on the card must equal byte for
+    byte."""
+    import hashlib
+
+    z = np.load(HETERO_GOLDENS)
+    out = {}
+    for name in SSD_MODELS:
+        want = [z[f"{name}/output{k}"] for k in range(4)]
+        tfl = [z[f"{name}/tflite{k}"] for k in range(4)]
+        rng = np.random.default_rng(int(z[f"{name}/seed"]))
+        xs = rng.standard_normal((len(want[0]), *SSD_IMAGE)).astype(
+            np.float32)
+        sha = hashlib.sha256(np.ascontiguousarray(xs).tobytes()).hexdigest()
+        check(sha == str(z[f"{name}/input_sha"]),
+              f"{name}: regenerated inputs differ from the goldens'")
+        check(np.abs(want[0] - tfl[0]).max() <= SSD_BOX_ATOL
+              and all(np.array_equal(a, b) for a, b in zip(want[1:], tfl[1:])),
+              f"{name}: goldens outside their tolerance of TFLite")
+        out[name] = dict(xs=xs, output=want, head=z[f"{name}/head"])
+    return out
+
+
+def _hetero_engine(bt, sched):
+    cfg = (bt.RuntimeConfigBuilder()
+           .add_scheduler(bt.SchedulerType(sched))
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0,), max_batch=MAX_BATCH))
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0,), max_batch=MAX_BATCH))
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.CPU,
+                                     device_ids=(0,), max_batch=1))
+           .minimum_subgraph_size(1)
+           .subgraph_preparation_type(
+               bt.SubgraphPreparationType.MERGE_UNIT_SUBGRAPH)
+           .profile_warmups(1).profile_runs(2)
+           .build())
+    cfg.probe_link_costs = True
+    return bt.Engine.create(cfg)
+
+
+def _check_dp(eng, tally):
+    """Price every DP call of the engine twice, in the native plan core
+    and in the Python DP, and count every disagreement.  Both run under
+    the latency estimator's lock, which its every write takes, so the
+    expected latencies both read are the same."""
+    native = eng.get_subgraph_with_shortest_latency
+    held = eng.latency_estimator._lock
+
+    def checked(job, waiting):
+        with held:
+            got = native(job, waiting)
+            ref = eng._py_get_subgraph_with_shortest_latency(job, waiting)
+        tally["calls"] += 1
+        if got != ref:
+            tally["mismatches"] += 1
+            tally.setdefault("first", f"{got} != {ref}")
+        return got
+
+    eng.get_subgraph_with_shortest_latency = checked
+
+
+def _host_b1_ms(eng, mid, host, gd):
+    """The host worker's time for one MobileNetV2 b1 request: its
+    program run directly, twice, byte-checked; and the engine's profile
+    of it."""
+    key = eng.get_largest_subgraph_key(mid, host)
+    ex = eng.model_record(mid).executors[host]
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        out = ex.execute(key, [gd["xs"][i]])
+        runs.append(1e3 * (time.perf_counter() - t0))
+        check(np.array_equal(out[0].numpy(), gd["output"][0][i]),
+              "hetero: host worker's MobileNetV2 output differs")
+    return dict(runs_ms=runs,
+                profiled_ms=eng.latency_estimator.get_profiled(key) / 1e3)
+
+
+def hetero_phase(torch, bt, K, goldens, hetero_goldens, smi):
+    """GPU workers plus a host worker under every scheduler but
+    fixed_worker; returns the phase's summary."""
+    K.reset_launches()
+    t_phase = time.perf_counter()
+    gpus, host = (0, 1), 2
+    tally = dict(calls=0, mismatches=0)
+    heads_checked = 0
+    summary = dict(card=smi, schedulers={})
+    for sched in HETERO_SCHEDULERS:
+        t0 = time.perf_counter()
+        eng = _hetero_engine(bt, sched)
+        try:
+            check(eng.plan_core == "native",
+                  f"hetero: the native plan core did not build: "
+                  f"{eng.plan_core_error}")
+            _check_dp(eng, tally)
+            summary["link_costs"] = eng.link_costs.to_dict()
+            mids = {name: eng.register_model(bt.Model.from_path(
+                        os.path.join(DATA, f"{name}.tflite")))
+                    for name in (FULL_WIDTH,) + SSD_MODELS}
+            check(eng.wait_buckets_ready(timeout=600),
+                  "hetero: bucket warm-up timed out")
+            setup_s = time.perf_counter() - t0
+            head_tid = {}
+            for name in SSD_MODELS:
+                rec = eng.model_record(mids[name])
+                post = {op.index for op in rec.model.graph.ops
+                        if op.is_custom}
+                head_tid[name] = next(op.inputs[0] for op in
+                                      rec.model.graph.ops if op.is_custom)
+                custom = {u for u, ops in enumerate(rec.spec.unit_subgraph_ops)
+                          if post & set(ops)}
+                check(post and custom, f"hetero: {name} has no custom unit")
+                for key in rec.subgraph_keys:
+                    check(not (key.unit_indices & custom)
+                          or key.worker_id == host,
+                          f"hetero {sched}: {name}'s custom op prepared "
+                          f"on worker {key.worker_id}")
+            if "host_b1" not in summary:
+                summary["host_b1"] = _host_b1_ms(
+                    eng, mids[FULL_WIDTH], host, goldens[FULL_WIDTH])
+            def windows():
+                """Launch sequences run so far, by worker."""
+                return {w: sum(
+                    sum(eng.model_record(m).executors[w].windows.values())
+                    for m in mids.values()
+                    if w in eng.model_record(m).executors) for w in range(3)}
+
+            before = windows()
+            t0 = time.perf_counter()
+            served = []  # (model, request index, job id)
+            for name, mid in mids.items():
+                gd = (goldens if name == FULL_WIDTH else hetero_goldens)[name]
+                xs, want = gd["xs"], gd["output"]
+                what = f"hetero {sched}: {name}"
+                # one at a time: request_sync is request_async + wait;
+                # the job id is kept to read the job's record
+                for i in range(HETERO_SYNC):
+                    jid = eng.request_async(mid, [xs[i]])
+                    _same_outputs(eng.wait(jid, timeout=120), want, i,
+                                  f"{what} sync")
+                    served.append((name, i, jid))
+                n_async = HETERO_ASYNC if name == FULL_WIDTH else SSD_ASYNC
+                burst = [(i % len(xs), eng.request_async(mid, [xs[i % len(xs)]]))
+                         for i in range(HETERO_SYNC, HETERO_SYNC + n_async)]
+                for i, jid in burst:
+                    _same_outputs(eng.wait(jid, timeout=120), want, i,
+                                  f"{what} async")
+                    served.append((name, i, jid))
+            serve_s = time.perf_counter() - t0
+            after = windows()
+            last_hop = {}
+            for name, i, jid in served:
+                job = eng.planner.get_finished_job(jid)
+                check(job is not None
+                      and job.status == bt.JobStatus.SUCCESS,
+                      f"hetero {sched}: {name} job {jid} has no record")
+                w = job.subgraph_key.worker_id
+                last_hop.setdefault(name, []).append(w)
+                what = f"hetero {sched}: {name} job {jid}"
+                if name in SSD_MODELS and sched in SPLITTING:
+                    from_card = any(
+                        isinstance(v, torch.Tensor) and v.is_cuda
+                        for v in job.activations.values())
+                    check(w == host and job.resolved_unit_subgraphs
+                          and from_card, f"{what} took no GPU -> host hop")
+                    # the continuation's input: the backbone's output as
+                    # the GPU worker made it, byte for byte TFLite's
+                    got = job.activations[head_tid[name]]
+                    check(got.is_cuda and same_bytes(
+                              got, hetero_goldens[name]["head"][i]),
+                          f"{what}: the GPU worker's backbone output "
+                          f"differs from TFLite's detector input")
+                    heads_checked += 1
+                elif name in SSD_MODELS:
+                    check(w == host and not job.resolved_unit_subgraphs,
+                          f"{what} did not run whole on the host worker")
+                elif sched in SPLITTING[:3]:  # SEL, HEFT, HEFT-reserved
+                    check(w in gpus, f"{what} left the GPU workers")
+            dropped = None
+            if sched == "least_slack_time_first":
+                gd = goldens[FULL_WIDTH]
+                jid = eng.request_async(mids[FULL_WIDTH], [gd["xs"][0]],
+                                        bt.RequestOption(slo_us=100))
+                st = eng.wait_all([jid], timeout=60)
+                dropped = st.get(jid)
+                check(dropped == bt.JobStatus.SLO_VIOLATION,
+                      f"hetero {sched}: an unmeetable SLO ended {dropped}")
+                dropped = dropped.name
+            by_model = eng.get_model_execution_counts()
+            ssd = eng.model_record(mids[SSD_MODELS[0]])
+            rec = dict(
+                ssd_int8_expected_us={
+                    f"w{k.worker_id}:{sorted(k.unit_indices)}":
+                        eng.get_expected_latency(k)
+                    for k in ssd.subgraph_keys},
+                setup_s=setup_s, serve_s=serve_s,
+                executions_per_worker={w: after[w] - before[w]
+                                       for w in range(3)},
+                executions_per_model={name: by_model.get(mid, 0)
+                                      for name, mid in mids.items()},
+                last_hop_worker=last_hop,
+                unmeetable_slo=dropped,
+                engine_s=time.perf_counter() - t0 + setup_s)
+            summary["schedulers"][sched] = rec
+            log(f"hetero {sched}: {len(served)} requests of "
+                f"{len(mids)} models byte-equal to their goldens; "
+                + json.dumps(rec))
+        finally:
+            eng.shutdown()
+    counts = K.launch_counts()
+    for name in EXACT_ONLY + ("lut_softmax",):
+        check(counts[name] > 0, f"hetero: kernel {name} never launched")
+    check(tally["calls"] > 0, "hetero: no DP call was priced")
+    check(heads_checked > 0, "hetero: no SSD backbone output was checked")
+    check(tally["mismatches"] == 0,
+          f"hetero: native and Python DP disagree on {tally['mismatches']} "
+          f"of {tally['calls']} calls (first: {tally.get('first')})")
+    summary.update(dp_calls=tally["calls"], dp_mismatches=tally["mismatches"],
+                   ssd_heads_checked=heads_checked,
+                   launches=counts, wall_s=time.perf_counter() - t_phase)
+    log(f"hetero: DP parity: {tally['calls']} calls priced by the native "
+        f"core and the Python DP, {tally['mismatches']} mismatches")
+    log(f"hetero: {heads_checked} SSD continuations fed the GPU worker's "
+        f"backbone output byte-equal to TFLite's detector input")
+    log(f"hetero: link costs [fixed_us, bytes_per_us] "
+        f"{json.dumps(summary['link_costs'])} ({smi}; ici and dcn are "
+        f"not measured with one card and one process)")
+    log("hetero: " + json.dumps(summary))
+    return summary
+
+
+# --------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1358,11 +1706,12 @@ def main():
     log(f"build: {len(build.sources())} kernel libraries in {secs:.1f} s")
 
     graphs = {n: parse_tflite_file(os.path.join(DATA, f"{n}.tflite"))
-              for n in FAST_MODELS}
+              for n in FAST_MODELS + SSD_MODELS}
     goldens = load_goldens(graphs)
     fast_goldens = load_fast_goldens(graphs)
+    hetero_goldens = load_hetero_goldens()
 
-    worst, stats = kernel_phase(torch, dev, graphs, goldens)
+    worst, stats = kernel_phase(torch, dev, graphs, goldens, hetero_goldens)
     conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
                        sm_mhz / 1e3)
     counts, rates = engine_phase(torch, bt, K, MODELS, goldens, card,
@@ -1374,6 +1723,7 @@ def main():
     depth_phase(torch, dev, graphs, goldens, fast_goldens)
     profile_phase(torch, dev, graphs, goldens, exact=True)
     profile_phase(torch, dev, graphs, goldens, exact=False)
+    hetero_phase(torch, bt, K, goldens, hetero_goldens, smi)
 
     log("engine: " + json.dumps({"card": smi, "numerics": "exact",
                                  "models": rates}))
