@@ -16,6 +16,13 @@ back per request.  ``exact=False`` builds the programs with the fast
 numerics epilogues.  On a host worker (``host=True``) a subgraph may
 hold custom ops (backend/program.py); such a program takes one request
 at a time, so its windows run request by request.  No mesh path.
+
+Co-dispatch: ``build_combo`` makes the combined program of a model mix,
+several (subgraph, bucket) windows served as one dispatch, and
+``run_combo`` serves it.  On a card the combo is one CUDA graph that
+captured every member's stacked launch sequence over static input
+buffers (band_tpu jits one XLA program per mix, runtime/engine.py
+:859-868); on the CPU it is the members' programs run back to back.
 """
 
 from __future__ import annotations
@@ -27,9 +34,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..common import SubgraphKey
+from ..common import SubgraphKey, bucket_of
 from ..errors import ExecutionError
 from ..ir.graph import Graph
+from ..ops.quant import torch_dtype
 from .program import SubgraphProgram, build_program, params_from_jax
 
 
@@ -170,8 +178,7 @@ class ModelExecutor:
 
     def is_warm(self, key: SubgraphKey, batch: int) -> bool:
         """Has the (key, bucket) program completed at least once?"""
-        bucket = 1 if batch <= 1 else 1 << (batch - 1).bit_length()
-        return (key, bucket) in self._warm
+        return (key, bucket_of(batch)) in self._warm
 
     def execute_batched(
         self, key: SubgraphKey, inputs_batch: Sequence[Sequence]
@@ -185,14 +192,22 @@ class ModelExecutor:
             return [self.execute(key, inputs_batch[0])]
         if key not in self._programs:
             raise ExecutionError(f"subgraph {key} not prepared")
-        bucket = 1 << (B - 1).bit_length()
+        bucket = bucket_of(B)
         if self._programs[key].has_custom:
             # host ops take one request at a time (the SSD post-process
             # flattens its inputs): the window runs request by request
             out = [self.execute(key, ins) for ins in inputs_batch]
             self._mark_warm(key, bucket, window=False)
             return out
-        padded = list(inputs_batch) + [inputs_batch[0]] * (bucket - B)
+        out = self._run_window(key, inputs_batch, bucket)
+        self._mark_warm(key, bucket)
+        return out
+
+    def _run_window(self, key: SubgraphKey, inputs_batch: Sequence[Sequence],
+                    bucket: int) -> List[List[torch.Tensor]]:
+        """One stacked launch sequence of a window padded to ``bucket``
+        with its first request; per-request outputs."""
+        padded = _pad(inputs_batch, bucket)
         args = []
         for pos in range(len(padded[0])):
             col = [ins[pos] for ins in padded]
@@ -203,7 +218,153 @@ class ModelExecutor:
             else:
                 args.append(torch.cat(
                     [to_device(v, self.device) for v in col], dim=0))
-        outs = self._run(key, args)
-        self._mark_warm(key, bucket)
-        split = [torch.split(o, o.shape[0] // bucket, dim=0) for o in outs]
-        return [[parts[b] for parts in split] for b in range(B)]
+        return _split(self._run(key, args), bucket, len(inputs_batch))
+
+
+def _pad(inputs_batch: Sequence[Sequence], bucket: int) -> List[Sequence]:
+    if not 1 <= len(inputs_batch) <= bucket:
+        raise ExecutionError(
+            f"a window of {len(inputs_batch)} requests in bucket {bucket}")
+    return list(inputs_batch) + [inputs_batch[0]] * (bucket - len(inputs_batch))
+
+
+def _split(outs: Sequence[torch.Tensor], bucket: int,
+           n: int) -> List[List[torch.Tensor]]:
+    """The first ``n`` requests' outputs of a window stacked to ``bucket``."""
+    split = [torch.split(o, o.shape[0] // bucket, dim=0) for o in outs]
+    return [[parts[b] for parts in split] for b in range(n)]
+
+
+# ----------------------------------------------------------------------
+# co-dispatch: the combined program of a model mix
+# ----------------------------------------------------------------------
+class ComboProgram:
+    """Several (subgraph, bucket) windows, of any models on one worker,
+    served as one dispatch.
+
+    On a card, ``graph`` is one ``torch.cuda.CUDAGraph`` that captured
+    every member's stacked launch sequence over the static input buffers
+    ``static_inputs`` (per member, per input: ``[bucket * rows, ...]``)
+    into ``static_outputs``; ``launch_tally`` holds the kernel calls one
+    replay makes.  On the CPU ``graph`` is None and the members' programs
+    run back to back."""
+
+    def __init__(self, members, executors, device: torch.device):
+        self.members: Tuple[Tuple[SubgraphKey, int], ...] = tuple(members)
+        self.executors: List[ModelExecutor] = list(executors)
+        self.device = device
+        self.graph = None
+        self.static_inputs: List[List[torch.Tensor]] = []
+        self.static_outputs: List[List[torch.Tensor]] = []
+        self.launch_tally: Dict[str, int] = {}
+
+
+def build_combo(members: Sequence[Tuple[SubgraphKey, int]],
+                executors: Sequence[ModelExecutor]) -> ComboProgram:
+    """The combined program of ``members`` ((key, bucket) in canonical
+    order, ``executors`` aligned with them).  Every member must be a
+    prepared program without host ops, and all on one device.  On a card
+    every member must have run eagerly at its bucket before: a capture
+    may not build or load a kernel, and nothing in it may wait on the
+    host."""
+    if len(members) != len(executors) or not members:
+        raise ExecutionError("a combo needs one executor per member")
+    devices = {ex.device for ex in executors}
+    if len(devices) != 1:
+        raise ExecutionError(f"a combo's members span devices {devices}")
+    for (key, bucket), ex in zip(members, executors):
+        if key not in ex._programs:
+            raise ExecutionError(f"subgraph {key} not prepared")
+        if ex._programs[key].has_custom:
+            raise ExecutionError(f"subgraph {key} holds a host op")
+        if bucket < 1 or bucket & (bucket - 1):
+            raise ExecutionError(f"bucket {bucket} is not a power of two")
+    combo = ComboProgram(members, executors, devices.pop())
+    if combo.device.type == "cuda":
+        _capture(combo)
+    return combo
+
+
+def _capture(combo: ComboProgram) -> None:
+    """Capture every member's stacked launch sequence into one CUDA graph.
+    ``thread_local``: other workers' threads go on launching and waiting
+    on events while this thread captures on its side stream."""
+    from ..ops import kernels as K
+
+    dev = combo.device
+    with torch.cuda.device(dev):
+        for (key, bucket), ex in zip(combo.members, combo.executors):
+            combo.static_inputs.append([
+                torch.zeros([bucket * max(shape[0], 1)]
+                            + [max(s, 1) for s in shape[1:]],
+                            dtype=torch_dtype(dtype), device=dev)
+                for shape, dtype in ex._programs[key].input_specs])
+        graph = torch.cuda.CUDAGraph()
+        with K.recording() as tally, torch.inference_mode():
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = [ex._fns[key](ex._params[key], ins)
+                        for (key, _), ex, ins in zip(
+                            combo.members, combo.executors,
+                            combo.static_inputs)]
+    combo.static_outputs = [list(o) for o in outs]
+    combo.launch_tally = dict(tally)
+    combo.graph = graph
+
+
+def _fill(static: torch.Tensor, col: Sequence, bucket: int) -> None:
+    """Copy one input position of a padded window into its static buffer,
+    after checking every request against the buffer's shape and type
+    (the kernel wrappers' own checks do not run on a replay)."""
+    rows = static.shape[0] // bucket
+    want = (rows,) + tuple(static.shape[1:])
+    for v in col:
+        dt = v.dtype if isinstance(v, torch.Tensor) else torch_dtype(
+            np.asarray(v).dtype)
+        if tuple(v.shape) != want or dt != static.dtype:
+            raise ExecutionError(
+                f"combo input {tuple(v.shape)} {dt} does not fit its "
+                f"static buffer: {want} {static.dtype}")
+    if all(isinstance(v, np.ndarray) for v in col):
+        host = torch.from_numpy(np.concatenate(col, axis=0)).pin_memory()
+        static.copy_(host, non_blocking=True)
+    else:
+        torch.cat([to_device(v, static.device) for v in col], dim=0,
+                  out=static)
+
+
+def run_combo(combo: ComboProgram,
+              inputs_groups: Sequence[Sequence[Sequence]]
+              ) -> List[List[List[torch.Tensor]]]:
+    """Serve one window per member (``inputs_groups`` aligned with
+    ``combo.members``), each padded to its bucket with its first request;
+    per-group, per-request outputs.  On a card, on the calling thread's
+    current stream: the padded windows are copied into the static
+    buffers, the graph replays, and the static outputs are cloned (the
+    next replay overwrites them while a retire thread or a continuation
+    may still read these); record the completion event after this
+    returns.  On the CPU the members run back to back."""
+    if len(inputs_groups) != len(combo.members):
+        raise ExecutionError(
+            f"{len(inputs_groups)} windows for a combo of "
+            f"{len(combo.members)}")
+    if combo.graph is None:
+        return [ex._run_window(key, ins, bucket)
+                for (key, bucket), ex, ins in zip(
+                    combo.members, combo.executors, inputs_groups)]
+    from ..ops import kernels as K
+
+    for (_, bucket), statics, ins_batch in zip(
+            combo.members, combo.static_inputs, inputs_groups):
+        padded = _pad(ins_batch, bucket)
+        if len(padded[0]) != len(statics):
+            raise ExecutionError(
+                f"{len(padded[0])} inputs for a member of {len(statics)}")
+        for pos, static in enumerate(statics):
+            _fill(static, [ins[pos] for ins in padded], bucket)
+    combo.graph.replay()
+    with torch.inference_mode():
+        outs = [[o.clone() for o in group] for group in combo.static_outputs]
+    K.add_launches(combo.launch_tally)
+    return [_split(group, bucket, len(ins))
+            for (_, bucket), group, ins in zip(
+                combo.members, outs, inputs_groups)]

@@ -25,6 +25,13 @@ def now_us() -> int:
     return time.time_ns() // 1_000
 
 
+def bucket_of(batch: int) -> int:
+    """Power-of-two batch bucket of a window of ``batch`` requests.  The
+    executor pads to it, the latency table keys on it, and a co-dispatch
+    signature names it, so all of them take it from here."""
+    return 1 if batch <= 1 else 1 << (batch - 1).bit_length()
+
+
 class SchedulerType(enum.Enum):
     """Scheduling policies (reference: band/common.h SchedulerType)."""
 

@@ -29,6 +29,7 @@ from .qmatmul import (gemm_plan, qmatmul_exact, qmatmul_fast,  # noqa: F401
                       qmatmul_fast_plain, qmatmul_plain)
 from .softmax import lut_softmax, lut_softmax_plain  # noqa: F401
 from . import qconv as _qc, qdwconv as _qd, qmatmul as _qm, softmax as _sm
+from .common import recording  # noqa: F401
 
 # launch counts by kernel name (each a LaunchCount with a plain int ``n``)
 LAUNCHES = {
@@ -45,3 +46,10 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {name: c.n for name, c in LAUNCHES.items()}
+
+
+def add_launches(tally: dict) -> None:
+    """Count one replay of a CUDA graph whose capture made the kernel
+    calls ``tally`` ({kernel name: calls}, from ``recording``)."""
+    for name, k in tally.items():
+        LAUNCHES[name].add(k)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Sequence
 
@@ -10,22 +11,45 @@ import torch
 from ..quant import ROUNDING_CODES
 
 
+# per thread: the kernel calls being captured into a CUDA graph
+_capture = threading.local()
+
+
 class LaunchCount:
     """Launches of one kernel: a plain integer ``n``, raised by one
-    where the wrapper launches its kernel and nowhere else."""
+    where the wrapper launches its kernel and nowhere else.  A call made
+    while the calling thread captures a CUDA graph (``recording``) runs
+    nothing yet: it is tallied for the graph instead, and each replay of
+    the graph adds its tally (``add(k)``)."""
 
     def __init__(self, name: str):
         self.name = name
         self.n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, k: int = 1) -> None:
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + k
+            return
         with self._lock:
-            self.n += 1
+            self.n += k
 
     def reset(self) -> None:
         with self._lock:
             self.n = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Tally, instead of count, the kernel calls this thread makes in the
+    block (a CUDA graph capture); yields the {kernel name: calls} dict."""
+    tally: dict = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
 
 
 def require(cond: bool, what: str) -> None:

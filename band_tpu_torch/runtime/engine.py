@@ -23,10 +23,18 @@ shortest-latency DP, which runs in the native plan core
 (runtime/native/plan_core.cc) when it builds, and in the Python DP
 here otherwise.
 
+Co-dispatch: a worker with ``co_dispatch > 1`` may serve several
+models' windows as one dispatch once their mix has a combined program
+(backend/executor.py ``build_combo``: one CUDA graph per mix on a card),
+built on the background warmer thread, never on the dispatch path.  The
+resource monitor (monitor/resource_monitor.py) feeds
+``_on_resource_update``, which throttles workers on thermal, HBM, clock
+or duty-cycle pressure.
+
 Counterpart: band_tpu/runtime/engine.py.  Not ported yet, and refused
-with ConfigError when a config asks for them: co-dispatch, the
-resource monitor, multi-process serving, mesh workers, a compilation
-cache and any backend but "torch" (backend/factory.py).
+with ConfigError when a config asks for them: multi-process serving,
+mesh workers, a compilation cache and any backend but "torch"
+(backend/factory.py).
 """
 
 from __future__ import annotations
@@ -45,7 +53,10 @@ from ..common import (
     RequestOption,
     SubgraphKey,
     WorkerType,
+    bucket_of,
+    subgraph_sort_key,
 )
+from ..backend.executor import build_combo, run_combo
 from ..config import RuntimeConfig, WorkerSpec, config_hash
 from ..errors import ConfigError, DeadlineExceeded, ExecutionError, NotFound
 from ..ir.analyzer import ModelAnalyzer, build_model_spec
@@ -124,13 +135,9 @@ def _refuse_unported(config: RuntimeConfig) -> None:
         asks.append("multi-process serving (distributed)")
     if config.compilation_cache_dir:
         asks.append("compilation_cache_dir (nothing is compiled by a JIT)")
-    if config.monitor.enable:
-        asks.append("the resource monitor")
     for i, spec in enumerate(config.worker.workers):
         if spec.is_mesh:
             asks.append(f"worker {i}: a mesh of devices {spec.device_ids}")
-        if spec.co_dispatch > 1:
-            asks.append(f"worker {i}: co_dispatch {spec.co_dispatch}")
         if (spec.backend or "torch").lower() not in available_backends():
             asks.append(f"worker {i}: backend {spec.backend!r} (registered: "
                         f"{available_backends()})")
@@ -281,6 +288,24 @@ class Engine(EngineBase):
         if config.planner.log_path:
             tracer().enable()
 
+        self.resource_monitor = None
+        if config.monitor.enable:
+            from ..monitor.resource_monitor import ResourceMonitor
+
+            self.resource_monitor = ResourceMonitor(
+                interval_ms=config.monitor.monitor_interval_ms,
+                log_path=config.monitor.log_path,
+                devices=sorted(
+                    {d for d in self._worker_devices if d.type == "cuda"},
+                    key=str),
+            )
+            if (config.monitor.thermal_limit_mc > 0
+                    or config.monitor.hbm_limit_fraction > 0
+                    or config.monitor.min_device_clock_hz > 0
+                    or config.monitor.max_duty_cycle_pct > 0):
+                self.resource_monitor.add_callback(self._on_resource_update)
+            self.resource_monitor.start()
+
         self.planner = Planner(self, config.planner)
 
         # background bucket warmer: the first run of each
@@ -298,6 +323,23 @@ class Engine(EngineBase):
         # held by _profile_model for its whole paused-worker window so
         # background warms can't contaminate isolated b1 profiles
         self._profiling_lock = threading.Lock()
+
+        # multi-model window fusion (co-dispatch): combined programs
+        # keyed by a canonical ((SubgraphKey, bucket), ...) signature.
+        # Workers with spec.co_dispatch > 1 fuse consecutive
+        # distinct-subgraph windows into one dispatch once the mix's
+        # program has been built in the background (a CUDA graph on a
+        # card), never on the dispatch path.
+        self._combo_fns: Dict[tuple, object] = {}
+        self._combo_state: Dict[tuple, str] = {}  # pending|ready|failed
+        self._combo_limit = 16  # each graph keeps a private memory pool
+        self._combo_misses: Dict[tuple, int] = {}
+        # a signature must MISS this many times before a background
+        # build is scheduled: stream-tail partial windows mint one-off
+        # signatures, and only recurring mixes are worth a graph;
+        # benchmarks pre-build theirs with warm_co_dispatch
+        self.co_warm_miss_threshold = 32
+        self._co_dispatch_count = 0
 
         # failure-detection watchdog: quarantine workers wedged inside
         # one dispatch so requesters unblock and traffic reroutes
@@ -353,6 +395,8 @@ class Engine(EngineBase):
         self.planner.stop()
         for w in self.workers:
             w.stop()
+        if self.resource_monitor is not None:
+            self.resource_monitor.stop()
         if self.config.profile.profile_data_path:
             self.latency_estimator.dump_profile()
         if self.config.planner.log_path:
@@ -360,6 +404,70 @@ class Engine(EngineBase):
 
     def _worker_is_host(self, worker_id: int) -> bool:
         return self.config.worker.workers[worker_id].device == DeviceFlag.CPU
+
+    def _on_resource_update(self, snap) -> None:
+        """Resource-aware throttling (band_tpu/runtime/engine.py:365-432):
+        host workers on thermal pressure, GPU workers on the HBM
+        pressure of their card (``dev<index>_hbm_*``, keyed by the CUDA
+        index) and on a low clock or a high duty cycle; latency-aware
+        schedulers then see LARGE_WAITING_TIME and route around them."""
+        mon = self.config.monitor
+        # per-worker throttle decision = OR over the active policies
+        # (each policy contributing must not be able to clear another's
+        # throttle)
+        decisions = {w.worker_id: False for w in self.workers}
+        decided = set()
+        if mon.thermal_limit_mc > 0:
+            temps = [
+                v for k, v in snap.items()
+                if k.startswith("thermal_zone") and k.endswith("_mC")
+            ]
+            hot = bool(temps) and max(temps) >= mon.thermal_limit_mc
+            for w in self.workers:
+                if self._worker_is_host(w.worker_id):
+                    decisions[w.worker_id] |= hot
+                    decided.add(w.worker_id)
+        if mon.hbm_limit_fraction > 0:
+            for w, dev in zip(self.workers, self._worker_devices):
+                if self._worker_is_host(w.worker_id):
+                    continue
+                idx = dev.index if dev.index is not None else 0
+                used = snap.get(f"dev{idx}_hbm_in_use_bytes")
+                limit = snap.get(f"dev{idx}_hbm_limit_bytes", 0)
+                if used is not None and limit > 0:
+                    decisions[w.worker_id] |= (
+                        used / limit >= mon.hbm_limit_fraction
+                    )
+                    decided.add(w.worker_id)
+        # device-clock / duty-cycle policy for accelerator workers: a
+        # downclocked or saturated card reports unavailable
+        if mon.min_device_clock_hz > 0 or mon.max_duty_cycle_pct > 0:
+            clocks = [
+                v for k, v in snap.items()
+                if (k.startswith("devfreq_") and k.endswith("_hz"))
+                or k.endswith("_clock_hz")
+            ]
+            duty = [
+                v for k, v in snap.items()
+                if k.endswith("_duty_cycle_pct")
+            ]
+            slow = (
+                mon.min_device_clock_hz > 0
+                and bool(clocks)
+                and min(clocks) < mon.min_device_clock_hz
+            )
+            saturated = (
+                mon.max_duty_cycle_pct > 0
+                and bool(duty)
+                and max(duty) >= mon.max_duty_cycle_pct
+            )
+            for w in self.workers:
+                if not self._worker_is_host(w.worker_id):
+                    decisions[w.worker_id] |= slow or saturated
+                    decided.add(w.worker_id)
+        for w in self.workers:
+            if w.worker_id in decided:
+                w.set_resource_throttled(decisions[w.worker_id])
 
     # ------------------------------------------------------------------
     # model registration (reference: engine.cc:51-289)
@@ -458,6 +566,7 @@ class Engine(EngineBase):
             with self._lock:
                 self._models.pop(model_id, None)
             self.latency_estimator.unbind_model(model_id)
+            self._drop_combos_for(model_id)
             return True
 
         try:
@@ -471,6 +580,7 @@ class Engine(EngineBase):
             with self._lock:
                 self._models.pop(model_id, None)
             self.latency_estimator.unbind_model(model_id)
+            self._drop_combos_for(model_id)
         finally:
             self._unregistering.discard(model_id)
 
@@ -606,7 +716,10 @@ class Engine(EngineBase):
                 # serialize against paused-worker profiling windows so
                 # a warm execution can't contaminate an isolated profile
                 with self._profiling_lock:
-                    self._warm_one_bucket(key, bucket)
+                    if isinstance(key, tuple) and key and key[0] == "combo":
+                        self._warm_one_combo(key[1])
+                    else:
+                        self._warm_one_bucket(key, bucket)
             except Exception:
                 log_error(
                     "bucket warm failed for %s b%d:\n%s",
@@ -649,6 +762,164 @@ class Engine(EngineBase):
             self.latency_estimator.profile(key, invoke, batch=bucket)
         else:
             invoke()
+
+    # ------------------------------------------------------------------
+    # multi-model window fusion (co-dispatch)
+    # ------------------------------------------------------------------
+    def _combo_entry_eligible(self, key: SubgraphKey) -> bool:
+        """A (key, bucket) may join a combined program only when its
+        program has no host op (band_tpu excludes its eager subgraphs);
+        every worker of the port is a single device."""
+        rec = self._models.get(key.model_id)
+        if rec is None or key.model_id in self._unregistering:
+            return False
+        ex = rec.executors.get(key.worker_id)
+        if ex is None:
+            return False
+        return not ex.program(key).has_custom
+
+    def co_dispatch_ready(self, sig: tuple) -> bool:
+        st = self._combo_state.get(sig)
+        if st == "ready":
+            return True
+        if st is None:
+            n = self._combo_misses.get(sig, 0) + 1
+            self._combo_misses[sig] = n
+            if n >= max(self.co_warm_miss_threshold, 1):
+                self._schedule_combo_warm(sig)
+        return False
+
+    def _schedule_combo_warm(self, sig: tuple) -> None:
+        import heapq
+
+        if len(self._combo_state) >= self._combo_limit:
+            return
+        if not all(self._combo_entry_eligible(k) for k, _ in sig):
+            return
+        sentinel = ("combo", sig)
+        with self._warmer_cv:
+            if sig in self._combo_state:
+                return
+            self._combo_state[sig] = "pending"
+            self._combo_misses.pop(sig, None)
+            self._warming_keys[sentinel] = 1
+            self._warmer_seq += 1
+            # sort AFTER every individual bucket warm: a combo needs its
+            # members warm, and must not delay the window-growth ramp
+            heapq.heappush(
+                self._warmer_tasks, (1 << 20, self._warmer_seq, sentinel)
+            )
+            if self._warmer_thread is None:
+                self._warmer_thread = threading.Thread(
+                    target=self._bucket_warmer,
+                    name="band-bucket-warmer",
+                    daemon=True,
+                )
+                self._warmer_thread.start()
+            self._warmer_cv.notify_all()
+
+    def _warm_one_combo(self, sig: tuple) -> None:
+        """Build the combined program of ``sig`` (on the background warmer
+        thread, under _profiling_lock): every member first runs eagerly
+        at its bucket, so that the capture builds and loads no kernel,
+        then ``build_combo`` captures them.  Never raises: a failed
+        build marks the signature failed, and workers keep dispatching
+        window by window."""
+        import traceback
+
+        from ..tracing.logger import log_error
+
+        try:
+            executors = []
+            for key, bucket in sig:
+                if not self._combo_entry_eligible(key):
+                    self._combo_state[sig] = "failed"
+                    return
+                ex = self._models[key.model_id].executors[key.worker_id]
+                ex.execute_batched(key,
+                                   [self._zero_inputs(ex, key)] * bucket)
+                synchronize(self._worker_devices[key.worker_id])
+                executors.append(ex)
+            self._combo_fns[sig] = build_combo(sig, executors)
+            self._combo_state[sig] = "ready"
+        except Exception:
+            self._combo_state[sig] = "failed"
+            log_error(
+                "co-dispatch combo build failed for %s:\n%s",
+                sig, traceback.format_exc(),
+            )
+
+    def invoke_multi(
+        self, sig: tuple, inputs_groups: List[List[List[np.ndarray]]]
+    ) -> List[List[List]]:
+        """One dispatch serving several distinct-subgraph windows
+        (sig-aligned): a replay of the mix's CUDA graph on a card.  Only
+        called by workers after co_dispatch_ready(sig).  The caller
+        records the completion event after this returns."""
+        self._maybe_fault(sig[0][0].worker_id)
+        combo = self._combo_fns.get(sig)
+        if combo is None:
+            raise ExecutionError(f"co-dispatch combo not ready: {sig}")
+        result = run_combo(combo, inputs_groups)
+        self._co_dispatch_count += 1
+        for (key, bucket), ex in zip(sig, combo.executors):
+            ex._mark_warm(key, bucket)
+        return result
+
+    @property
+    def co_dispatch_count(self) -> int:
+        """Fused (multi-window) dispatches served so far."""
+        return self._co_dispatch_count
+
+    def _drop_combos_for(self, model_id: int) -> None:
+        for sig in [
+            s
+            for s in list(self._combo_state) + list(self._combo_misses)
+            if any(k.model_id == model_id for k, _ in s)
+        ]:
+            self._combo_state.pop(sig, None)
+            self._combo_fns.pop(sig, None)
+            self._combo_misses.pop(sig, None)
+
+    def warm_co_dispatch(
+        self,
+        model_ids: Sequence[int],
+        batch,
+        timeout: float = 600.0,
+    ) -> bool:
+        """Pre-build the combined program of a model mix (each model's
+        largest subgraph on its assigned worker at bucket ``batch``: an
+        int for a uniform mix, or one int per model), so a benchmark's
+        steady-state rounds fuse from the first measured window.
+        Returns True when the combo is ready."""
+        batches = (
+            [int(b) for b in batch]
+            if isinstance(batch, (list, tuple))
+            else [int(batch)] * len(model_ids)
+        )
+        if len(batches) != len(model_ids):
+            raise ValueError("warm_co_dispatch: one batch per model")
+        entries = []
+        for mid, bsz in zip(model_ids, batches):
+            wid = self.get_model_worker(mid)
+            key = self.get_largest_subgraph_key(mid, wid)
+            if not key.is_valid():
+                return False
+            entries.append((key, bucket_of(bsz)))
+        entries.sort(key=lambda kb: subgraph_sort_key(kb[0]))
+        sig = tuple(entries)
+        if self._combo_state.get(sig) == "ready":
+            return True
+        # explicit pre-build: bypass the miss-threshold damping
+        self._schedule_combo_warm(sig)
+        deadline = time.monotonic() + timeout
+        with self._warmer_cv:
+            while (
+                self._combo_state.get(sig) == "pending"
+                and time.monotonic() < deadline
+            ):
+                self._warmer_cv.wait(timeout=0.2)
+        return self._combo_state.get(sig) == "ready"
 
     def ready_batch_limit(self, key: SubgraphKey) -> int:
         """Largest continuous-batching window dispatchable for ``key``

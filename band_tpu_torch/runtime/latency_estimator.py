@@ -33,7 +33,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
-from ..common import SubgraphKey
+from ..common import SubgraphKey, bucket_of
 
 
 @dataclass
@@ -43,14 +43,6 @@ class LatencyRecord:
 
     def expected(self) -> int:
         return self.moving_averaged or self.profiled or -1
-
-
-def bucketize(batch: int) -> int:
-    """Power-of-two batch bucket (matches the executor's bucketing,
-    backend/executor.py execute_batched)."""
-    if batch <= 1:
-        return 1
-    return 1 << (batch - 1).bit_length()
 
 
 def _key_str(key: SubgraphKey) -> str:
@@ -121,7 +113,7 @@ class LatencyEstimator:
         (reference: latency_estimator.cc:92-116).  Uses the median of
         the timed runs, not the mean, so one transport spike in the
         profiling window doesn't seed a bad estimate."""
-        bucket = bucketize(batch)
+        bucket = bucket_of(batch)
         for _ in range(self._warmups):
             invoke()
         samples = []
@@ -144,7 +136,7 @@ class LatencyEstimator:
         """EMA update from a real invocation (reference: :32-45), with
         the sample clipped to within outlier_clip x the current estimate
         so transport phase changes can't poison the DB."""
-        bucket = bucketize(batch)
+        bucket = bucket_of(batch)
         with self._lock:
             rec = self._rec(key, bucket)
             if rec.moving_averaged == 0:
@@ -167,7 +159,7 @@ class LatencyEstimator:
     ) -> None:
         """Pin a key's expected latency exactly (cost-model injection
         for tests and what-if scheduling analyses)."""
-        bucket = bucketize(batch)
+        bucket = bucket_of(batch)
         with self._lock:
             rec = self._rec(key, bucket)
             rec.profiled = int(latency_us)
@@ -178,7 +170,7 @@ class LatencyEstimator:
     def set_profiled(
         self, key: SubgraphKey, latency_us: int, batch: int = 1
     ) -> None:
-        bucket = bucketize(batch)
+        bucket = bucket_of(batch)
         with self._lock:
             rec = self._rec(key, bucket)
             rec.profiled = int(latency_us)
@@ -189,7 +181,7 @@ class LatencyEstimator:
 
     # ------------------------------------------------------------------
     def get_profiled(self, key: SubgraphKey, batch: int = 1) -> int:
-        rec = self._db.get(key, {}).get(bucketize(batch))
+        rec = self._db.get(key, {}).get(bucket_of(batch))
         return rec.profiled if rec else -1
 
     def get_expected(self, key: SubgraphKey, batch: int = 1) -> int:
@@ -204,7 +196,7 @@ class LatencyEstimator:
         buckets = self._db.get(key)
         if not buckets:
             return -1
-        bucket = bucketize(batch)
+        bucket = bucket_of(batch)
         rec = buckets.get(bucket)
         if rec is not None and rec.expected() > 0:
             return rec.expected()

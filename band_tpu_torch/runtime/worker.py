@@ -18,8 +18,15 @@ window's launches, and the retire thread synchronises on that event,
 not on its own current stream.  On a CPU worker the launches complete
 before the dispatch returns and there is no event.
 
-Counterpart: band_tpu/runtime/worker.py.  The fused multi-window
-dispatch (co-dispatch) is not ported yet.
+Co-dispatch: a DeviceQueueWorker with ``spec.co_dispatch > 1`` pops the
+head window plus the following distinct-subgraph windows and, when
+their mix's combined program is ready, serves them as one dispatch (a
+CUDA graph replay on a card).  Each window keeps its own in-flight
+record, ``(jobs, outs, event, share)``, all on the one event recorded
+after the replay; ``share`` is the window's part of the expected cost,
+and the latency update charges the window that part.
+
+Counterpart: band_tpu/runtime/worker.py.
 
 On device error the worker throttles, re-enqueues its queue to the
 planner front and polls availability (reference: worker.cc:101-110,
@@ -34,7 +41,7 @@ import time
 import traceback
 from typing import Deque, Dict, List, Optional
 
-from ..common import Job, JobStatus, now_us
+from ..common import Job, JobStatus, bucket_of, now_us, subgraph_sort_key
 from ..config import WorkerSpec
 from ..tracing.logger import log_error
 from ..errors import ExecutionError
@@ -287,8 +294,10 @@ class Worker:
         return [job] if job is not None else []
 
     def _dequeue_groups(self) -> List[List[Job]]:
-        """The dispatch window popped next (called under _cv); fused
-        multi-window dispatch is not ported, so at most one group."""
+        """One or more dispatch windows popped together (called under
+        _cv).  The base worker never fuses; DeviceQueueWorker may
+        return several distinct-subgraph windows when spec.co_dispatch
+        allows and the combined program is ready."""
         jobs = self._dequeue_many()
         return [jobs] if jobs else []
 
@@ -346,8 +355,12 @@ class Worker:
                 continue
             try:
                 self._busy_since = (gen, time.monotonic())
-                rec = self._dispatch(jobs, gen)
-                recs = [rec] if rec is not None else []
+                if len(groups) == 1:
+                    recs = self._dispatch(jobs, gen)
+                else:
+                    # fused multi-window dispatch: one replay, one
+                    # in-flight record per window (retired in order)
+                    recs = self._dispatch_multi(groups, gen)
                 if recs:
                     with self._cv:
                         if self._gen == gen:
@@ -462,34 +475,84 @@ class Worker:
             self.engine.enqueue_finished_job(j)
         self._drop_inflight(jobs)
 
-    def _dispatch(self, jobs: List[Job], gen: Optional[int] = None):
-        """Assemble inputs and launch (no completion wait).  Returns an
-        in-flight record or None if the error paths consumed the jobs.
-        The caller has already marked `jobs` in-flight.  `gen` is the
-        calling thread's dispatch generation: error paths from a stale
-        (pre-rejoin) thread must not resurrect jobs that quarantine
-        already failed, nor mutate fresh-generation dispatch state."""
+    def _dispatch(self, jobs: List[Job], gen: Optional[int] = None
+                  ) -> List[tuple]:
+        """Assemble inputs and launch one window (no completion wait).
+        Returns its in-flight record in a list, or [] if the error paths
+        consumed the jobs.  The caller has already marked `jobs`
+        in-flight."""
         key = jobs[0].subgraph_key
-        try:
+
+        def launch():
             inputs_list = [
                 self.engine.try_copy_input_tensors(j) for j in jobs
             ]
-            start = now_us()
-            for j in jobs:
-                j.invoke_time = start
-                tracer().begin_subgraph(j)
+            self._begin(jobs)
             if len(jobs) == 1:
                 outs = [self.engine.invoke(key, inputs_list[0])]
             else:
                 outs = self.engine.invoke_batched(key, inputs_list)
             # recorded on this (the dispatch) thread's current stream,
             # the one the window was launched on
-            return (jobs, outs, self.engine.record_completion(self.worker_id))
+            return [(jobs, outs,
+                     self.engine.record_completion(self.worker_id))]
+
+        return self._guarded(jobs, gen, launch)
+
+    def _dispatch_multi(
+        self, groups: List[List[Job]], gen: Optional[int] = None
+    ) -> List[tuple]:
+        """Fused dispatch: several distinct-subgraph windows as ONE
+        dispatch (engine.invoke_multi), one in-flight record per window,
+        all on the one event recorded after it.  Each record carries the
+        window's share of the combined program's expected cost so the
+        retirement-side EMA update attributes the measured latency per
+        subgraph instead of charging every key the full combined time."""
+        jobs = [j for g in groups for j in g]
+        sig = tuple((g[0].subgraph_key, bucket_of(len(g))) for g in groups)
+
+        def launch():
+            inputs_groups = [
+                [self.engine.try_copy_input_tensors(j) for j in g]
+                for g in groups
+            ]
+            self._begin(jobs)
+            outs_groups = self.engine.invoke_multi(sig, inputs_groups)
+            event = self.engine.record_completion(self.worker_id)
+            exp = [
+                max(self.engine.get_expected_latency(k, b), 1)
+                for k, b in sig
+            ]
+            tot = float(sum(exp)) or 1.0
+            return [
+                (g, outs, event, e / tot)
+                for g, outs, e in zip(groups, outs_groups, exp)
+            ]
+
+        return self._guarded(jobs, gen, launch)
+
+    @staticmethod
+    def _begin(jobs: List[Job]) -> None:
+        start = now_us()
+        for j in jobs:
+            j.invoke_time = start
+            tracer().begin_subgraph(j)
+
+    def _guarded(self, jobs: List[Job], gen: Optional[int],
+                 launch) -> List[tuple]:
+        """Run ``launch`` (inputs, launch, in-flight records) and return
+        its records; on an error consume ``jobs`` and return [].  `gen`
+        is the calling thread's dispatch generation: error paths from a
+        stale (pre-rejoin) thread must not resurrect jobs that
+        quarantine already failed, nor mutate fresh-generation dispatch
+        state."""
+        try:
+            return launch()
         except ExecutionError:
             for j in jobs:
                 tracer().end_subgraph(j)
             if gen is not None and self._gen != gen:
-                return None  # stale thread: jobs already failed at quarantine
+                return []  # stale thread: jobs already failed at quarantine
             self._drop_inflight(jobs)
             self._handle_device_error(jobs[0])
             for j in jobs[1:]:
@@ -498,10 +561,12 @@ class Worker:
                 j.invoke_time = 0
                 self.engine.enqueue_batch([j], push_front=True)
             self._on_dispatch_consumed(jobs, gen)
-            return None
+            return []
         except Exception:
+            log_error("worker %d dispatch failed:\n%s", self.worker_id,
+                      traceback.format_exc())
             if gen is not None and self._gen != gen:
-                return None  # stale thread: jobs already failed at quarantine
+                return []  # stale thread: jobs already failed at quarantine
             self._drop_inflight(jobs)
             for j in jobs:
                 j.status = JobStatus.INVOKE_FAILURE
@@ -509,7 +574,7 @@ class Worker:
                 tracer().end_subgraph(j)
                 self.engine.enqueue_finished_job(j)
             self._on_dispatch_consumed(jobs, gen)
-            return None
+            return []
 
     def _on_dispatch_consumed(
         self, jobs: List[Job], gen: Optional[int] = None
@@ -554,8 +619,12 @@ class Worker:
         self, rec, ready_hint: bool = False, gen: Optional[int] = None
     ) -> None:
         """Retire one in-flight work unit: observe completion, update
-        the cost model, hand off outputs/continuations."""
+        the cost model, hand off outputs/continuations.  Records from a
+        fused dispatch carry a fourth element, the window's share of the
+        combined program's expected cost, which the latency update
+        charges instead of the whole measured time."""
         jobs, outputs_list = rec[0], rec[1]
+        share = rec[3] if len(rec) > 3 else 1.0
         key = jobs[0].subgraph_key
         try:
             if not ready_hint:
@@ -572,7 +641,9 @@ class Worker:
             return
         end = now_us()
         latency = end - jobs[0].invoke_time
-        self.engine.update_latency(key, max(int(latency), 1), batch=len(jobs))
+        self.engine.update_latency(
+            key, max(int(latency * share), 1), batch=len(jobs)
+        )
         for j, outs in zip(jobs, outputs_list):
             j.end_time = end
             j.profiled_execution_time = latency
@@ -720,6 +791,61 @@ class DeviceQueueWorker(Worker):
         ):
             jobs.append(self._queue.popleft())
         return jobs
+
+    def _dequeue_groups(self) -> List[List[Job]]:
+        """Head window plus, when spec.co_dispatch > 1, the following
+        consecutive distinct-subgraph windows, fused into one dispatch
+        IF the mix's combined program is ready (a miss may schedule a
+        background build and dispatches the head window alone, so
+        fusion never stalls serving on a capture).  Called under _cv,
+        so peeking the deque is race-free."""
+        first = self._dequeue_many()
+        if not first:
+            return []
+        limit = self.spec.co_dispatch
+        if limit <= 1 or not self._queue:
+            return [first]
+
+        # peek the next consecutive same-key runs without popping
+        taken = {first[0].subgraph_key}
+        runs = []  # (key, length) in queue order from the head
+        idx = 0
+        while len(runs) + 1 < limit and idx < len(self._queue):
+            key = self._queue[idx].subgraph_key
+            if key in taken or not key.is_valid():
+                break
+            cap = max(
+                min(
+                    self.spec.max_batch,
+                    self.engine.ready_batch_limit(key),
+                ),
+                1,
+            )
+            n = 0
+            while (
+                idx + n < len(self._queue)
+                and n < cap
+                and self._queue[idx + n].subgraph_key == key
+            ):
+                n += 1
+            runs.append((key, n))
+            taken.add(key)
+            idx += n
+        if not runs:
+            return [first]
+        cand = [(first[0].subgraph_key, bucket_of(len(first)))] + [
+            (key, bucket_of(n)) for key, n in runs
+        ]
+        cand.sort(key=lambda kb: subgraph_sort_key(kb[0]))
+        if not self.engine.co_dispatch_ready(tuple(cand)):
+            return [first]
+        groups = [first]
+        for _key, n in runs:
+            groups.append([self._queue.popleft() for _ in range(n)])
+        # canonical signature order (every rotation of the same mix
+        # maps to one combined program)
+        groups.sort(key=lambda g: subgraph_sort_key(g[0].subgraph_key))
+        return groups
 
     def _requeue_all(self) -> List[Job]:
         with self._cv:

@@ -120,9 +120,47 @@ Phases:
              DP, both under the latency estimator's lock: 0 mismatches.  B1, B2, B3 and lut_softmax must launch in
              this phase.  Also: the host worker's time per MobileNetV2 b1
              request and the phase's wall time.
-Then it prints the kernels line, and last the device line.
+10. codispatch  configs/benchmark_slo_mix_stream.json's worker (one GPU
+             worker, fixed_worker, max_batch 32, dispatch_depth 8,
+             co_dispatch 4) with MobileNetV2 at full width, effnetlite_int8,
+             resnetish_int8 and fc_int8 in place of its models.
+             warm_co_dispatch at b32 must capture the mix as one CUDA graph
+             (else the run fails: no unfused fallback); printed: the graph
+             pool's bytes (memory_reserved before and after the capture)
+             and the kernel calls one replay makes.  Then 6 stream rounds
+             of 32 requests per model, queued as one backlog (several
+             fused dispatches in flight): every output byte-equal to the
+             TFLite goldens, at least one fused dispatch per round, B1, B2,
+             B3 and lut_softmax counted once per captured call and replay,
+             and each model's per-share estimate below the fused window's
+             time.  A b16 mix captured while b32 rounds are being served
+             (capture_error_mode thread_local), its rounds fused and
+             byte-equal.  Printed: host time per invoke_multi against the
+             four solo windows' launches, one replay's device time,
+             torch.profiler's busy share of two served rounds, and rounds/s
+             with co_dispatch 4 against 1 (three runs each, alternating,
+             with the spread).
+11. monitor  the resource monitor at a 200 ms interval on two GPU workers
+             (cuda:0) and a host worker under shortest_expected_latency:
+             its snapshot must hold gpu0_duty_cycle_pct, gpu0_clock_hz
+             (nvidia-smi) and dev0_hbm_in_use_bytes / dev0_hbm_limit_bytes
+             (PyTorch); an hbm_limit_fraction below the in-use fraction
+             throttles both GPU workers, so MobileNetV2 runs on the host
+             worker until the limit is lifted, byte-equal throughout.
+12. benchmark  band_tpu_torch.tools.benchmark in-process for 3 s on the
+             layouts of configs/benchmark_rr_cnn.json (round_robin, two
+             GPU workers, stream), configs/benchmark_slo_mix.json (LSF,
+             GPU + host, periodic; MobileNetV2 slo_scale 2, fc_int8 slo_us
+             50000) and the codispatch phase's, written as JSON with
+             absolute tests/data paths; one ``benchmark:`` line each.
+             Every model processes requests, none is canceled without an
+             SLO, and the codispatch config's rounds fuse.
+Then it prints the kernels line (each kernel's launches in the engine
+phase of its numerics, and in the codispatch phase), and last the
+device line.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -195,6 +233,20 @@ SSD_IMAGE = (1, 32, 32, 3)
 # async burst's bucket, and the bucket warm-up's largest
 SSD_BATCHES = (1, SSD_ASYNC, MAX_BATCH)
 SSD_BOX_ATOL = 1e-6  # TFLite's box decode against band_tpu's numpy one
+# codispatch: configs/benchmark_slo_mix_stream.json's worker, its models
+# replaced by MODELS (MobileNetV2 at full width)
+CO_BATCH = 32
+CO_DEPTH = 8
+# backlogs (4 x 32 requests a round) stay within the planner's 1000
+# finished-job records, which get_outputs reads
+CO_ROUNDS = 6        # the checked backlog: fused dispatches in flight
+CO_SHORT = 3         # requests a model fewer in a checked backlog's last round
+CO_RATE_ROUNDS = 6   # the backlog of each timed run, fused or not
+CO_HOST_REPS = 10
+CO_PROFILED = 2
+MONITOR_MS = 200
+MONITOR_REQUESTS = 2  # MobileNetV2 requests under and after the HBM limit
+BENCH_MS = 3000
 FAST = ("qmatmul_fast", "qconv2d_fast", "qdwconv2d_fast")
 EXACT_ONLY = ("qmatmul_exact", "qconv2d_exact", "qdwconv2d_exact")
 
@@ -332,6 +384,27 @@ def dwconv_plan_of(args, kw, out):
     return QD.dwconv_plan(n, out.shape[1], out.shape[2], c, w.shape[1] // c,
                           kw["kh"], kw["kw"], tuple(kw["stride"]),
                           tuple(kw["dilation"]), QD.alignment(x, w, out))
+
+
+def plan_of(name, args, kw, out):
+    """The plan branch an exact kernel call ran under, as a label."""
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops.kernels import qconv as QC
+    from band_tpu_torch.ops.kernels import softmax as SM
+
+    if name == "qmatmul_exact":
+        p = K.gemm_plan(args[0].shape[0], args[1].shape[1], args[0].shape[1])
+        return f"{p.bm}x{p.bn} splits {p.splits}"
+    if name == "qdwconv2d_exact":
+        return dwconv_plan_of(args, kw, out).name
+    if name == "qconv2d_exact":
+        x, w = args[0], args[1]
+        return QC.conv_plan(x.shape[0], out.shape[1], out.shape[2],
+                            x.shape[3], w.shape[1], kw["kh"], kw["kw"],
+                            tuple(kw["stride"]), tuple(kw["dilation"]),
+                            QC.alignment(w)).name
+    depth = args[0].shape[-1]
+    return SM.softmax_plan(args[0].numel() // depth, depth).name
 
 
 def conv_library(torch, dev, args, kw, depthwise):
@@ -934,6 +1007,51 @@ def same_bytes(got, want):
             and got.tobytes() == want.tobytes())
 
 
+def codispatch_bucket_calls(torch, dev, graphs, goldens, plain, worst,
+                            names):
+    """Every kernel call of the codispatch phase's models at the buckets
+    its graphs capture (b32, b16), whose shapes pick other plan branches
+    than b1/b8, held byte-equal to plain (``worst`` gathers the errors);
+    and each model's output there byte-equal to the goldens."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import lowerings as L
+
+    branches = collections.Counter()
+    for name in names:
+        g = graphs[name]
+        prog = build_program(g, range(len(g.ops)), exact=True)
+        params = params_from_jax(prog.params, dev)
+        fn = prog.make_fn()
+        gx = goldens[name]["xs"]
+        for b in (CO_BATCH, CO_BATCH // 2):
+            idx = _round_inputs(0, b, len(gx))
+            x = torch.from_numpy(np.concatenate([gx[i] for i in idx])).to(
+                dev)
+            calls = capture_calls(L, fn, params, [x])
+            torch.cuda.synchronize()
+            for kname, args, kw, out in calls:
+                want = plain[kname](*args, **kw)
+                torch.cuda.synchronize()
+                worst[kname] = max(worst[kname], same(
+                    torch, kname, out, want,
+                    f"{name} b{b} {tuple(args[0].shape)}"))
+                branches[(kname, plan_of(kname, args, kw, out))] += 1
+            check(not any(n in FAST for n, *_ in calls),
+                  f"{name} b{b}: a kernel of the fast numerics")
+            (got,) = fn(params, [x])
+            want = goldens[name]["output"][0]
+            check(same_bytes(got, np.concatenate([want[i] for i in idx])),
+                  f"{name} b{b}: the output on the card differs from the "
+                  "goldens")
+            log(f"kernels: {name} b{b}: {len(calls)} calls byte-equal to "
+                f"plain (tolerance 0), its output byte-equal to the "
+                "goldens")
+    log(f"kernels: the codispatch buckets b{CO_BATCH}/b{CO_BATCH // 2} "
+        f"held {sum(branches.values())} calls over {len(branches)} "
+        "(kernel, plan branch) pairs: " + json.dumps(
+            {f"{k} {p}": n for (k, p), n in sorted(branches.items())}))
+
+
 def kernel_phase(torch, dev, graphs, goldens, hetero_goldens):
     from band_tpu_torch.backend.program import build_program, params_from_jax
     from band_tpu_torch.ops import kernels as K
@@ -1015,6 +1133,9 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens):
                 log(f"kernels: {name} backbone b{b}: {len(calls)} calls "
                     f"({', '.join(kinds)}) byte-equal to plain (tolerance "
                     f"0); its output byte-equal to TFLite's head")
+
+        codispatch_bucket_calls(torch, dev, graphs, goldens, plain, worst,
+                                MODELS)
 
         # (lut_softmax's b1 call is the same in both numerics: timed once)
         stats = {n: dict(launches_b1=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -1666,6 +1787,549 @@ def hetero_phase(torch, bt, K, goldens, hetero_goldens, smi):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# codispatch, monitor and benchmark phases
+# --------------------------------------------------------------------------
+
+def _co_engine(bt):
+    """configs/benchmark_slo_mix_stream.json's worker on the card."""
+    return bt.Engine.create(
+        bt.RuntimeConfigBuilder()
+        .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+        .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU, device_ids=(0,),
+                                  max_batch=CO_BATCH, dispatch_depth=CO_DEPTH,
+                                  co_dispatch=len(MODELS)))
+        .build())
+
+
+def _round_inputs(r, n, n_goldens):
+    """The golden request of each of a round's ``n`` slots: shifted by one
+    from round to round, so that every slot of a replay gets other bytes
+    than the replay before it (a replay that overwrote uncloned outputs,
+    or a static input left unfilled, then shows in the golden check)."""
+    return [(r + i) % n_goldens for i in range(n)]
+
+
+def _co_rounds(bt, eng, mids, staged, rounds, batch, short=0):
+    """Stream rounds as a backlog: ``rounds`` rounds of ``batch`` requests
+    of every model (in model order; inputs the goldens' by
+    ``_round_inputs``, staged on the card as the benchmark tool stages
+    them, so that no backlog outruns a model's input ring) queued while
+    the worker is paused, then released.  The last round sends ``batch -
+    short`` requests a model, a window the graph pads to its bucket.
+    Returns the seconds from the release to the last completion and
+    [(model, golden request, job id)]; every job must succeed."""
+    w = eng.workers[0]
+    w.pause()
+    jobs = []
+    try:
+        for r in range(rounds):
+            n = batch - short if r == rounds - 1 else batch
+            for name, mid in mids.items():
+                xs = staged[name]
+                idx = _round_inputs(r, n, len(xs))
+                ids = eng.request_async_batch([mid] * n,
+                                              [[xs[i]] for i in idx])
+                jobs += [(name, i, j) for i, j in zip(idx, ids)]
+        deadline = time.monotonic() + 60
+        while len(w._queue) < len(jobs) and time.monotonic() < deadline:
+            time.sleep(0.002)
+        check(len(w._queue) == len(jobs),
+              "codispatch: the planner did not queue the backlog")
+    finally:
+        t0 = time.perf_counter()
+        w.resume()
+    st = eng.wait_all([j for _, _, j in jobs], timeout=600)
+    secs = time.perf_counter() - t0
+    bad = collections.Counter(v.name for v in st.values()
+                              if v != bt.JobStatus.SUCCESS)
+    check(len(st) == len(jobs) and not bad,
+          f"codispatch: of {len(jobs)} requests {len(st)} ended, failed "
+          f"{dict(bad)}")
+    return secs, jobs
+
+
+def _co_check(eng, goldens, jobs, what):
+    for name, i, jid in jobs:
+        _same_outputs(eng.get_outputs(jid), goldens[name]["output"], i,
+                      f"{what}: {name}")
+
+
+def _combo(eng, bucket):
+    """The engine's captured combo whose members are all at ``bucket``."""
+    sigs = [s for s, st in eng._combo_state.items()
+            if st == "ready" and all(b == bucket for _, b in s)]
+    check(len(sigs) == 1, f"codispatch: {len(sigs)} ready combos at "
+          f"bucket {bucket}")
+    combo = eng._combo_fns[sigs[0]]
+    check(combo.graph is not None,
+          "codispatch: the combo on the card is not a CUDA graph")
+    return sigs[0], combo
+
+
+def _median(v):
+    return float(np.median(np.asarray(v, np.float64)))
+
+
+def codispatch_phase(torch, bt, K, goldens, smi):
+    """The four models' windows at b32 served as one CUDA graph per
+    round; returns (launch counts of the served rounds, the summary)."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    eng = _co_engine(bt)
+    summary = dict(card=smi, batch=CO_BATCH, models=list(MODELS))
+    try:
+        mids = {name: eng.register_model(bt.Model.from_path(
+                    os.path.join(DATA, f"{name}.tflite")))
+                for name in MODELS}
+        check(eng.wait_buckets_ready(timeout=600),
+              "codispatch: bucket warm-up timed out")
+        for name, mid in mids.items():
+            check(len(eng.model_record(mid).subgraph_keys) == 1,
+                  f"codispatch: {name} is split into several subgraphs")
+        staged = {name: [bt.StagedInput(x).stage(dev)
+                         for x in goldens[name]["xs"]] for name in MODELS}
+        # capture the mix with the engine idle: with the allocator's cache
+        # emptied on both sides, what the card's reserved memory grew by is
+        # the graph's private pool and the static buffers
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        check(eng.warm_co_dispatch(list(mids.values()), batch=CO_BATCH,
+                                   timeout=600),
+              f"codispatch: the b{CO_BATCH} mix was not captured "
+              f"(state {list(eng._combo_state.values())}); no unfused "
+              "fallback is accepted")
+        capture_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_reserved(dev)
+        pool_bytes = after - before
+        sig, combo = _combo(eng, CO_BATCH)
+        for name in EXACT_ONLY + ("lut_softmax",):
+            check(combo.launch_tally.get(name, 0) > 0,
+                  f"codispatch: kernel {name} is not in the captured graph")
+        summary.update(
+            capture_s=capture_s, graph_pool_bytes=pool_bytes,
+            memory_reserved_before=before, memory_reserved_after=after,
+            kernels_per_replay=combo.launch_tally)
+        log(f"codispatch: {len(MODELS)} models at b{CO_BATCH} captured as "
+            f"one CUDA graph in {capture_s:.2f} s (warm-up runs included); "
+            f"graph pool {pool_bytes} bytes (memory_reserved "
+            f"{before} -> {after}); kernel calls per replay "
+            f"{json.dumps(combo.launch_tally)} ({smi})")
+
+        # the main path: stream rounds, several fused dispatches in flight;
+        # the fused records and the latency updates are watched
+        w = eng.workers[0]
+        recs, charged = [], []
+        dispatch_multi, update = w._dispatch_multi, eng.update_latency
+
+        def watch_dispatch(groups, gen=None):
+            out = dispatch_multi(groups, gen)
+            recs.append(out)
+            return out
+
+        def watch_update(key, latency_us, batch=1):
+            charged.append((key, latency_us, batch))
+            update(key, latency_us, batch)
+
+        w._dispatch_multi, eng.update_latency = watch_dispatch, watch_update
+        K.reset_launches()
+        fused0 = eng.co_dispatch_count
+        try:
+            secs, jobs = _co_rounds(bt, eng, mids, staged, CO_ROUNDS,
+                                    CO_BATCH, short=CO_SHORT)
+        finally:
+            del w._dispatch_multi, eng.update_latency
+        counts = K.launch_counts()
+        fused = eng.co_dispatch_count - fused0
+        _co_check(eng, goldens, jobs, "codispatch")
+        check(fused >= CO_ROUNDS,
+              f"codispatch: {fused} fused dispatches for {CO_ROUNDS} rounds")
+        for name, n in combo.launch_tally.items():
+            check(counts[name] >= fused * n,
+                  f"codispatch: {name} counted {counts[name]} launches, "
+                  f"{fused} replays hold {fused * n}")
+        check(any(len(r[0]) == CO_BATCH - CO_SHORT for d in recs for r in d),
+              f"codispatch: no window of {CO_BATCH - CO_SHORT} requests was "
+              "fused (the padded window)")
+        log(f"codispatch: {CO_ROUNDS} rounds of {CO_BATCH} requests x "
+            f"{len(MODELS)} models (the last {CO_BATCH - CO_SHORT}, padded "
+            f"in the graph; each slot's golden shifted by one a round) in "
+            f"{fused} fused dispatches, "
+            f"{len(jobs)} outputs byte-equal to the TFLite goldens; "
+            f"launches {json.dumps(counts)}")
+
+        # each window of a fused dispatch is charged its share of the
+        # dispatch's time, below the whole
+        name_of = {mid: name for name, mid in mids.items()}
+        share_of = {name: [] for name in mids}
+        window_us = []
+        for dispatch in recs:
+            check(len(dispatch) == len(MODELS)
+                  and abs(sum(r[3] for r in dispatch) - 1) < 1e-9,
+                  "codispatch: a fused dispatch's shares do not add up to 1")
+            full = dispatch[0][0][0].profiled_execution_time
+            window_us.append(full)
+            for jobs_, _, _, share in dispatch:
+                key = jobs_[0].subgraph_key
+                charge = max(int(jobs_[0].profiled_execution_time * share),
+                             1)
+                check((key, charge, len(jobs_)) in charged and charge < full,
+                      f"codispatch: window {key} charged {charge} us of a "
+                      f"{full} us fused dispatch")
+                share_of[name_of[key.model_id]].append(share)
+        estimates = {name: eng.get_expected_latency(
+            eng.get_largest_subgraph_key(mid, 0), CO_BATCH)
+            for name, mid in mids.items()}
+        summary.update(fused_window_us=_median(window_us),
+                       shares={k: _median(v) for k, v in share_of.items()},
+                       estimates_us=estimates)
+        log(f"codispatch: {len(recs)} fused dispatches, each window charged "
+            f"its share (median {json.dumps(summary['shares'])}) of the "
+            f"dispatch's time (median {summary['fused_window_us']:.0f} us, "
+            f"dispatch to retire), below the whole; estimates at "
+            f"b{CO_BATCH} now {json.dumps(estimates)} us")
+
+        # a capture while the worker serves: b16 captured during b32 rounds
+        import threading
+
+        stop = threading.Event()
+        served, errors = [], []
+
+        def serve():
+            try:
+                r = 0
+                while not stop.is_set():
+                    t_a = time.perf_counter()
+                    ids = []
+                    for name, mid in mids.items():
+                        xs = staged[name]
+                        idx = _round_inputs(r, CO_BATCH, len(xs))
+                        got = eng.request_async_batch(
+                            [mid] * CO_BATCH, [[xs[i]] for i in idx])
+                        ids += [(name, i, j) for i, j in zip(idx, got)]
+                    st = eng.wait_all([j for _, _, j in ids], timeout=300)
+                    check(all(v == bt.JobStatus.SUCCESS
+                              for v in st.values()) and len(st) == len(ids),
+                          "codispatch: a request failed during the capture")
+                    served.append((t_a, time.perf_counter(), len(ids)))
+                    _co_check(eng, goldens, ids, "codispatch concurrent")
+                    r += 1
+            except Exception as e:  # reported on the main thread
+                errors.append(e)
+
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        while not served and not errors and th.is_alive():
+            time.sleep(0.01)
+        t_a = time.perf_counter()
+        ok16 = eng.warm_co_dispatch(list(mids.values()), batch=CO_BATCH // 2,
+                                    timeout=600)
+        t_b = time.perf_counter()
+        n_done = len(served)
+        while len(served) < n_done + 1 and not errors and th.is_alive():
+            time.sleep(0.01)
+        stop.set()
+        th.join(timeout=300)
+        check(not th.is_alive(), "codispatch: the serving thread hung")
+        if errors:
+            raise errors[0]
+        check(ok16, "codispatch: the b16 mix was not captured while the "
+              "worker served")
+        overlap = sum(1 for a, b, _ in served if a < t_b and b > t_a)
+        check(overlap > 0, "codispatch: no round overlapped the capture")
+        _combo(eng, CO_BATCH // 2)
+        fused0 = eng.co_dispatch_count
+        _, jobs16 = _co_rounds(bt, eng, mids, staged, CO_ROUNDS // 2,
+                               CO_BATCH // 2, short=CO_SHORT)
+        _co_check(eng, goldens, jobs16, "codispatch b16")
+        check(eng.co_dispatch_count - fused0 >= CO_ROUNDS // 2,
+              "codispatch: the b16 rounds did not fuse")
+        summary.update(concurrent_capture_s=t_b - t_a,
+                       rounds_during_capture=overlap)
+        log(f"codispatch: the b{CO_BATCH // 2} mix captured in "
+            f"{t_b - t_a:.2f} s while {overlap} b{CO_BATCH} rounds were "
+            f"served ({sum(n for _, _, n in served)} outputs "
+            f"byte-equal); then {CO_ROUNDS // 2} b{CO_BATCH // 2} rounds "
+            f"(the last of {CO_BATCH // 2 - CO_SHORT} requests a model) "
+            "fused, byte-equal")
+
+        # host time per invoke_multi against the four solo windows'
+        members = [(key, bucket, eng.model_record(key.model_id).executors[0])
+                   for key, bucket in sig]
+        multi_ms, solo_ms = [], []
+        for rep in range(CO_HOST_REPS):
+            gidx = [_round_inputs(rep, b, len(goldens[name_of[k.model_id]]
+                                              ["xs"]))
+                    for k, b, _ in members]
+            groups = [[[goldens[name_of[k.model_id]]["xs"][i]] for i in idx]
+                      for (k, _, _), idx in zip(members, gidx)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = eng.invoke_multi(sig, groups)
+            multi_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            # host arrays fill the static buffers through pinned memory
+            for (key, _, _), group, idx in zip(members, outs, gidx):
+                name = name_of[key.model_id]
+                for i, o in zip(idx, group):
+                    _same_outputs([t.cpu().numpy() for t in o],
+                                  goldens[name]["output"], i,
+                                  f"codispatch invoke_multi: {name}")
+            solo = 0.0
+            for (key, _, ex), grp in zip(members, groups):
+                t0 = time.perf_counter()
+                ex.execute_batched(key, grp)
+                solo += 1e3 * (time.perf_counter() - t0)
+                torch.cuda.synchronize()
+            solo_ms.append(solo)
+        summary.update(invoke_multi_host_ms=multi_ms,
+                       solo_windows_host_ms=solo_ms)
+        log(f"codispatch: host time per invoke_multi {_median(multi_ms):.3f} "
+            f"ms against {_median(solo_ms):.3f} ms for the four solo "
+            f"b{CO_BATCH} windows' launches (medians of {CO_HOST_REPS}; "
+            f"inputs stacked from host arrays in both; every invoke_multi "
+            f"output byte-equal to the goldens) ({smi})")
+
+        # the graph's device time, and the busy share of a served round
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        combo.graph.replay()
+        start.record()
+        for _ in range(CO_HOST_REPS):
+            combo.graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / CO_HOST_REPS
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            secs_p, jobs_p = _co_rounds(bt, eng, mids, staged, CO_PROFILED,
+                                        CO_BATCH)
+        device_ms = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        _co_check(eng, goldens, jobs_p, "codispatch profiled")
+        wall_ms = 1e3 * secs_p
+        summary.update(
+            graph_replay_device_ms=replay_ms,
+            profiled_rounds=CO_PROFILED, profiled_wall_ms=wall_ms,
+            profiled_device_ms=device_ms if device_ms > 0 else "not measured",
+            busy_share=(device_ms / wall_ms if device_ms > 0
+                        else "not measured"))
+        log(f"codispatch: one replay of the b{CO_BATCH} graph {replay_ms:.3f} "
+            f"ms on the card (CUDA events); {CO_PROFILED} served rounds under "
+            f"torch.profiler: wall {wall_ms:.2f} ms, device kernels "
+            f"{summary['profiled_device_ms']} ms, busy share "
+            f"{summary['busy_share']} ({smi})")
+
+        # rounds/s, fused against unfused, on the same engine and traffic
+        spec = eng.workers[0].spec
+        rates = {len(MODELS): [], 1: []}
+        order = [len(MODELS), 1, 1, len(MODELS), len(MODELS), 1]
+        for co in order:
+            spec.co_dispatch = co
+            fused0 = eng.co_dispatch_count
+            secs, jobs = _co_rounds(bt, eng, mids, staged, CO_RATE_ROUNDS,
+                                    CO_BATCH)
+            _co_check(eng, goldens, jobs, f"codispatch co_dispatch {co}")
+            n = eng.co_dispatch_count - fused0
+            check((n >= CO_RATE_ROUNDS) if co > 1 else n == 0,
+                  f"codispatch: co_dispatch {co} made {n} fused dispatches")
+            rates[co].append(CO_RATE_ROUNDS / secs)
+        spec.co_dispatch = len(MODELS)
+        spread = {co: (max(v) - min(v)) / _median(v) for co, v in rates.items()}
+        summary.update(rounds_per_s={str(k): v for k, v in rates.items()},
+                       rounds_per_s_spread={str(k): v
+                                            for k, v in spread.items()},
+                       rate_order=order)
+        log(f"codispatch: rounds/s (backlogs of {CO_RATE_ROUNDS} rounds, "
+            f"{len(MODELS)} x b{CO_BATCH} a round, order {order}): "
+            f"co_dispatch {len(MODELS)} {rates[len(MODELS)]}, "
+            f"co_dispatch 1 {rates[1]}; spread (max - min) / median "
+            f"{spread[len(MODELS)]:.3f} and {spread[1]:.3f} ({smi})")
+    finally:
+        eng.shutdown()
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log("codispatch: " + json.dumps(summary))
+    return counts, summary
+
+
+def monitor_phase(torch, bt, goldens, smi):
+    """The resource monitor on the card: its snapshot holds the card's
+    keys, and an HBM limit below the in-use fraction throttles both GPU
+    workers (one card), so SEL sends MobileNetV2 to the host until the
+    limit is lifted."""
+    gpus, host = (0, 1), 2
+    cfg = (bt.RuntimeConfigBuilder()
+           .add_scheduler(bt.SchedulerType.SHORTEST_EXPECTED_LATENCY)
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0,), max_batch=MAX_BATCH))
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0,), max_batch=MAX_BATCH))
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.CPU,
+                                     device_ids=(0,), max_batch=1))
+           .enable_monitor(interval_ms=MONITOR_MS)
+           .profile_warmups(1).profile_runs(2)
+           .build())
+    # a limit no fraction reaches: the policy runs from the first poll
+    cfg.monitor.hbm_limit_fraction = 1.0
+    t_phase = time.perf_counter()
+    eng = bt.Engine.create(cfg)
+    try:
+        mid = eng.register_model(bt.Model.from_path(
+            os.path.join(DATA, f"{FULL_WIDTH}.tflite")))
+        check(eng.wait_buckets_ready(timeout=600),
+              "monitor: bucket warm-up timed out")
+        keys = ("gpu0_duty_cycle_pct", "gpu0_clock_hz",
+                "dev0_hbm_in_use_bytes", "dev0_hbm_limit_bytes")
+        deadline = time.monotonic() + 10 * MONITOR_MS / 1e3 + 5
+        snap = {}
+        while time.monotonic() < deadline:
+            snap = eng.resource_monitor.status()
+            if all(k in snap for k in keys):
+                break
+            time.sleep(MONITOR_MS / 1e3 / 4)
+        check(all(k in snap for k in keys),
+              f"monitor: the snapshot lacks {[k for k in keys if k not in snap]}"
+              f" (has {sorted(snap)})")
+        card = {k: v for k, v in snap.items()
+                if k.startswith(("gpu", "dev"))}
+        frac = snap["dev0_hbm_in_use_bytes"] / snap["dev0_hbm_limit_bytes"]
+        check(0 < frac < 1, f"monitor: in-use fraction {frac}")
+        log(f"monitor: snapshot card keys {json.dumps(card)}; in-use "
+            f"fraction {frac:.3e} ({smi})")
+        gd = goldens[FULL_WIDTH]
+
+        def serve(i, where, what):
+            jid = eng.request_async(mid, [gd["xs"][i]])
+            _same_outputs(eng.wait(jid, timeout=120), gd["output"], i,
+                          f"monitor {what}")
+            w = eng.planner.get_finished_job(jid).subgraph_key.worker_id
+            check(w in where, f"monitor {what}: MobileNetV2 ran on worker "
+                  f"{w}, not {where}")
+            return w
+
+        def wait_for(avail, what):
+            deadline = time.monotonic() + 20 * MONITOR_MS / 1e3 + 5
+            while time.monotonic() < deadline:
+                if all(eng.is_worker_available(w) == avail for w in gpus):
+                    return
+                time.sleep(MONITOR_MS / 1e3 / 4)
+            raise AssertionError(f"monitor: the GPU workers were not "
+                                 f"{what} within the deadline")
+
+        before = serve(0, gpus, "before the limit")
+        t0 = time.perf_counter()
+        eng.config.monitor.hbm_limit_fraction = frac / 4
+        wait_for(False, "throttled")
+        throttle_s = time.perf_counter() - t0
+        check(eng.is_worker_available(host), "monitor: the host throttled")
+        during = [serve(i, (host,), "under the limit")
+                  for i in range(1, 1 + MONITOR_REQUESTS)]
+        t0 = time.perf_counter()
+        eng.config.monitor.hbm_limit_fraction = 1.0
+        wait_for(True, "released")
+        release_s = time.perf_counter() - t0
+        after = [serve(i, gpus, "after the limit")
+                 for i in range(1 + MONITOR_REQUESTS,
+                                1 + 2 * MONITOR_REQUESTS)]
+    finally:
+        eng.shutdown()
+    out = dict(card=smi, interval_ms=MONITOR_MS, snapshot=card,
+               in_use_fraction=frac, limit=frac / 4,
+               throttled_after_s=throttle_s, released_after_s=release_s,
+               worker_before=before, workers_under_limit=during,
+               workers_after=after,
+               wall_s=time.perf_counter() - t_phase)
+    log("monitor: " + json.dumps(out))
+    return out
+
+
+def _bench_configs():
+    """The benchmark phase's configs: configs/benchmark_rr_cnn.json,
+    configs/benchmark_slo_mix.json and the codispatch phase's layout
+    (configs/benchmark_slo_mix_stream.json's worker), each on tests/data
+    models with absolute paths."""
+    def m(name, **kw):
+        return dict(graph=os.path.join(DATA, f"{name}.tflite"), **kw)
+
+    common = dict(running_time_ms=BENCH_MS, profile_online=True,
+                  profile_warmup_runs=1, profile_num_runs=2)
+    return {
+        "rr_cnn": dict(
+            common,
+            models=[m("effnetlite_int8", period_ms=10, batch_size=2),
+                    m("resnetish_int8", period_ms=10, batch_size=2)],
+            schedulers=["round_robin"], execution_mode="stream",
+            workers=[{"device": "gpu", "device_ids": [0]},
+                     {"device": "gpu", "device_ids": [0]}]),
+        "slo_mix": dict(
+            common,
+            models=[m(FULL_WIDTH, period_ms=10, batch_size=1, slo_scale=2.0),
+                    m("fc_int8", period_ms=5, batch_size=2, slo_us=50000)],
+            schedulers=["least_slack_time_first"],
+            minimum_subgraph_size=1,
+            subgraph_preparation_type="merge_unit_subgraph",
+            execution_mode="periodic",
+            workers=[{"device": "gpu", "device_ids": [0],
+                      "max_batch": MAX_BATCH},
+                     {"device": "cpu", "device_ids": [0]}]),
+        "codispatch": dict(
+            common,
+            models=[m(name, batch_size=CO_BATCH, worker_id=0, slo_us=-1)
+                    for name in MODELS],
+            schedulers=["fixed_worker"], execution_mode="stream",
+            workers=[{"device": "gpu", "device_ids": [0],
+                      "max_batch": CO_BATCH, "dispatch_depth": CO_DEPTH,
+                      "co_dispatch": len(MODELS)}]),
+    }
+
+
+def benchmark_phase(smi):
+    """band_tpu_torch.tools.benchmark in-process on three configs written
+    as JSON files; every model served, no cancellation without an SLO,
+    and the codispatch config's rounds fused."""
+    import tempfile
+
+    from band_tpu_torch.tools.benchmark import Benchmark, BenchmarkConfig
+
+    reports = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "band_tpu_torch",
+                                                      "_build")) as tmp:
+        for name, d in _bench_configs().items():
+            path = os.path.join(tmp, f"benchmark_{name}.json")
+            with open(path, "w") as f:
+                json.dump(d, f)
+            t0 = time.perf_counter()
+            bench = Benchmark(BenchmarkConfig.from_json(path))
+            try:
+                setup_s = time.perf_counter() - t0
+                report = bench.run()
+            finally:
+                bench.shutdown()
+            report["setup_s"] = setup_s
+            log(f"benchmark: {name} " + json.dumps(report) + f" ({smi})")
+            has_slo = any(mm.get("slo_us", -1) > 0
+                          or mm.get("slo_scale", -1) > 0
+                          for mm in d["models"])
+            for i in range(len(d["models"])):
+                r = report[f"model_{i}"]
+                check(r["processed"] > 0,
+                      f"benchmark {name}: {r['model']} processed nothing")
+                check(has_slo or r["canceled"] == 0,
+                      f"benchmark {name}: {r['model']} canceled "
+                      f"{r['canceled']} without an SLO")
+            if name == "codispatch":
+                check(report["runtime_health"]["co_dispatched_windows"] > 0,
+                      "benchmark codispatch: no round fused")
+            reports[name] = report
+    return reports
+
+
 def main():
     import torch
 
@@ -1724,6 +2388,9 @@ def main():
     profile_phase(torch, dev, graphs, goldens, exact=True)
     profile_phase(torch, dev, graphs, goldens, exact=False)
     hetero_phase(torch, bt, K, goldens, hetero_goldens, smi)
+    co_counts, _ = codispatch_phase(torch, bt, K, goldens, smi)
+    monitor_phase(torch, bt, goldens, smi)
+    benchmark_phase(smi)
 
     log("engine: " + json.dumps({"card": smi, "numerics": "exact",
                                  "models": rates}))
@@ -1744,6 +2411,8 @@ def main():
             "bound_by": "bytes" if s["bytes_s"] >= s["ops_s"] else "operations",
             "library_ms": s["library_ms"],
             "mobilenet_v2_b1_launches": s["launches_b1"],
+            # replays of the fused b32 graph count its captured calls
+            "codispatch_launches": co_counts[name],
         })
     log(json.dumps({"kernels": line}))
     log(f"card: {smi}")

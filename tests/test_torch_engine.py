@@ -2,7 +2,8 @@
 same outputs as band_tpu's Engine for sync and async requests, and the
 TFLite goldens for every request, byte for byte (tolerance 0).  Plus
 the engine's refusals: a GPU worker without CUDA, every config part
-that is not ported yet, and an unknown per-model numerics."""
+that is not ported yet, and an unknown per-model numerics; and the
+config parts served since they were ported."""
 
 import os
 
@@ -119,11 +120,8 @@ def _sched(b, s):
 
 def _refused_configs():
     return {
-        "co_dispatch": lambda b: setattr(
-            b._cfg.worker.workers[0], "co_dispatch", 2),
         "mesh": lambda b: setattr(
             b._cfg.worker.workers[0], "device_ids", (0, 1)),
-        "monitor": lambda b: b.enable_monitor(),
         "distributed": lambda b: setattr(
             b._cfg.distributed, "coordinator_address", "localhost:1234"),
         "compilation_cache": lambda b: setattr(
@@ -134,9 +132,13 @@ def _refused_configs():
 
 
 def _served_configs():
-    """Config parts that were refused until the heterogeneous slice and
-    are served now."""
+    """Config parts the engine once refused and serves now (the
+    schedulers and link costs since ROADMAP A8, co_dispatch and the
+    monitor since A10 and A12)."""
     return {
+        "co_dispatch": lambda b: setattr(
+            b._cfg.worker.workers[0], "co_dispatch", 2),
+        "monitor": lambda b: b.enable_monitor(interval_ms=50),
         "round_robin": lambda b: _sched(b, tb.SchedulerType.ROUND_ROBIN),
         "heft": lambda b: _sched(
             b, tb.SchedulerType.HETEROGENEOUS_EARLIEST_FINISH_TIME),
@@ -180,6 +182,10 @@ def test_ported_config_is_served(ask):
         if ask == "global_queue":
             assert all(type(w).__name__ == "GlobalQueueWorker"
                        for w in eng.workers)
+        if ask == "co_dispatch":
+            assert eng.workers[0].spec.co_dispatch == 2
+        if ask == "monitor":
+            assert eng.resource_monitor._thread.is_alive()
         mid, sync, burst = _serve(eng, tb, "fc_int8", xs)
         for i, out in enumerate(sync):
             np.testing.assert_array_equal(out, want[i])
@@ -190,12 +196,8 @@ def test_ported_config_is_served(ask):
 
 
 # public Engine methods and properties of band_tpu the port does not
-# have yet, each with the ROADMAP item that brings it (co_dispatch_ready
-# and invoke_multi are there as EngineBase's defaults: no fused windows)
-UNPORTED_ENGINE_METHODS = {
-    "co_dispatch_count": "A10 co-dispatch",
-    "warm_co_dispatch": "A10 co-dispatch",
-}
+# have yet, each with the ROADMAP item that brings it: none
+UNPORTED_ENGINE_METHODS = {}
 
 
 def _public_methods(cls):
@@ -215,7 +217,9 @@ def test_engine_public_surface_matches_band_tpu():
     assert ref - port == set(UNPORTED_ENGINE_METHODS)
     assert port - ref == {"record_completion"}
     for name in ("list_models", "model_ids", "get_model_execution_counts",
-                 "start_device_trace", "stop_device_trace"):
+                 "start_device_trace", "stop_device_trace",
+                 "co_dispatch_count", "warm_co_dispatch", "invoke_multi",
+                 "co_dispatch_ready"):
         assert name in port
 
 

@@ -27,6 +27,8 @@ def test_import_leaves_jax_and_band_tpu_out():
         "import sys\n"
         "import band_tpu_torch\n"
         "import band_tpu_torch.backend.executor, band_tpu_torch.ops.kernels\n"
+        "import band_tpu_torch.tools.benchmark\n"
+        "import band_tpu_torch.monitor.resource_monitor\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'band_tpu'))\n"
         "print(','.join(bad))\n"
