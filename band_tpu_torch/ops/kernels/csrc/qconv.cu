@@ -363,7 +363,7 @@ int launch_qconv(const void* x, const void* w, void* out, int n, int h,
   }
   const int M = n * oh * ow;
   const int K = kh * kw * ci;
-  const dim3 grid((oc + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  const dim3 grid((M + kBM - 1) / kBM, (oc + kBN - 1) / kBN);
   if (ci % 4 == 0 && reinterpret_cast<uintptr_t>(px) % 4 == 0) {
     const Im2colA<true> A{px, h, wd, ci, oh, ow, kw, sh, sw, dh, dw, pt, pl,
                           K, x_zp};

@@ -102,8 +102,10 @@ __global__ void __launch_bounds__(kGemmThreads)
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+  // row tiles on grid x (up to 2^31 - 1 blocks: a b32 window of 360x640
+  // outputs has 115,200), column tiles on y (at most 65,535)
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
 
   // A tile loads: word w = tid + 256 q is row w / 8, word column w % 8
   const int a_kw = tid % kBKW;

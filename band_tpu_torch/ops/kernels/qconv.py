@@ -90,10 +90,11 @@ def conv_out_size(size: int, k: int, stride: int, dil: int, pad_total: int):
 
 
 def general_plan(n: int, oh: int, ow: int, oc: int) -> ConvPlan:
-    """qgemm.cuh's implicit GEMM: 64 x 64 tiles of [n*oh*ow, oc], 256
-    threads (the kernel sizes its own grid; this one is for the record)."""
+    """qgemm.cuh's implicit GEMM: 64 x 64 tiles of [n*oh*ow, oc], row
+    tiles on grid x, 256 threads (the kernel sizes its own grid; this one
+    is for the record)."""
     return ConvPlan(-1, (0, 0), (0, 0),
-                    (_cdiv(oc, GEMM_TILE), _cdiv(n * oh * ow, GEMM_TILE), 1),
+                    (_cdiv(n * oh * ow, GEMM_TILE), _cdiv(oc, GEMM_TILE), 1),
                     GEMM_THREADS, 0)
 
 

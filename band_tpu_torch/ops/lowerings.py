@@ -5,17 +5,26 @@ zero-point corrections folded into the bias, fixed-point multipliers)
 and a lowering that runs on torch tensors.  Every int8 CONV_2D,
 DEPTHWISE_CONV_2D and FULLY_CONNECTED goes through a hand-written kernel
 (ops/kernels), which on a CPU tensor runs its plain PyTorch version;
-quantized SOFTMAX goes through its kernel too.  ADD, SUB, MUL, MEAN and
-the int8 QUANTIZE are plain PyTorch in int64, the pools in floating
-point (exact for 8-bit values), RESHAPE a view, LOGISTIC, TANH and ELU
-TFLite's 256-entry tables.
+quantized SOFTMAX goes through its kernel too, and every int8
+TRANSPOSE_CONV runs as phase convolutions on the conv kernel.  ADD,
+SUB, MUL, MEAN, RELU, RELU6 and the int8 QUANTIZE are plain PyTorch in
+int64, the pools in floating point (exact for 8-bit values), RESHAPE a
+view, LOGISTIC, TANH and ELU TFLite's 256-entry tables, the exact int8
+PRELU and LEAKY_RELU tables of TFLite's fixed-point kernels.  The
+structural ops (SHAPE, STRIDED_SLICE, SLICE, PACK, TRANSPOSE,
+CONCATENATION, the pads, splits, depth/space moves and nearest resize)
+move bytes; RESIZE_BILINEAR, BATCH_MATMUL, SQUARED_DIFFERENCE and the
+float unary table run band_tpu's float fallback (as_float, a float32
+op, store_real).
 
 Numerics: ``prepare(graph, op, exact)`` with exact=False (fast numerics)
 gives CONV_2D, DEPTHWISE_CONV_2D and FULLY_CONNECTED a float32 ``mult``
 instead of ``qm``/``shift``, ADD and SUB the float32 rescales ``f1``/``f2``
-and MUL ``fm``, as band_tpu's prepares do; each lowering takes the fast
-form when its prepared params hold those keys (the fast kernels
-qmatmul_fast, qconv2d_fast and qdwconv2d_fast for the convs and FC).
+and MUL ``fm``, as band_tpu's prepares do, and PRELU and LEAKY_RELU
+band_tpu's float form instead of TFLite's tables; each lowering takes
+the fast form when its prepared params hold those keys (the fast
+kernels qmatmul_fast, qconv2d_fast and qdwconv2d_fast for the convs,
+TRANSPOSE_CONV and FC).
 
 Counterparts: band_tpu/ops/lowerings.py.  The TPU routing gates there
 (256-row tiles and M padding, the C<=64 boundary-only depthwise rule,
@@ -25,13 +34,16 @@ lowering choices for the TPU, not semantics, and have no counterpart.
 Batches: a window of B requests runs as one call with the requests
 stacked on the leading axis, so a tensor whose model shape is
 [d0, ...] arrives as [B*d0, ...].  Lowerings keep that axis: shapes
-taken from the model are rescaled by ``_stacked_shape``, and no op
-reduces over axis 0.
+taken from the model are rescaled by ``_stacked_shape``, no op reduces
+over axis 0, and an op that would index, slice, split, pack, pad,
+permute or concatenate along it is refused when the program is built
+(a LoweringError naming the op), unless its operand is a shape value
+(``_is_shape_value``) and carries no requests.
 
-Only the slice's op set is here (the op set of MobileNetV2, the
-tests/data CNNs and quant_act_int8); float and hybrid variants of these
-ops raise LoweringError, except the float ELU between a DEQUANTIZE and a
-QUANTIZE.
+The op set is that of the slices so far (MobileNetV2, the tests/data
+CNNs, quant_act_int8, the SSD backbones, tconv_int8, attention_int8,
+cnn_ops_int8 and FSRCNN); float and hybrid variants of the conv-family
+ops raise LoweringError.
 """
 
 from __future__ import annotations
@@ -412,12 +424,15 @@ def _prepare_addsub(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     return d
 
 
+def _operand(ctx: LowerCtx, op: OpNode, tid: int) -> torch.Tensor:
+    """An input of ``op``: its prepared constant (``_constant_inputs``) or
+    the runtime value."""
+    key = f"op{op.index}/c{tid}"
+    return ctx.params[key] if key in ctx.params else ctx.arr(tid)
+
+
 def _binary_inputs(ctx: LowerCtx, op: OpNode):
-    vals = []
-    for tid in op.inputs[:2]:
-        key = f"op{op.index}/c{tid}"
-        vals.append(ctx.params[key] if key in ctx.params else ctx.arr(tid))
-    return vals
+    return [_operand(ctx, op, tid) for tid in op.inputs[:2]]
 
 
 def _store_clamped(ctx: LowerCtx, op: OpNode, r: torch.Tensor) -> None:
@@ -793,3 +808,843 @@ def _mean(ctx: LowerCtx, op: OpNode) -> None:
     ).to(torch.int64) + int(ctx.smeta(op, "zp_out"))
     qmin, qmax = Q.quantized_range(out_td.dtype)
     ctx.set(op.outputs[0], out.clamp(qmin, qmax).to(Q.torch_dtype(out_td.dtype)))
+
+
+# --------------------------------------------------------------------------
+# Float fallback: dequantize -> float32 -> quantize
+# --------------------------------------------------------------------------
+
+def as_float(ctx: LowerCtx, tid: int) -> torch.Tensor:
+    """Runtime value of tensor ``tid`` as float32, dequantized if it is
+    quantized (band_tpu/ops/lowerings.py:140)."""
+    x = ctx.arr(tid)
+    if ctx.is_quantized(tid):
+        s, zp = _scalar_qp(ctx.qp(tid))
+        return Q.dequantize(x, s, zp)
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
+
+
+def store_real(ctx: LowerCtx, tid: int, val: torch.Tensor) -> None:
+    """Store a float32 result, quantized if the tensor is quantized
+    (band_tpu/ops/lowerings.py:148)."""
+    td = ctx.graph.tensor(tid)
+    if ctx.is_quantized(tid):
+        s, zp = _scalar_qp(td.quant)
+        ctx.set(tid, Q.quantize(val, s, zp, td.dtype))
+    else:
+        ctx.set(tid, val.to(Q.torch_dtype(td.dtype)))
+
+
+# --------------------------------------------------------------------------
+# The request axis: which tensors carry it, and refusals
+# --------------------------------------------------------------------------
+
+def _is_shape_value(graph: Graph, tid: int) -> bool:
+    """Whether tensor ``tid`` is computed from SHAPE outputs and constants
+    alone (the converter's output-shape prelude of a TRANSPOSE_CONV): a
+    per-model value with no request axis, which a window does not stack.
+    Every other non-constant tensor is per-request data."""
+    td = graph.tensor(tid)
+    if td.is_constant:
+        return True
+    prod = next((o for o in graph.ops if tid in o.outputs), None)
+    if prod is None:
+        return False
+    if prod.opname == "SHAPE":
+        return True
+    return all(_is_shape_value(graph, t) for t in prod.inputs if t >= 0)
+
+
+def _refuse_request_axis(op: OpNode, what: str) -> LoweringError:
+    return LoweringError(
+        f"{op.opname} op {op.index}: {what} along the leading (request) axis, "
+        "where a window stacks its requests")
+
+
+def _norm_axis(axis: int, rank: int) -> int:
+    return axis + rank if axis < 0 else axis
+
+
+# --------------------------------------------------------------------------
+# SHAPE, STRIDED_SLICE, SLICE, PACK (the converter's prelude to every
+# TRANSPOSE_CONV, whose IR output shape is authoritative), TRANSPOSE
+# --------------------------------------------------------------------------
+
+def _prepare_shape(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    out_td = graph.tensor(op.outputs[0])
+    return {"value": np.asarray(graph.tensor(op.inputs[0]).shape,
+                                out_td.dtype)}
+
+
+@register("SHAPE", prepare=_prepare_shape)
+def _shape(ctx: LowerCtx, op: OpNode) -> None:
+    """The input's model shape (one request's, as band_tpu's under vmap),
+    prepared once: no launch and no copy per run."""
+    ctx.set(op.outputs[0], ctx.param(op, "value"))
+
+
+def _prepare_strided_slice(graph: Graph, op: OpNode,
+                           exact: bool) -> Dict[str, Any]:
+    """The index as slices and ints (band_tpu/ops/lowerings.py:1516).
+    Per-request data keeps its whole leading axis or is refused."""
+    o = op.options
+    begin = graph.tensor(op.inputs[1]).data.astype(np.int64)
+    end = graph.tensor(op.inputs[2]).data.astype(np.int64)
+    strides = graph.tensor(op.inputs[3]).data.astype(np.int64)
+    if (o.get("ellipsis_mask", 0) or o.get("new_axis_mask", 0)
+            or np.any(strides < 0)):
+        raise LoweringError(
+            f"STRIDED_SLICE op {op.index}: ellipsis and new-axis masks and "
+            "negative strides are not ported to PyTorch yet")
+    shape = graph.tensor(op.inputs[0]).shape
+    data = not _is_shape_value(graph, op.inputs[0])
+    index = []
+    for d in range(len(begin)):
+        b = None if (o.get("begin_mask", 0) >> d) & 1 else int(begin[d])
+        e = None if (o.get("end_mask", 0) >> d) & 1 else int(end[d])
+        s = int(strides[d])
+        shrink = (o.get("shrink_axis_mask", 0) >> d) & 1
+        if shrink:
+            sel = range(shape[d])[int(begin[d])]
+            if d == 0 and data:
+                raise _refuse_request_axis(op, "an index")
+            index.append(sel)
+            continue
+        r = range(*slice(b, e, s).indices(int(shape[d])))
+        if d == 0 and data:
+            if r != range(int(shape[0])):
+                raise _refuse_request_axis(op, "a slice")
+            index.append(slice(None))
+        else:
+            index.append(slice(r.start, r.start + len(r) * s, s))
+    out = {"index": tuple(index)}
+    out.update(_constant_inputs(graph, op))
+    return out
+
+
+@register("STRIDED_SLICE", prepare=_prepare_strided_slice,
+          static_inputs=(1, 2, 3))
+def _strided_slice(ctx: LowerCtx, op: OpNode) -> None:
+    x = _operand(ctx, op, op.inputs[0])
+    out = x[ctx.smeta(op, "index")]
+    in_td = ctx.graph.tensor(op.inputs[0])
+    out_shape = ctx.graph.tensor(op.outputs[0]).shape
+    ctx.set(op.outputs[0],
+            out.reshape(_stacked_shape(x, in_td, out_shape)).contiguous())
+
+
+def _prepare_slice(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    b_td, s_td = graph.tensor(op.inputs[1]), graph.tensor(op.inputs[2])
+    if not (b_td.is_constant and s_td.is_constant):
+        raise LoweringError(
+            f"SLICE op {op.index}: a runtime begin or size (the TensorArray "
+            "write of WHILE loops) is not ported to PyTorch yet")
+    shape = graph.tensor(op.inputs[0]).shape
+    data = not _is_shape_value(graph, op.inputs[0])
+    index = []
+    for d, (b, s) in enumerate(zip(b_td.data, s_td.data)):
+        b, s = int(b), int(s)
+        e = int(shape[d]) if s == -1 else b + s
+        if d == 0 and data:
+            if (b, e) != (0, int(shape[0])):
+                raise _refuse_request_axis(op, "a slice")
+            index.append(slice(None))
+        else:
+            index.append(slice(b, e))
+    out = {"index": tuple(index)}
+    out.update(_constant_inputs(graph, op))
+    return out
+
+
+@register("SLICE", prepare=_prepare_slice, static_inputs=(1, 2))
+def _slice(ctx: LowerCtx, op: OpNode) -> None:
+    x = _operand(ctx, op, op.inputs[0])
+    ctx.set(op.outputs[0], x[ctx.smeta(op, "index")].contiguous())
+
+
+def _prepare_pack(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    rank = len(graph.tensor(op.inputs[0]).shape)
+    axis = _norm_axis(op.options.get("axis", 0), rank + 1)
+    if axis == 0 and not all(_is_shape_value(graph, t) for t in op.inputs):
+        raise _refuse_request_axis(op, "a pack")
+    out: Dict[str, Any] = {"axis": axis}
+    for tid in op.inputs:
+        td = graph.tensor(tid)
+        if td.is_constant:
+            # constants may carry data in flat (1,) form while the tensor
+            # declares scalar (); take the declared shape
+            out[f"c{tid}"] = np.asarray(td.data).reshape(td.shape)
+    return out
+
+
+@register("PACK", prepare=_prepare_pack)
+def _pack(ctx: LowerCtx, op: OpNode) -> None:
+    vals = [_operand(ctx, op, t) for t in op.inputs]
+    ctx.set(op.outputs[0], torch.stack(vals, dim=ctx.smeta(op, "axis")))
+
+
+def _prepare_transpose(graph: Graph, op: OpNode,
+                       exact: bool) -> Dict[str, Any]:
+    perm = [int(v) for v in graph.tensor(op.inputs[1]).data]
+    if perm and perm[0] != 0 and not _is_shape_value(graph, op.inputs[0]):
+        raise _refuse_request_axis(op, "a permutation that moves axis 0")
+    out: Dict[str, Any] = {"perm": tuple(perm)}
+    out.update(_constant_inputs(graph, op))
+    return out
+
+
+@register("TRANSPOSE", prepare=_prepare_transpose, static_inputs=(1,))
+def _transpose(ctx: LowerCtx, op: OpNode) -> None:
+    """A permute that keeps the request axis in front, materialized (the
+    kernels take contiguous operands)."""
+    x = _operand(ctx, op, op.inputs[0])
+    ctx.set(op.outputs[0], x.permute(ctx.smeta(op, "perm")).contiguous())
+
+
+# --------------------------------------------------------------------------
+# Structural ops: CONCATENATION, PAD, PADV2, MIRROR_PAD, SPLIT, SPLIT_V,
+# DEPTH_TO_SPACE, SPACE_TO_DEPTH, RESIZE_NEAREST_NEIGHBOR, RESIZE_BILINEAR
+# --------------------------------------------------------------------------
+
+def _prepare_concat(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """Per input whose quantization differs from the output's, TFLite's
+    float32 rescale (band_tpu/ops/lowerings.py:1436-1445): scale =
+    float32(s_i) * float32(1 / s_o), bias = -zp_i * scale."""
+    out_td = graph.tensor(op.outputs[0])
+    axis = _norm_axis(op.options.get("axis", 0), len(out_td.shape))
+    if axis == 0 and not all(_is_shape_value(graph, t) for t in op.inputs):
+        raise _refuse_request_axis(op, "a concatenation")
+    out: Dict[str, Any] = {"axis": axis}
+    oq = out_td.quant
+    for tid in op.inputs:
+        td = graph.tensor(tid)
+        if (oq is None or td.quant is None or td.dtype.kind == "f"
+                or (float(td.quant.scale[0]), int(td.quant.zero_point[0]))
+                == (float(oq.scale[0]), int(oq.zero_point[0]))):
+            continue
+        s_i, zp_i = _scalar_qp(td.quant)
+        s_o, _ = _scalar_qp(oq)
+        scale = np.float32(np.float32(s_i) * np.float32(1.0 / s_o))
+        out[f"scale{tid}"] = float(scale)
+        out[f"bias{tid}"] = float(np.float32(-zp_i * scale))
+    out.update(_constant_inputs(graph, op))
+    return out
+
+
+@register("CONCATENATION", prepare=_prepare_concat)
+def _concat(ctx: LowerCtx, op: OpNode) -> None:
+    """Inputs requantized to the output's parameters where they differ
+    (round half away from zero of the float32 rescale, clamped), then
+    concatenated."""
+    out_td = ctx.graph.tensor(op.outputs[0])
+    parts = []
+    for tid in op.inputs:
+        v = _operand(ctx, op, tid)
+        if f"op{op.index}/scale{tid}" in ctx.meta:
+            val = Q.round_ties_away(
+                v.to(torch.float32) * ctx.smeta(op, f"scale{tid}")
+                + ctx.smeta(op, f"bias{tid}"))
+            _, zp_o = _scalar_qp(out_td.quant)
+            qmin, qmax = Q.quantized_range(out_td.dtype)
+            v = Q.clamp_rounded(val, zp_o, qmin, qmax, out_td.dtype)
+        parts.append(v)
+    ctx.set(op.outputs[0], torch.cat(parts, dim=ctx.smeta(op, "axis")))
+
+
+def _pad_amounts(graph: Graph, op: OpNode):
+    pads = [tuple(int(v) for v in row) for row in graph.tensor(op.inputs[1]).data]
+    if pads and pads[0] != (0, 0) and not _is_shape_value(graph, op.inputs[0]):
+        raise _refuse_request_axis(op, "padding")
+    return pads
+
+
+def _prepare_pad(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """F.pad amounts (last axis first) and the fill: the input's zero
+    point (PAD), or the constant of PADV2."""
+    pads = _pad_amounts(graph, op)
+    td = graph.tensor(op.inputs[0])
+    if op.opname == "PADV2":
+        fill = np.asarray(graph.tensor(op.inputs[2]).data).reshape(()).item()
+    else:
+        fill = int(td.quant.zero_point[0]) if td.quant is not None and \
+            td.dtype.kind in "iu" else 0
+    out = {"pads": tuple(v for row in reversed(pads) for v in row),
+           "fill": fill}
+    out.update(_constant_inputs(graph, op))
+    return out
+
+
+def _pad(ctx: LowerCtx, op: OpNode) -> None:
+    x = _operand(ctx, op, op.inputs[0])
+    ctx.set(op.outputs[0], F.pad(x, ctx.smeta(op, "pads"),
+                                 value=ctx.smeta(op, "fill")))
+
+
+register("PAD", prepare=_prepare_pad, static_inputs=(1,))(_pad)
+register("PADV2", prepare=_prepare_pad, static_inputs=(1, 2))(_pad)
+
+
+def _prepare_mirror_pad(graph: Graph, op: OpNode,
+                        exact: bool) -> Dict[str, Any]:
+    """Per padded axis the source index of every output position
+    (numpy's reflect for mode 0, REFLECT; symmetric for mode 1)."""
+    pads = _pad_amounts(graph, op)
+    shape = graph.tensor(op.inputs[0]).shape
+    mode = "reflect" if op.options.get("mode", 0) == 0 else "symmetric"
+    out: Dict[str, Any] = {}
+    for axis, (b, a) in enumerate(pads):
+        if (b, a) != (0, 0):
+            out[f"idx{axis}"] = np.pad(np.arange(int(shape[axis])), (b, a),
+                                       mode=mode).astype(np.int64)
+    out.update(_constant_inputs(graph, op))
+    return out
+
+
+@register("MIRROR_PAD", prepare=_prepare_mirror_pad, static_inputs=(1,))
+def _mirror_pad(ctx: LowerCtx, op: OpNode) -> None:
+    x = _operand(ctx, op, op.inputs[0])
+    for axis in range(x.dim()):
+        key = f"op{op.index}/idx{axis}"
+        if key in ctx.params:
+            x = x.index_select(axis, ctx.params[key])
+    ctx.set(op.outputs[0], x)
+
+
+def _prepare_split(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """SPLIT (axis input 0, equal parts) and SPLIT_V (sizes input 1, one
+    of them may be -1, axis input 2): the part sizes along the axis."""
+    if op.opname == "SPLIT":
+        x_tid, axis_tid = op.inputs[1], op.inputs[0]
+    else:
+        x_tid, axis_tid = op.inputs[0], op.inputs[2]
+    shape = graph.tensor(x_tid).shape
+    axis = _norm_axis(int(np.asarray(graph.tensor(axis_tid).data).reshape(())),
+                      len(shape))
+    if axis == 0 and not _is_shape_value(graph, x_tid):
+        raise _refuse_request_axis(op, "a split")
+    dim = int(shape[axis])
+    if op.opname == "SPLIT":
+        sizes = [dim // len(op.outputs)] * len(op.outputs)
+    else:
+        sizes = [int(v) for v in graph.tensor(op.inputs[1]).data]
+        if -1 in sizes:
+            sizes[sizes.index(-1)] = dim - (sum(sizes) + 1)
+    out = {"axis": axis, "sizes": tuple(sizes), "x": x_tid}
+    out.update(_constant_inputs(graph, op))
+    return out
+
+
+def _split(ctx: LowerCtx, op: OpNode) -> None:
+    x = _operand(ctx, op, ctx.smeta(op, "x"))
+    parts = torch.split(x, list(ctx.smeta(op, "sizes")),
+                        dim=ctx.smeta(op, "axis"))
+    for tid, part in zip(op.outputs, parts):
+        ctx.set(tid, part.contiguous())
+
+
+register("SPLIT", prepare=_prepare_split, static_inputs=(0,))(_split)
+register("SPLIT_V", prepare=_prepare_split, static_inputs=(1, 2))(_split)
+
+
+@register("DEPTH_TO_SPACE")
+def _depth_to_space(ctx: LowerCtx, op: OpNode) -> None:
+    x = ctx.arr(op.inputs[0])
+    b = op.options.get("block_size", 2)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, b, b, c // (b * b)).permute(0, 1, 3, 2, 4, 5)
+    ctx.set(op.outputs[0], x.reshape(n, h * b, w * b, c // (b * b)))
+
+
+@register("SPACE_TO_DEPTH")
+def _space_to_depth(ctx: LowerCtx, op: OpNode) -> None:
+    x = ctx.arr(op.inputs[0])
+    b = op.options["block_size"]
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+    ctx.set(op.outputs[0], x.reshape(n, h // b, w // b, b * b * c))
+
+
+def _resize_indices(in_size: int, out_size: int, align_corners: bool,
+                    half_pixel: bool, nearest: bool) -> np.ndarray:
+    """Source coordinate of every output position
+    (band_tpu/ops/lowerings.py:2022)."""
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners and out_size > 1:
+        scale = (in_size - 1) / (out_size - 1)
+    else:
+        scale = in_size / out_size
+    if half_pixel:
+        return (i + 0.5) * scale - (0.0 if nearest else 0.5)
+    return i * scale
+
+
+def _prepare_resize(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """Index arrays over the input's rows (axis 1) and columns (axis 2):
+    the nearest source (floor, or round with align_corners) for
+    RESIZE_NEAREST_NEIGHBOR; the two neighbours and the float32 weight of
+    the upper one for RESIZE_BILINEAR."""
+    shape = graph.tensor(op.inputs[0]).shape
+    size = [int(v) for v in graph.tensor(op.inputs[1]).data]
+    ac = op.options.get("align_corners", False)
+    hp = op.options.get("half_pixel_centers", False)
+    nearest = op.opname == "RESIZE_NEAREST_NEIGHBOR"
+    out: Dict[str, Any] = {}
+    for axis, (n_in, n_out) in zip((1, 2), zip(shape[1:3], size)):
+        src = _resize_indices(int(n_in), n_out, ac, hp, nearest)
+        if nearest:
+            sel = np.round(src) if ac else np.floor(src)
+            out[f"idx{axis}"] = np.clip(sel.astype(np.int64), 0, n_in - 1)
+            continue
+        lo = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
+        out[f"lo{axis}"] = lo
+        out[f"hi{axis}"] = np.clip(lo + 1, 0, n_in - 1)
+        frac = np.clip(src - lo, 0.0, 1.0).astype(np.float32)
+        out[f"frac{axis}"] = frac.reshape((-1, 1) if axis == 1 else (-1,))
+    if not nearest and (graph.tensor(op.inputs[0]).quant is None
+                        or graph.tensor(op.outputs[0]).quant is None):
+        raise LoweringError(
+            f"RESIZE_BILINEAR op {op.index}: the float variant is not "
+            "ported to PyTorch yet")
+    return out
+
+
+@register("RESIZE_NEAREST_NEIGHBOR", prepare=_prepare_resize,
+          static_inputs=(1,))
+def _resize_nearest(ctx: LowerCtx, op: OpNode) -> None:
+    x = ctx.arr(op.inputs[0])
+    x = x.index_select(1, ctx.param(op, "idx1"))
+    ctx.set(op.outputs[0], x.index_select(2, ctx.param(op, "idx2")))
+
+
+@register("RESIZE_BILINEAR", prepare=_prepare_resize, static_inputs=(1,))
+def _resize_bilinear(ctx: LowerCtx, op: OpNode) -> None:
+    """Float fallback, band_tpu's form: along rows then columns, lo +
+    (hi - lo) * frac in float32, then quantized."""
+    v = as_float(ctx, op.inputs[0])
+    for axis in (1, 2):
+        lo = v.index_select(axis, ctx.param(op, f"lo{axis}"))
+        hi = v.index_select(axis, ctx.param(op, f"hi{axis}"))
+        f = ctx.param(op, f"frac{axis}").unsqueeze(-1)
+        v = lo + (hi - lo) * f
+    store_real(ctx, op.outputs[0], v)
+
+
+# --------------------------------------------------------------------------
+# RELU, RELU6 (quantized), LEAKY_RELU, PRELU
+# --------------------------------------------------------------------------
+
+def _prepare_relu(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    in_td = graph.tensor(op.inputs[0])
+    out_td = graph.tensor(op.outputs[0])
+    if in_td.quant is None or in_td.dtype.kind == "f":
+        return {}
+    s_i, zp_i = _scalar_qp(in_td.quant)
+    s_o, zp_o = _scalar_qp(out_td.quant)
+    qm, sh = Q.quantize_multiplier(np.float64(s_i) / np.float64(s_o))
+    qmin, qmax = Q.activation_range(op.opname, s_o, zp_o, out_td.dtype)
+    return {"qm": np.int32(qm), "sh": sh, "zp_i": zp_i, "zp_o": zp_o,
+            "qmin": qmin, "qmax": qmax}
+
+
+def _relu(ctx: LowerCtx, op: OpNode) -> None:
+    """TFLite's ReluQuantized: MBQM(x - zp_in) with single rounding, plus
+    zp_out, clamped to the activation's range.  Float: max(x, 0) or
+    clamp(x, 0, 6)."""
+    x = ctx.arr(op.inputs[0])
+    if f"op{op.index}/qm" not in ctx.meta:
+        hi = 6.0 if op.opname == "RELU6" else None
+        ctx.set(op.outputs[0], torch.clamp(x, 0.0, hi))
+        return
+    out_td = ctx.graph.tensor(op.outputs[0])
+    val = Q.multiply_by_quantized_multiplier(
+        x.to(torch.int64) - int(ctx.smeta(op, "zp_i")),
+        int(ctx.smeta(op, "qm")), int(ctx.smeta(op, "sh")),
+        rounding="single").to(torch.int64) + int(ctx.smeta(op, "zp_o"))
+    out = val.clamp(int(ctx.smeta(op, "qmin")), int(ctx.smeta(op, "qmax")))
+    ctx.set(op.outputs[0], out.to(Q.torch_dtype(out_td.dtype)))
+
+
+register("RELU", prepare=_prepare_relu)(_relu)
+register("RELU6", prepare=_prepare_relu)(_relu)
+
+
+def _alpha_table(x_td: TensorDef, out_td: TensorDef, alpha_q: np.ndarray,
+                 alpha_scale: float) -> np.ndarray:
+    """TFLite 2.21's int8 PRELU and LEAKY_RELU (activations.cc,
+    reference_ops::Prelu / QuantizeLeakyRelu) as a table [len(alpha_q),
+    256] over (alpha entry, input byte): x - zp_in >= 0 goes through
+    MBQM(x - zp_in, M1) with M1 = s_in / s_out, the rest through
+    MBQM((x - zp_in) * alpha_q, M2) with M2 = s_in * s_alpha / s_out (both
+    in float32, as TFLite's Prepare computes them), double rounding; plus
+    zp_out, clamped to the dtype."""
+    f32 = np.float32
+    s_i, zp_i = _scalar_qp(x_td.quant)
+    s_o, zp_o = _scalar_qp(out_td.quant)
+    q1, sh1 = Q.quantize_multiplier(float(f32(s_i) / f32(s_o)))
+    q2, sh2 = Q.quantize_multiplier(
+        float(f32(f32(s_i) * f32(alpha_scale)) / f32(s_o)))
+    info = np.iinfo(x_td.dtype)
+    byte = np.arange(256)
+    vals = np.where(byte > info.max, byte - 256, byte) if info.min < 0 \
+        else byte  # the value whose byte is ``byte``
+    xi = torch.from_numpy((vals - zp_i).astype(np.int64))
+    a = torch.from_numpy(alpha_q.astype(np.int64).reshape(-1, 1))
+    pos = Q.multiply_by_quantized_multiplier(xi, q1, sh1, "double")
+    neg = Q.multiply_by_quantized_multiplier(xi * a, q2, sh2, "double")
+    out = torch.where(xi >= 0, pos, neg).to(torch.int64) + zp_o
+    qmin, qmax = Q.quantized_range(out_td.dtype)
+    return out.clamp(qmin, qmax).numpy().astype(out_td.dtype)
+
+
+def _int8_activation(graph: Graph, op: OpNode) -> bool:
+    x_td, out_td = graph.tensor(op.inputs[0]), graph.tensor(op.outputs[0])
+    return (x_td.quant is not None and x_td.dtype.kind in "iu"
+            and x_td.dtype.itemsize == 1 and out_td.quant is not None
+            and out_td.dtype == x_td.dtype)
+
+
+def _prepare_leaky_relu(graph: Graph, op: OpNode,
+                        exact: bool) -> Dict[str, Any]:
+    alpha = float(op.options.get("alpha", 0.0))
+    if exact and _int8_activation(graph, op):
+        table = _alpha_table(graph.tensor(op.inputs[0]),
+                             graph.tensor(op.outputs[0]),
+                             np.ones(1, np.int64), alpha)
+        return {"table": table.reshape(256)}
+    return {"alpha": alpha}
+
+
+@register("LEAKY_RELU", prepare=_prepare_leaky_relu)
+def _leaky_relu(ctx: LowerCtx, op: OpNode) -> None:
+    """Exact int8/uint8: TFLite's fixed-point kernel as a 256-entry table.
+    Otherwise (fast numerics, float) band_tpu's float form: where(x >= 0,
+    x, alpha * x) between as_float and store_real."""
+    if f"op{op.index}/table" in ctx.params:
+        ctx.set(op.outputs[0], Q.apply_lut(ctx.arr(op.inputs[0]),
+                                           ctx.param(op, "table")))
+        return
+    x = as_float(ctx, op.inputs[0])
+    store_real(ctx, op.outputs[0],
+               torch.where(x >= 0, x, ctx.smeta(op, "alpha") * x))
+
+
+def _prepare_prelu(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """Exact int8/uint8: TFLite's fixed-point PRELU as a table per channel
+    of alpha ([C, 256]; alpha must be a per-tensor quantized constant that
+    varies along the last axis at most).  Otherwise band_tpu's float form
+    with alpha dequantized in numpy float32 (band_tpu/ops/lowerings.py:
+    1859-1871)."""
+    a_td = graph.tensor(op.inputs[1])
+    x_td = graph.tensor(op.inputs[0])
+    if not a_td.is_constant:
+        raise LoweringError(
+            f"PRELU op {op.index}: a runtime alpha is not ported to "
+            "PyTorch yet")
+    alpha = a_td.data
+    channels = alpha.shape[-1] if alpha.ndim else 1
+    if exact and _int8_activation(graph, op):
+        if (a_td.quant is None or a_td.quant.per_channel
+                or alpha.size != channels or len(x_td.shape) < 1
+                or channels not in (1, x_td.shape[-1])):
+            raise LoweringError(
+                f"PRELU op {op.index}: only a per-tensor quantized alpha of "
+                "one value per channel is ported to PyTorch")
+        a_s, a_zp = _scalar_qp(a_td.quant)
+        table = _alpha_table(x_td, graph.tensor(op.outputs[0]),
+                             alpha.reshape(-1).astype(np.int64) - a_zp, a_s)
+        return {"table": table.reshape(-1),
+                "offsets": (np.arange(channels, dtype=np.int64) * 256)}
+    a = alpha.astype(np.float32)
+    if a_td.quant is not None and a_td.dtype.kind in "iu":
+        a = (alpha.astype(np.float32)
+             - a_td.quant.zero_point.astype(np.float32)) * a_td.quant.scale
+    return {"alpha": np.asarray(a, np.float32)}
+
+
+@register("PRELU", prepare=_prepare_prelu)
+def _prelu(ctx: LowerCtx, op: OpNode) -> None:
+    """Exact: out = table[channel * 256 + byte(x)], one gather.  Fast and
+    float: where(x >= 0, x, alpha * x) in float32, quantized."""
+    if f"op{op.index}/table" in ctx.params:
+        x = ctx.arr(op.inputs[0])
+        idx = x.view(torch.uint8).to(torch.int64) + ctx.param(op, "offsets")
+        ctx.set(op.outputs[0], ctx.param(op, "table")[idx])
+        return
+    x = as_float(ctx, op.inputs[0])
+    store_real(ctx, op.outputs[0],
+               torch.where(x >= 0, x, ctx.param(op, "alpha") * x))
+
+
+# --------------------------------------------------------------------------
+# Float unary table, SQUARED_DIFFERENCE, BATCH_MATMUL (float fallbacks)
+# --------------------------------------------------------------------------
+
+def _gelu(v: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh form, in its order of operations
+    (the parser decodes no GELU options)."""
+    c = 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                * (v + 0.044715 * v ** 3)))
+    return v * c
+
+
+# band_tpu/ops/lowerings.py:1826-1849
+_FLOAT_UNARY = {
+    "EXP": torch.exp,
+    "LOG": torch.log,
+    "SQRT": torch.sqrt,
+    "RSQRT": torch.rsqrt,
+    "SQUARE": torch.square,
+    "ABS": torch.abs,
+    "NEG": torch.neg,
+    "SIN": torch.sin,
+    "COS": torch.cos,
+    "FLOOR": torch.floor,
+    "CEIL": torch.ceil,
+    "ROUND": torch.round,
+    "GELU": _gelu,
+    # jax.nn.hard_swish, x * (relu6(x + 3) / 6), as XLA runs it: the
+    # division by a constant becomes a multiply by its reciprocal
+    "HARD_SWISH": lambda v: v * (F.relu6(v + 3.0) * (1.0 / 6.0)),
+}
+
+
+def _float_unary(fn):
+    def lower(ctx: LowerCtx, op: OpNode) -> None:
+        store_real(ctx, op.outputs[0], fn(as_float(ctx, op.inputs[0])))
+
+    return lower
+
+
+for _name, _fn in _FLOAT_UNARY.items():
+    register(_name)(_float_unary(_fn))
+
+
+@register("SQUARED_DIFFERENCE")
+def _squared_difference(ctx: LowerCtx, op: OpNode) -> None:
+    a = as_float(ctx, op.inputs[0])
+    b = as_float(ctx, op.inputs[1])
+    store_real(ctx, op.outputs[0], torch.square(a - b))
+
+
+@register("BATCH_MATMUL")
+def _batch_matmul(ctx: LowerCtx, op: OpNode) -> None:
+    """matmul in float32 between as_float and store_real, as band_tpu
+    computes it (outside any Pallas kernel).  On the card TF32 must be
+    off: it would round the operands to 10-bit mantissas."""
+    a = as_float(ctx, op.inputs[0])
+    b = as_float(ctx, op.inputs[1])
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise LoweringError(
+            f"BATCH_MATMUL op {op.index}: TF32 matmul is on "
+            "(torch.backends.cuda.matmul.allow_tf32)")
+    store_real(ctx, op.outputs[0], torch.matmul(a, b))
+
+
+# --------------------------------------------------------------------------
+# TRANSPOSE_CONV: phase convolutions on kernel B2
+# --------------------------------------------------------------------------
+
+def _tconv_pads(o, in_h, in_w, kh, kw, sh, sw, out_h, out_w):
+    """TFLite transpose-conv pad-before: total = (in-1)*s + k - out (SAME)."""
+    if o["padding"] == "SAME":
+        tp_h = max((in_h - 1) * sh + kh - out_h, 0)
+        tp_w = max((in_w - 1) * sw + kw - out_w, 0)
+        return tp_h // 2, tp_w // 2
+    return 0, 0
+
+
+def _tconv_phases(k: int, s: int, pb: int, out_size: int):
+    """Sub-pixel (phase) decomposition of a 1-D transpose conv
+    (band_tpu/ops/lowerings.py:2098).  With cb = k-1-pb, the outputs of
+    phase r, o[s*t + r], are a dense VALID convolution of the undilated
+    input with the kernel slice w[u0_r::s]:
+
+      o[s*t + r] = sum_a x[t + a + off_r] * w[s*a + u0_r],
+      u0_r = (cb - r) mod s,  off_r = (r + u0_r - cb) / s.
+
+    Returns [(u0, ka, off, T)] per phase r: ka taps, T outputs."""
+    cb = k - 1 - pb
+    out = []
+    for r in range(s):
+        u0 = (cb - r) % s
+        ka = max(-(-(k - u0) // s), 0)
+        off = (r + u0 - cb) // s
+        T = -(-(out_size - r) // s)
+        out.append((u0, ka, off, T))
+    return out
+
+
+def _wrap_int32(v: np.ndarray) -> np.ndarray:
+    return ((v.astype(np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)).astype(
+        np.int32)
+
+
+def _prepare_transpose_conv(graph: Graph, op: OpNode,
+                            exact: bool) -> Dict[str, Any]:
+    """Per phase (rh, rw) of the sub-pixel decomposition, the B2 operands
+    of its VALID conv: the kernel slice as [taps*Ci, Oc] words, one int32
+    bias vector (bias - x_zp * sum(w) + k * x_zp * w_zp, plus the phase's
+    badj: the x_zp and w_zp mass of the taps the phase does not compute),
+    the padding B2 fills with x_zp and the rows and columns of its output
+    to keep.  A phase with no taps has a constant output per channel,
+    requantized here.
+
+    Rounding (fault C3 in ROADMAP.md): TFLite 2.21 requantizes an int8
+    TRANSPOSE_CONV per channel through optimized_ops::Quantize, whose
+    8-channel SIMD loop (NEON, or NEON_2_SSE on x86) rounds as ruy does
+    and whose scalar tail, channels 8*floor(Oc/8) and up, with
+    MultiplyByQuantizedMultiplier's double rounding; its multipliers are
+    the per-channel double(s_x) * double(s_w) / double(s_out) even for
+    one scale.  So the exact form runs one B2 launch per phase and
+    rounding group.  band_tpu rounds every channel as ruy; uint8 weights
+    and fast numerics follow band_tpu."""
+    w_td = graph.tensor(op.inputs[1])
+    x_td = graph.tensor(op.inputs[2])
+    out_td = graph.tensor(op.outputs[0])
+    if x_td.quant is None or x_td.dtype.kind == "f" or out_td.quant is None:
+        raise LoweringError(
+            f"TRANSPOSE_CONV op {op.index}: float and hybrid variants are "
+            "not ported to PyTorch yet (int8/uint8 only)")
+    # rotate 180 degrees and go to HWIO: a VALID conv reproduces the
+    # scatter form of TFLite's TransposeConv
+    w_hwio = np.transpose(w_td.data[:, ::-1, ::-1, :], (1, 2, 3, 0))
+    fake = OpNode(index=op.index, opname=op.opname,
+                  inputs=[op.inputs[2], op.inputs[1],
+                          op.inputs[3] if len(op.inputs) > 3 else -1],
+                  outputs=op.outputs, options=dict(op.options))
+    fake.options.setdefault("activation", "NONE")
+    kh, kw, ci, oc = w_hwio.shape
+    d = _prepare_conv_common(graph, fake, w_td, w_hwio, sum_axes=(0, 1, 2),
+                             k_taps=kh * kw * ci, exact=exact)
+    groups = [(0, oc, "ruy")]
+    if exact and w_td.dtype == np.int8:
+        xs, _ = _scalar_qp(x_td.quant)
+        os_, _ = _scalar_qp(out_td.quant)
+        ws = np.broadcast_to(w_td.quant.scale.astype(np.float64), (oc,))
+        d["qm"], d["shift"] = Q.quantize_multipliers(
+            np.float64(xs) * ws / np.float64(os_))
+        k8 = oc // 8 * 8
+        groups = [g for g in ((0, k8, "ruy"), (k8, oc, "double"))
+                  if g[1] > g[0]]
+    epilogue = ("mult",) if "mult" in d else ("qm", "shift")
+    for g, (c0, c1, _) in enumerate(groups):
+        for name in epilogue:
+            d[f"{name}_{g}"] = np.array(np.broadcast_to(d[name], (oc,))[c0:c1])
+
+    o = op.options
+    sh, sw = o["stride_h"], o["stride_w"]
+    out_shape = out_td.shape
+    if out_shape[1] is None or out_shape[1] < 0:
+        out_shape = graph.tensor(op.inputs[0]).data
+    out_h, out_w = int(out_shape[1]), int(out_shape[2])
+    in_h, in_w = int(x_td.shape[1]), int(x_td.shape[2])
+    pb_h, pb_w = _tconv_pads(o, in_h, in_w, kh, kw, sh, sw, out_h, out_w)
+    w_i8, xzp, wzp = d.pop("w"), d["x_zp"], d["w_zp"]
+    bias = d.pop("bias").astype(np.int64)
+    full_sum = w_i8.astype(np.int64).sum(axis=(0, 1, 2))
+    phases = []
+    for rh, (u0h, kah, offh, th) in enumerate(
+            _tconv_phases(kh, sh, pb_h, out_h)):
+        for rw, (u0w, kaw, offw, tw) in enumerate(
+                _tconv_phases(kw, sw, pb_w, out_w)):
+            if th <= 0 or tw <= 0:
+                continue
+            wp = w_i8[u0h::sh, u0w::sw]
+            taps_p = wp.shape[0] * wp.shape[1] * ci
+            badj = (xzp * (full_sum - wp.astype(np.int64).sum(axis=(0, 1, 2)))
+                    - wzp * (kh * kw * ci - taps_p) * xzp)
+            pbias = _wrap_int32(bias + badj)
+            key = f"{rh}_{rw}"
+            if kah == 0 or kaw == 0:
+                d[f"fill_{key}"] = _tconv_fill(d, groups, pbias, out_td)
+                phases.append((rh, rw, th, tw, None))
+                continue
+            lo_h, hi_h = offh, offh + th + kah - 1
+            lo_w, hi_w = offw, offw + tw + kaw - 1
+            pads = ((max(0, -lo_h), max(0, hi_h - in_h)),
+                    (max(0, -lo_w), max(0, hi_w - in_w)))
+            w_km = wp.reshape(kah * kaw * ci, oc)
+            for g, (c0, c1, _) in enumerate(groups):
+                d[f"w_{key}_{g}"] = np.ascontiguousarray(w_km[:, c0:c1])
+                d[f"bias_{key}_{g}"] = np.ascontiguousarray(pbias[c0:c1])
+            phases.append((rh, rw, th, tw,
+                           (kah, kaw, pads, (max(lo_h, 0), max(lo_w, 0)))))
+    for name in ("qm", "shift", "mult"):
+        d.pop(name, None)
+    d.update(phases=tuple(phases), groups=tuple(groups),
+             out_hw=(out_h, out_w), oc=oc,
+             even=out_h % sh == 0 and out_w % sw == 0)
+    return d
+
+
+def _tconv_fill(d, groups, pbias: np.ndarray, out_td: TensorDef):
+    """The requantized output of a phase with no taps (acc = its bias),
+    per channel, through the epilogue the kernels run."""
+    acc = torch.from_numpy(pbias.astype(np.int64))
+    parts = []
+    for g, (c0, c1, rounding) in enumerate(groups):
+        a = acc[c0:c1]
+        if "mult" in d:
+            parts.append(Q.requantize_fast(
+                a, torch.from_numpy(d[f"mult_{g}"]), d["out_zp"], d["qmin"],
+                d["qmax"], out_td.dtype))
+        else:
+            parts.append(Q.requantize_exact(
+                a, d[f"qm_{g}"], d[f"shift_{g}"], d["out_zp"], d["qmin"],
+                d["qmax"], out_td.dtype, rounding))
+    return torch.cat(parts).numpy()
+
+
+@register("TRANSPOSE_CONV", prepare=_prepare_transpose_conv,
+          static_inputs=(0,))
+def _transpose_conv(ctx: LowerCtx, op: OpNode) -> None:
+    """Each phase is one B2 launch (B2 fast in fast numerics) per rounding
+    group, requant fused, its out-of-range window filled with x_zp by
+    B2's own padding and w_zp's window sum subtracted by B2.  The phases
+    interleave into the output: a pixel shuffle (each phase written into
+    an [n, H/sh, sh, W/sw, sw, Oc] view) when sh and sw divide the output
+    size, else a strided scatter into a zeroed output.  The output-shape
+    input (SHAPE -> STRIDED_SLICE -> PACK) is not read: the IR's static
+    shape is authoritative, and the request axis is x's leading one."""
+    x = _to_int8_domain(ctx.arr(op.inputs[2]))
+    out_td = ctx.graph.tensor(op.outputs[0])
+    dt = Q.torch_dtype(out_td.dtype)
+    n = x.shape[0]
+    out_h, out_w = ctx.smeta(op, "out_hw")
+    oc = ctx.smeta(op, "oc")
+    sh, sw = op.options["stride_h"], op.options["stride_w"]
+    even = ctx.smeta(op, "even")
+    if even:
+        out = torch.empty((n, out_h // sh, sh, out_w // sw, sw, oc),
+                          dtype=dt, device=x.device)
+    else:
+        out = torch.zeros((n, out_h, out_w, oc), dtype=dt, device=x.device)
+
+    def dest(rh, rw, c0, c1):
+        if even:
+            return out[:, :, rh, :, rw, c0:c1]
+        return out[:, rh::sh, rw::sw, c0:c1]
+
+    fast = f"op{op.index}/mult_0" in ctx.params
+    rq = dict(stride=(1, 1), dilation=(1, 1),
+              x_zp=int(ctx.smeta(op, "x_zp")), w_zp=int(ctx.smeta(op, "w_zp")),
+              out_zp=int(ctx.smeta(op, "out_zp")),
+              qmin=int(ctx.smeta(op, "qmin")), qmax=int(ctx.smeta(op, "qmax")),
+              out_dtype=dt)
+    for rh, rw, th, tw, conv in ctx.smeta(op, "phases"):
+        key = f"{rh}_{rw}"
+        if conv is None:
+            dest(rh, rw, 0, oc)[...] = ctx.param(op, f"fill_{key}")
+            continue
+        kah, kaw, pads, (ch, cw) = conv
+        for g, (c0, c1, rounding) in enumerate(ctx.smeta(op, "groups")):
+            w, b = ctx.param(op, f"w_{key}_{g}"), ctx.param(op, f"bias_{key}_{g}")
+            if fast:
+                p = qconv2d_fast(x, w, b, ctx.param(op, f"mult_{g}"), kh=kah,
+                                 kw=kaw, padding=pads, **rq)
+            else:
+                p = qconv2d_exact(x, w, b, ctx.param(op, f"qm_{g}"),
+                                  ctx.param(op, f"shift_{g}"), kh=kah, kw=kaw,
+                                  padding=pads, rounding=rounding, **rq)
+            dest(rh, rw, c0, c1)[...] = p[:, ch:ch + th, cw:cw + tw]
+    ctx.set(op.outputs[0], out.reshape(n, out_h, out_w, oc))

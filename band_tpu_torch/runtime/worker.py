@@ -22,9 +22,11 @@ Co-dispatch: a DeviceQueueWorker with ``spec.co_dispatch > 1`` pops the
 head window plus the following distinct-subgraph windows and, when
 their mix's combined program is ready, serves them as one dispatch (a
 CUDA graph replay on a card).  Each window keeps its own in-flight
-record, ``(jobs, outs, event, share)``, all on the one event recorded
-after the replay; ``share`` is the window's part of the expected cost,
-and the latency update charges the window that part.
+record, ``(jobs, outs, done, share)``, all on one ``FusedCompletion``
+(the event recorded after the replay); ``share`` is the window's part of
+the expected cost, and the latency update charges the window that part
+of the dispatch's time, which the first of its windows to retire stamps
+for all of them.
 
 Counterpart: band_tpu/runtime/worker.py.
 
@@ -49,6 +51,28 @@ from ..tracing.job_tracer import tracer
 from .engine_interface import EngineBase
 
 LARGE_WAITING_TIME = 1 << 62
+
+
+class FusedCompletion:
+    """The one completion of a fused dispatch, shared by its windows'
+    records.  The first window to retire stamps ``end_us``; every window
+    is charged from that stamp, so a later window's time does not also
+    hold the host's retirement of the windows before it."""
+
+    __slots__ = ("event", "end_us")
+
+    def __init__(self, event) -> None:
+        self.event = event  # None on a CPU worker
+        self.end_us: Optional[int] = None
+
+    def synchronize(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def stamp(self, end_us: int) -> int:
+        if self.end_us is None:
+            self.end_us = end_us
+        return self.end_us
 
 
 class Worker:
@@ -518,14 +542,15 @@ class Worker:
             ]
             self._begin(jobs)
             outs_groups = self.engine.invoke_multi(sig, inputs_groups)
-            event = self.engine.record_completion(self.worker_id)
+            done = FusedCompletion(
+                self.engine.record_completion(self.worker_id))
             exp = [
                 max(self.engine.get_expected_latency(k, b), 1)
                 for k, b in sig
             ]
             tot = float(sum(exp)) or 1.0
             return [
-                (g, outs, event, e / tot)
+                (g, outs, done, e / tot)
                 for g, outs, e in zip(groups, outs_groups, exp)
             ]
 
@@ -585,7 +610,8 @@ class Worker:
     @staticmethod
     def _wait_done(rec) -> None:
         """Block until the record's launches have completed on the device
-        (its event; None when they ran synchronously on the host)."""
+        (its event or FusedCompletion; None when they ran synchronously
+        on the host)."""
         if rec[2] is not None:
             rec[2].synchronize()
 
@@ -622,7 +648,8 @@ class Worker:
         the cost model, hand off outputs/continuations.  Records from a
         fused dispatch carry a fourth element, the window's share of the
         combined program's expected cost, which the latency update
-        charges instead of the whole measured time."""
+        charges instead of the whole measured time, measured to the
+        dispatch's one end stamp."""
         jobs, outputs_list = rec[0], rec[1]
         share = rec[3] if len(rec) > 3 else 1.0
         key = jobs[0].subgraph_key
@@ -640,6 +667,8 @@ class Worker:
             self._drop_inflight(jobs)
             return
         end = now_us()
+        if isinstance(rec[2], FusedCompletion):
+            end = rec[2].stamp(end)
         latency = end - jobs[0].invoke_time
         self.engine.update_latency(
             key, max(int(latency * share), 1), batch=len(jobs)

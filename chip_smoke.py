@@ -42,7 +42,15 @@ Phases:
                sums above 2^24; for both GEMMs every branch of gemm_plan
                (M 0..12545, K 16..1280, N 16..1000: each tile, K split or
                not, 16-, 8- and 1-byte copies, A one byte off alignment)
-               and a bias near +-2^31 under split-K.
+               and a bias near +-2^31 under split-K;
+             - on every call of the decoder models (FSRCNN x2 at 360x640
+               and at 24x40, tconv_int8, cnn_ops_int8, attention_int8) at
+               b1 and b8, exact and (FSRCNN, tconv_int8) fast: the
+               TRANSPOSE_CONV phase convs on B2's general and direct
+               branches, the 1x1 convs on B1; each model's outputs equal
+               to tests/data/torch_ops_goldens.npz (the digests at full
+               width; 0, or the stated quant units of a float-fallback
+               output, at the small sizes).
              At MobileNetV2's b1 calls each kernel is timed (a CUDA graph
              of 20 launches, replayed), beside its plain version (eager,
              CUDA events), its bound, and a yardstick: for the int8
@@ -80,15 +88,31 @@ Phases:
              register_model(numerics="fast"), and serves them
              interleaved: exact models byte-equal to the TFLite goldens,
              fast models to the fast goldens.
- 7. depth    the logits below each model's SOFTMAX, from the program on
+ 7. sr       FSRCNN x2 (d=56, s=12, m=4) at its published widths on a
+             360x640 frame (tests/data/fsrcnn_x2_int8.tflite), one GPU
+             worker (fixed_worker, max_batch 8), registered twice, exact
+             and register_model(numerics="fast"): 16 request_sync at b1
+             and a burst of 32 request_async in each; every 720x1280
+             output's sha256 equal to its golden's (TFLite's exact,
+             band_tpu's fast: tests/data/torch_ops_goldens.npz).  Launch
+             counts zeroed just before and read just after: B1, B2 and
+             their fast instances must launch, no other kernel.  Printed:
+             req/s at b1 and in the burst, device time, launches and busy
+             share of a b1 request (torch.profiler), and one
+             ``qconv_general:`` line per B2 call of a request that takes
+             the general implicit-GEMM branch (the 3x3 12 -> 12 convs and
+             the four deconv phase convs): B2 and B2 fast against their
+             plain versions (0 differing bytes), the bound and a cuDNN
+             float32 conv of the same shape.
+ 8. depth    the logits below each model's SOFTMAX, from the program on
              the card at b1 and stacked b8, byte-equal to the golden
              logits; and the fast program's output below the first MEAN,
              byte-equal to band_tpu's fast output stored in the fast
              goldens.
- 8. profile  a b1 MobileNetV2 request through the executor, exact and
+ 9. profile  a b1 MobileNetV2 request through the executor, exact and
              fast: its wall time, and the device time of its kernels
              (torch.profiler).
- 9. hetero   Band's heterogeneous path, laid out as
+10. hetero   Band's heterogeneous path, laid out as
              configs/benchmark_heft.json: two GPU workers on cuda:0
              (max_batch 8) and one host CPU worker (max_batch 1),
              minimum_subgraph_size 1, merged unit subgraphs, link costs
@@ -120,7 +144,7 @@ Phases:
              DP, both under the latency estimator's lock: 0 mismatches.  B1, B2, B3 and lut_softmax must launch in
              this phase.  Also: the host worker's time per MobileNetV2 b1
              request and the phase's wall time.
-10. codispatch  configs/benchmark_slo_mix_stream.json's worker (one GPU
+11. codispatch  configs/benchmark_slo_mix_stream.json's worker (one GPU
              worker, fixed_worker, max_batch 32, dispatch_depth 8,
              co_dispatch 4) with MobileNetV2 at full width, effnetlite_int8,
              resnetish_int8 and fc_int8 in place of its models.
@@ -140,14 +164,14 @@ Phases:
              torch.profiler's busy share of two served rounds, and rounds/s
              with co_dispatch 4 against 1 (three runs each, alternating,
              with the spread).
-11. monitor  the resource monitor at a 200 ms interval on two GPU workers
+12. monitor  the resource monitor at a 200 ms interval on two GPU workers
              (cuda:0) and a host worker under shortest_expected_latency:
              its snapshot must hold gpu0_duty_cycle_pct, gpu0_clock_hz
              (nvidia-smi) and dev0_hbm_in_use_bytes / dev0_hbm_limit_bytes
              (PyTorch); an hbm_limit_fraction below the in-use fraction
              throttles both GPU workers, so MobileNetV2 runs on the host
              worker until the limit is lifted, byte-equal throughout.
-12. benchmark  band_tpu_torch.tools.benchmark in-process for 3 s on the
+13. benchmark  band_tpu_torch.tools.benchmark in-process for 3 s on the
              layouts of configs/benchmark_rr_cnn.json (round_robin, two
              GPU workers, stream), configs/benchmark_slo_mix.json (LSF,
              GPU + host, periodic; MobileNetV2 slo_scale 2, fc_int8 slo_us
@@ -156,8 +180,8 @@ Phases:
              Every model processes requests, none is canceled without an
              SLO, and the codispatch config's rounds fuse.
 Then it prints the kernels line (each kernel's launches in the engine
-phase of its numerics, and in the codispatch phase), and last the
-device line.
+phase of its numerics, in the sr phase and in the codispatch phase), and
+last the device line.
 """
 
 import collections
@@ -249,6 +273,16 @@ MONITOR_REQUESTS = 2  # MobileNetV2 requests under and after the HBM limit
 BENCH_MS = 3000
 FAST = ("qmatmul_fast", "qconv2d_fast", "qdwconv2d_fast")
 EXACT_ONLY = ("qmatmul_exact", "qconv2d_exact", "qdwconv2d_exact")
+# sr: FSRCNN(d=56, s=12, m=4) x2 at its published widths on the 360x640
+# low-resolution frame of 720p (tests/gen_torch_fsrcnn_model.py)
+OPS_GOLDENS = os.path.join(DATA, "torch_ops_goldens.npz")
+SR_MODEL = "fsrcnn_x2_int8"
+DECODER_MODELS = ("fsrcnn_x2_small_int8", "tconv_int8", "cnn_ops_int8",
+                  "attention_int8")
+SR_SYNC = 16
+SR_BURST = 32
+SR_KERNELS = {"exact": ("qmatmul_exact", "qconv2d_exact"),
+              "fast": ("qmatmul_fast", "qconv2d_fast")}
 
 
 def log(msg):
@@ -272,13 +306,16 @@ def golden_inputs(seed, shape, dtype, n):
                         dtype=np.int64).astype(dtype)
 
 
-def _inputs(z, name, g, n):
+def sha256(a):
     import hashlib
 
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _inputs(z, name, g, n):
     td = g.tensor(g.inputs[0])
     xs = golden_inputs(int(z[f"{name}/seed"]), td.shape, td.dtype, n)
-    sha = hashlib.sha256(np.ascontiguousarray(xs).tobytes()).hexdigest()
-    check(sha == str(z[f"{name}/input_sha"]),
+    check(sha256(xs) == str(z[f"{name}/input_sha"]),
           f"{name}: regenerated inputs differ from the goldens'")
     return xs
 
@@ -314,6 +351,55 @@ def load_fast_goldens(graphs):
             out[name]["exact"] = [z[f"{name}/tflite_output{j}"]
                                   for j in range(n_out)]
     return out
+
+
+def load_ops_goldens(graphs):
+    """Goldens of the decoder models (tests/gen_torch_ops_goldens.py):
+    xs; for the small models per output the exact golden, its tolerance
+    in quant units and band_tpu's fast output; for the full-width FSRCNN
+    the sha256 of each request's exact (TFLite) and fast (band_tpu)
+    output."""
+    z = np.load(OPS_GOLDENS)
+    out = {}
+    for name in DECODER_MODELS + (SR_MODEL,):
+        n_out = len(graphs[name].outputs)
+        d = {}
+        if f"{name}/exact_sha" in z:
+            for kind in ("exact_sha", "fast_sha"):
+                d[kind] = [str(v) for v in z[f"{name}/{kind}"]]
+            n = len(d["exact_sha"])
+        else:
+            d["exact"] = [z[f"{name}/exact{j}"] for j in range(n_out)]
+            d["tol"] = [int(z[f"{name}/tol{j}"]) for j in range(n_out)]
+            if f"{name}/fast0" in z:
+                d["fast"] = [z[f"{name}/fast{j}"] for j in range(n_out)]
+            n = len(d["exact"][0])
+        d["xs"] = _inputs(z, name, graphs[name], n)
+        out[name] = d
+    return out
+
+
+def decoder_outputs_ok(gd, outs, idx, exact):
+    """Whether a decoder model's outputs for the golden requests ``idx``
+    (stacked, numpy) are its goldens: the digests of each request's
+    output (FSRCNN at full width), or each output within its tolerance
+    (fast numerics: 0, against band_tpu's fast outputs)."""
+    if "exact_sha" in gd:
+        digests = gd["exact_sha" if exact else "fast_sha"]
+        return all(sha256(outs[0][k:k + 1]) == digests[i]
+                   for k, i in enumerate(idx))
+    want = gd["exact" if exact else "fast"]
+    for j, (o, w) in enumerate(zip(outs, want)):
+        w = np.concatenate([w[i] for i in idx])
+        if o.shape != w.shape or o.dtype != w.dtype:
+            return False
+        tol = gd["tol"][j] if exact else 0
+        if o.dtype.kind == "f":
+            if not np.array_equal(o, w):
+                return False
+        elif np.abs(o.astype(np.int64) - w.astype(np.int64)).max() > tol:
+            return False
+    return True
 
 
 # --------------------------------------------------------------------------
@@ -1052,7 +1138,57 @@ def codispatch_bucket_calls(torch, dev, graphs, goldens, plain, worst,
             {f"{k} {p}": n for (k, p), n in sorted(branches.items())}))
 
 
-def kernel_phase(torch, dev, graphs, goldens, hetero_goldens):
+def decoder_calls(torch, dev, graphs, ops_goldens, plain, worst):
+    """Every kernel call of the decoder models (FSRCNN at full width and
+    at 24x40, tconv_int8, cnn_ops_int8, attention_int8) at b1 and b8, in
+    exact numerics and, where there are fast goldens, in fast numerics,
+    held byte-equal to plain; each model's outputs there equal to its
+    goldens.  Returns FSRCNN's b1 calls by numerics (the sr phase times
+    them)."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import lowerings as L
+
+    sr_calls = {}
+    for name in DECODER_MODELS + (SR_MODEL,):
+        g, gd = graphs[name], ops_goldens[name]
+        kinds = ["exact"] + (["fast"] if "fast" in gd or "fast_sha" in gd
+                             else [])
+        for kind in kinds:
+            exact = kind == "exact"
+            prog = build_program(g, range(len(g.ops)), exact=exact)
+            params = params_from_jax(prog.params, dev)
+            fn = prog.make_fn()
+            pos = [prog.output_ids.index(t) for t in g.outputs]
+            for b in (1, MAX_BATCH):
+                idx = [i % len(gd["xs"]) for i in range(b)]
+                x = torch.from_numpy(np.concatenate(
+                    [gd["xs"][i] for i in idx])).to(dev)
+                calls = capture_calls(L, fn, params, [x])
+                torch.cuda.synchronize()
+                for kname, args, kw, out in calls:
+                    want = plain[kname](*args, **kw)
+                    torch.cuda.synchronize()
+                    worst[kname] = max(worst[kname], same(
+                        torch, kname, out, want,
+                        f"{name} {kind} b{b} {tuple(args[0].shape)}"))
+                check(not any(n in (FAST if exact else EXACT_ONLY)
+                              for n, *_ in calls),
+                      f"{name} {kind}: a kernel of the other numerics")
+                outs = fn(params, [x])
+                check(decoder_outputs_ok(
+                    gd, [outs[p].cpu().numpy() for p in pos], idx, exact),
+                    f"{name} {kind} b{b}: the output on the card differs "
+                    "from the goldens")
+                if name == SR_MODEL and b == 1:
+                    sr_calls[kind] = calls
+                used = collections.Counter(n for n, *_ in calls)
+                log(f"kernels: {name} {kind} b{b}: {len(calls)} calls "
+                    f"{dict(used)} byte-equal to plain (tolerance 0); the "
+                    "output equal to the goldens")
+    return sr_calls
+
+
+def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
     from band_tpu_torch.backend.program import build_program, params_from_jax
     from band_tpu_torch.ops import kernels as K
     from band_tpu_torch.ops import lowerings as L
@@ -1136,6 +1272,8 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens):
 
         codispatch_bucket_calls(torch, dev, graphs, goldens, plain, worst,
                                 MODELS)
+        sr_calls = decoder_calls(torch, dev, graphs, ops_goldens, plain,
+                                 worst)
 
         # (lut_softmax's b1 call is the same in both numerics: timed once)
         stats = {n: dict(launches_b1=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -1223,7 +1361,7 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens):
         floor = graph_ms(torch, lambda: z.add_(1))
         log(f"launch floor: one trivial PyTorch kernel {floor:.6f} ms in the "
             f"same CUDA-graph harness; x35 = {35 * floor:.6f} ms")
-    return worst, stats
+    return worst, stats, sr_calls
 
 
 def model_calls(torch, dev, graphs, xs, names, exact, batch):
@@ -1498,15 +1636,15 @@ def depth_phase(torch, dev, graphs, goldens, fast_goldens):
             f"{len(np.unique(fg['seg0']))} distinct values)")
 
 
-def profile_phase(torch, dev, graphs, goldens, exact):
-    """Where a b1 MobileNetV2 request's time goes below the engine: the
-    executor's wall time per request (launch and wait), and the device
-    time of every kernel it launches (torch.profiler), whose ratio is
-    the device's busy share."""
+def profile_phase(torch, dev, graphs, goldens, exact, name=FULL_WIDTH):
+    """Where a b1 request's time goes below the engine (MobileNetV2, or
+    ``name``): the executor's wall time per request (launch and wait),
+    and the device time of every kernel it launches (torch.profiler),
+    whose ratio is the device's busy share."""
     from band_tpu_torch.backend.executor import ModelExecutor
 
-    g = graphs[FULL_WIDTH]
-    x = goldens[FULL_WIDTH]["xs"][0]
+    g = graphs[name]
+    x = goldens[name]["xs"][0]
     ex = ModelExecutor(-2, g, 0, dev, exact=exact)
     key = ex.prepare_subgraph(range(len(g.ops)), [0])
     reps = 20
@@ -1532,7 +1670,7 @@ def profile_phase(torch, dev, graphs, goldens, exact):
     device_ms = sum(ms for ms, _ in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
     out = {
-        "model": FULL_WIDTH, "batch": 1,
+        "model": name, "batch": 1,
         "numerics": "exact" if exact else "fast",
         "executor_wall_ms": wall_ms,
         "device_kernel_ms": device_ms if device_ms > 0 else "not measured",
@@ -1543,6 +1681,189 @@ def profile_phase(torch, dev, graphs, goldens, exact):
     }
     log("profile: " + json.dumps(out))
     return out
+
+
+# --------------------------------------------------------------------------
+# sr phase
+# --------------------------------------------------------------------------
+
+def sr_general_lines(torch, dev, sr_calls, smi):
+    """One ``qconv_general:`` line per distinct B2 call of a b1 FSRCNN
+    request that takes the general implicit-GEMM branch (the 3x3 12 -> 12
+    convs and the deconv's phase convs): B2 and B2 fast times, the plain
+    version's (eager), 0 differing bytes (checked again here), the bound
+    and a cuDNN float32 conv of the same shape (conv_library)."""
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops.kernels import qconv as QC
+
+    shapes = {}
+    for kind, calls in sr_calls.items():
+        for name, args, kw, out in calls:
+            if name not in ("qconv2d_exact", "qconv2d_fast"):
+                continue
+            x, w = args[0], args[1]
+            plan = QC.conv_plan(x.shape[0], out.shape[1], out.shape[2],
+                                x.shape[3], w.shape[1], kw["kh"], kw["kw"],
+                                tuple(kw["stride"]), tuple(kw["dilation"]),
+                                QC.alignment(w))
+            if plan.variant >= 0:
+                continue
+            key = (tuple(x.shape), kw["kh"], kw["kw"], w.shape[1],
+                   tuple(tuple(p) for p in kw["padding"]))
+            d = shapes.setdefault(key, dict(calls=0))
+            d["calls"] += name == "qconv2d_exact"
+            d.setdefault(name, (args, kw, out))
+    check(shapes, "sr: no B2 call of FSRCNN took the general branch")
+    plain = {"qconv2d_exact": K.qconv2d_plain,
+             "qconv2d_fast": K.qconv2d_fast_plain}
+    for (shape, kh, kw_, oc, pad), d in sorted(shapes.items()):
+        line = {"shape": "x".join(map(str, shape)), "taps": f"{kh}x{kw_}",
+                "oc": oc, "padding": [list(p) for p in pad],
+                "calls_per_request": d["calls"], "plan": "general"}
+        for name in ("qconv2d_exact", "qconv2d_fast"):
+            args, kw, out = d[name]
+            run = getattr(K, name)
+            err = same(torch, name, run(*args, **kw),
+                       plain[name](*args, **kw), f"sr {shape} {kh}x{kw_}")
+            tag = "exact" if name == "qconv2d_exact" else "fast"
+            line[f"{tag}_ms"] = graph_ms(torch, lambda: run(*args, **kw))
+            line[f"{tag}_plain_ms"] = eager_ms(
+                torch, lambda: plain[name](*args, **kw))
+            line[f"{tag}_differing_bytes"] = err
+        args, kw, out = d["qconv2d_exact"]
+        line["bound_ms"] = bound_ms("qconv2d_exact", args, kw, out)
+        line["library_ms"] = graph_ms(torch, conv_library(
+            torch, dev, args, kw, depthwise=False))
+        line["card"] = smi
+        log("qconv_general: " + json.dumps(line))
+
+
+def sr_b32(torch, dev, graphs, gd, smi):
+    """FSRCNN's b32 stacked window (12.9 MB of activations a request):
+    exact and fast through execute_batched, then both captured by
+    build_combo as one CUDA graph and replayed; every output's sha256
+    equal to its golden's.  Printed: the peak of allocated memory over
+    the eager windows, the graph's capture time and one replay's device
+    time."""
+    from band_tpu_torch.backend.executor import (ModelExecutor, build_combo,
+                                                 run_combo)
+
+    g, xs = graphs[SR_MODEL], gd["xs"]
+    window = [[xs[i % len(xs)]] for i in range(CO_BATCH)]
+
+    def held(outs, kind, what):
+        digests = gd[f"{kind}_sha"]
+        check(all(sha256(o[0].cpu().numpy()) == digests[i % len(xs)]
+                  for i, o in enumerate(outs)),
+              f"sr b{CO_BATCH} {what} {kind}: an output differs from the "
+              "golden")
+
+    exs = [ModelExecutor(-3, g, 0, dev, exact=True),
+           ModelExecutor(-4, g, 0, dev, exact=False)]
+    keys = [ex.prepare_subgraph(range(len(g.ops)), [0]) for ex in exs]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for ex, key, kind in zip(exs, keys, ("exact", "fast")):
+        held(ex.execute_batched(key, window), kind, "window")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    combo = build_combo([(key, CO_BATCH) for key in keys], exs)
+    capture_s = time.perf_counter() - t0
+    check(combo.graph is not None, "sr: the b32 combo was not captured")
+    outs = run_combo(combo, [window, window])
+    torch.cuda.synchronize()
+    for group, kind in zip(outs, ("exact", "fast")):
+        held(group, kind, "combo")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    combo.graph.replay()
+    end.record()
+    end.synchronize()
+    replay_ms = start.elapsed_time(end)
+    log(f"sr: b{CO_BATCH} windows, exact and fast, equal to the golden "
+        f"digests; peak allocated {peak} bytes over them; both captured "
+        f"as one CUDA graph in {capture_s:.2f} s, its replay "
+        f"{replay_ms:.3f} ms for {2 * CO_BATCH} requests "
+        f"({replay_ms / (2 * CO_BATCH):.4f} ms a request), byte-equal "
+        f"({smi})")
+
+
+def sr_phase(torch, dev, bt, K, graphs, ops_goldens, sr_calls, smi):
+    """FSRCNN x2 at 360x640 on one GPU worker (fixed_worker, max_batch
+    8), registered twice, exact and register_model(numerics="fast"):
+    SR_SYNC request_sync at b1, then a burst of SR_BURST request_async,
+    in each numerics; every output's sha256 equal to its golden's.
+    Launch counts are zeroed just before and read just after: B1 and B2
+    (exact) and their fast instances must launch, no other kernel.  Then
+    the device time, launches and busy share of a b1 request in each
+    numerics (torch.profiler), the b32 window and its CUDA graph
+    (sr_b32) and the general-branch lines."""
+    K.reset_launches()
+    eng = _engine(bt, bt.DeviceFlag.GPU, "exact")
+    gd = ops_goldens[SR_MODEL]
+    xs, n = gd["xs"], len(gd["xs"])
+    rates = {}
+    try:
+        path = os.path.join(DATA, f"{SR_MODEL}.tflite")
+        t0 = time.perf_counter()
+        mids = {"exact": eng.register_model(bt.Model.from_path(path)),
+                "fast": eng.register_model(bt.Model.from_path(path),
+                                           numerics="fast")}
+        check(eng.wait_buckets_ready(timeout=600), "sr: bucket warm-up "
+              "timed out")
+        log(f"sr: {SR_MODEL} registered exact and fast, buckets "
+            f"2..{MAX_BATCH} warm in {time.perf_counter() - t0:.2f} s")
+        for kind, mid in mids.items():
+            digests = gd[f"{kind}_sha"]
+            ex = eng.model_record(mid).executors[0]
+            check(ex.exact == (kind == "exact"), f"sr: {kind} numerics")
+            t0 = time.perf_counter()
+            outs = [eng.request_sync(mid, [xs[i % n]])
+                    for i in range(SR_SYNC)]
+            b1 = SR_SYNC / (time.perf_counter() - t0)
+            before = dict(ex.windows)
+            t0 = time.perf_counter()
+            ids = [eng.request_async(mid, [xs[i % n]])
+                   for i in range(SR_BURST)]
+            burst_outs = [eng.wait(j) for j in ids]
+            burst = SR_BURST / (time.perf_counter() - t0)
+            served = list(enumerate(outs)) + [
+                (i % n, o) for i, o in enumerate(burst_outs)]
+            for i, (gi, o) in enumerate(served):
+                check(len(o) == 1 and o[0].shape == (1, 720, 1280, 1)
+                      and sha256(o[0]) == digests[gi % n],
+                      f"sr: {kind} request {i}: the output differs from "
+                      "the golden")
+            windows = {b: c - before.get(b, 0) for b, c in ex.windows.items()
+                       if c - before.get(b, 0)}
+            check(max(windows) > 1, f"sr {kind}: the burst ran no batch "
+                  "window")
+            rates[kind] = dict(b1_req_s=b1, burst_req_s=burst,
+                               burst_windows=dict(sorted(windows.items())))
+            log(f"sr: {kind}: {SR_SYNC} sync and {SR_BURST} burst outputs "
+                f"(720x1280) equal to the golden digests; b1 {b1:.2f} "
+                f"req/s, burst {burst:.2f} req/s, windows "
+                f"{dict(sorted(windows.items()))} ({smi})")
+    finally:
+        eng.shutdown()
+    counts = K.launch_counts()
+    ran = SR_KERNELS["exact"] + SR_KERNELS["fast"]
+    for name in KERNELS:
+        check((counts[name] > 0) == (name in ran),
+              f"sr: kernel {name} launched {counts[name]} times")
+    log(f"sr: launches {json.dumps(counts)}")
+    sr_b32(torch, dev, graphs, gd, smi)
+    for kind in ("exact", "fast"):
+        p = profile_phase(torch, dev, graphs, ops_goldens, kind == "exact",
+                          name=SR_MODEL)
+        log(f"sr: {kind} per request: device {p['device_kernel_ms']} ms, "
+            f"{p['launches']} launches, busy share "
+            f"{p['device_busy_share']} ({smi})")
+    sr_general_lines(torch, dev, sr_calls, smi)
+    return counts, rates
 
 
 # --------------------------------------------------------------------------
@@ -2370,12 +2691,15 @@ def main():
     log(f"build: {len(build.sources())} kernel libraries in {secs:.1f} s")
 
     graphs = {n: parse_tflite_file(os.path.join(DATA, f"{n}.tflite"))
-              for n in FAST_MODELS + SSD_MODELS}
+              for n in FAST_MODELS + SSD_MODELS + DECODER_MODELS
+              + (SR_MODEL,)}
     goldens = load_goldens(graphs)
     fast_goldens = load_fast_goldens(graphs)
     hetero_goldens = load_hetero_goldens()
 
-    worst, stats = kernel_phase(torch, dev, graphs, goldens, hetero_goldens)
+    ops_goldens = load_ops_goldens(graphs)
+    worst, stats, sr_calls = kernel_phase(torch, dev, graphs, goldens,
+                                          hetero_goldens, ops_goldens)
     conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
                        sm_mhz / 1e3)
     counts, rates = engine_phase(torch, bt, K, MODELS, goldens, card,
@@ -2384,6 +2708,8 @@ def main():
                                            fast_goldens, card,
                                            bt.DeviceFlag.GPU, "fast")
     mixed_phase(bt, K, goldens, fast_goldens, bt.DeviceFlag.GPU)
+    sr_counts, sr_rates = sr_phase(torch, dev, bt, K, graphs, ops_goldens,
+                                   sr_calls, smi)
     depth_phase(torch, dev, graphs, goldens, fast_goldens)
     profile_phase(torch, dev, graphs, goldens, exact=True)
     profile_phase(torch, dev, graphs, goldens, exact=False)
@@ -2396,6 +2722,8 @@ def main():
                                  "models": rates}))
     log("fast: " + json.dumps({"card": smi, "numerics": "fast",
                                "models": fast_rates}))
+    log("sr: " + json.dumps({"card": smi, "model": SR_MODEL,
+                             "numerics": sr_rates}))
     line = []
     for name, meta in KERNELS.items():
         s = stats[name]
@@ -2413,6 +2741,8 @@ def main():
             "mobilenet_v2_b1_launches": s["launches_b1"],
             # replays of the fused b32 graph count its captured calls
             "codispatch_launches": co_counts[name],
+            # the sr phase's FSRCNN x2 requests, exact and fast
+            "sr_launches": sr_counts[name],
         })
     log(json.dumps({"kernels": line}))
     log(f"card: {smi}")

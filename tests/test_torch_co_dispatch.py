@@ -176,6 +176,8 @@ def test_latency_attribution_is_per_share(mix, monkeypatch):
         assert sum(shares) == pytest.approx(1.0)
         assert all(0 < s < 1 for s in shares)
         assert len({id(r[2]) for r in dispatch}) == 1  # one event
+        # every window is measured to the dispatch's one end stamp
+        assert len({r[0][0].profiled_execution_time for r in dispatch}) == 1
         for jobs_, _, _, share in dispatch:
             full = jobs_[0].profiled_execution_time
             assert full > 0

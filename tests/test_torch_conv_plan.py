@@ -638,3 +638,18 @@ def test_pad_byte_must_be_zero_for_the_window_sum(ci):
         for dx in range(3):
             want += xp[:, dy:dy + h, dx:dx + w, :].sum(-1)
     np.testing.assert_array_equal(rs, want)
+
+
+def test_general_branch_grid_takes_more_than_65535_row_tiles():
+    """qgemm.cuh takes its row tiles from blockIdx.x (up to 2^31 - 1
+    blocks) and its column tiles from y (65,535 at most): a b32 window
+    of FSRCNN's 360x640 outputs has 115,200 row tiles."""
+    src = open(SRC).read()
+    gemm = open(os.path.join(os.path.dirname(SRC), "qgemm.cuh")).read()
+    assert "const dim3 grid((M + kBM - 1) / kBM, (oc + kBN - 1) / kBN);" \
+        in src
+    assert "const int m0 = blockIdx.x * kBM;" in gemm
+    assert "const int n0 = blockIdx.y * kBN;" in gemm
+    p = QC.conv_plan(32, 360, 640, 12, 12, 3, 3, (1, 1), (1, 1), 16)
+    assert p == QC.general_plan(32, 360, 640, 12)
+    assert p.grid == (115200, 1, 1)

@@ -407,3 +407,105 @@ def test_gpu_worker_serves_the_fast_goldens(dev):
         assert K.launch_counts()["qmatmul_exact"] == 0
     finally:
         eng.shutdown()
+
+
+def _fsrcnn_general_geoms():
+    """FSRCNN x2's (360x640) convs that take B2's general branch: the four
+    3x3 12 -> 12 mapping convs (Oc not a multiple of 8) and the deconv's
+    four phase convs (Ci 56, Oc 1), with the padding the lowering gives
+    each phase: (kh, kw, ci, oc, ((top, bottom), (left, right)))."""
+    from band_tpu_torch.ops.lowerings import _tconv_phases
+
+    geoms = [(3, 3, 12, 12, ((1, 1), (1, 1)))]
+    h, w = 360, 640
+    ph = _tconv_phases(9, 2, 3, 2 * h)
+    pw = _tconv_phases(9, 2, 3, 2 * w)
+    for _, kah, offh, th in ph:
+        for _, kaw, offw, tw in pw:
+            geoms.append((kah, kaw, 56, 1, (
+                (-offh, offh + th + kah - 1 - h),
+                (-offw, offw + tw + kaw - 1 - w))))
+    return geoms
+
+
+@pytest.mark.parametrize("geom", _fsrcnn_general_geoms(),
+                         ids=lambda g: f"{g[0]}x{g[1]}-ci{g[2]}-oc{g[3]}")
+@pytest.mark.parametrize("rounding", ["ruy", "double"])
+def test_fsrcnn_general_branch_shapes_match_plain(dev, geom, rounding):
+    """B2 and B2 fast at FSRCNN's full-width general-branch shapes (the
+    plan picks the implicit-GEMM loop), byte-equal to the plain
+    versions."""
+    kh, kw, ci, oc, pad = geom
+    h, w = 360, 640
+    rng = np.random.default_rng(kh * 10 + kw + ci)
+    x = _i8(rng, dev, 1, h, w, ci)
+    wk = _i8(rng, dev, kh * kw * ci, oc)
+    epi = _epilogue(rng, oc, kh * kw * ci, dev)
+    mult = torch.from_numpy((30.0 / (np.sqrt(kh * kw * ci) * 73.0 * 73.0)
+                             * rng.uniform(0.5, 2.0, oc)).astype(
+                                 np.float32)).to(dev)
+    conv = dict(kh=kh, kw=kw, padding=pad, x_zp=-68)
+    oh = h + sum(pad[0]) - kh + 1
+    ow = w + sum(pad[1]) - kw + 1
+    assert (oh, ow) == (h, w)
+    assert QC.conv_plan(1, oh, ow, ci, oc, kh, kw, (1, 1), (1, 1),
+                        QC.alignment(wk)).variant < 0
+    args = dict(_args(torch.int8, rounding, 0), **conv)
+    got = K.qconv2d_exact(x, wk, *epi, **args)
+    assert torch.equal(got, K.qconv2d_plain(x, wk, *epi, **args))
+    fast = dict(_fast_args(torch.int8, 0), **conv)
+    assert torch.equal(K.qconv2d_fast(x, wk, epi[0], mult, **fast),
+                       K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast))
+
+
+def test_gpu_worker_serves_fsrcnn_small(dev):
+    """FSRCNN x2 at 24x40 on a GPU worker, exact and fast side by side:
+    TFLite's outputs and band_tpu's fast outputs
+    (tests/data/torch_ops_goldens.npz), through B1, B2 and their fast
+    instances."""
+    z = np.load(os.path.join(DATA, "torch_ops_goldens.npz"))
+    name = "fsrcnn_x2_small_int8"
+    cfg = (bt.RuntimeConfigBuilder()
+           .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0,), max_batch=4))
+           .build())
+    eng = bt.Engine.create(cfg)
+    try:
+        path = os.path.join(DATA, f"{name}.tflite")
+        exact = eng.register_model(bt.Model.from_path(path))
+        fast = eng.register_model(bt.Model.from_path(path), numerics="fast")
+        g = eng.model_record(exact).model.graph
+        xs = _golden_inputs(z, name, g.tensor(g.inputs[0]), key="exact0")
+        K.reset_launches()
+        for mid, key in ((exact, "exact0"), (fast, "fast0")):
+            ids = [eng.request_async(mid, [x]) for x in xs]
+            for i, j in enumerate(ids):
+                np.testing.assert_array_equal(eng.wait(j)[0],
+                                              z[f"{name}/{key}"][i])
+        counts = K.launch_counts()
+        for kernel in ("qmatmul_exact", "qconv2d_exact", "qmatmul_fast",
+                       "qconv2d_fast"):
+            assert counts[kernel] > 0, kernel
+    finally:
+        eng.shutdown()
+
+
+def test_general_branch_beyond_65535_row_tiles(dev):
+    """B2's general branch on 19 stacked FSRCNN frames (4,377,600 output
+    pixels: 68,400 row tiles of 64, above grid y's 65,535), exact and
+    fast, byte-equal to the plain versions."""
+    rng = np.random.default_rng(19)
+    x = _i8(rng, dev, 19, 360, 640, 12)
+    wk = _i8(rng, dev, 9 * 12, 12)
+    epi = _epilogue(rng, 12, 9 * 12, dev)
+    mult = torch.full((12,), 1e-3, dtype=torch.float32, device=dev)
+    conv = dict(kh=3, kw=3, padding=((1, 1), (1, 1)), x_zp=-92)
+    assert QC.conv_plan(19, 360, 640, 12, 12, 3, 3, (1, 1), (1, 1),
+                        QC.alignment(wk)).grid[0] == 68400
+    args = dict(_args(torch.int8, "ruy", 0), **conv)
+    assert torch.equal(K.qconv2d_exact(x, wk, *epi, **args),
+                       K.qconv2d_plain(x, wk, *epi, **args))
+    fast = dict(_fast_args(torch.int8, 0), **conv)
+    assert torch.equal(K.qconv2d_fast(x, wk, epi[0], mult, **fast),
+                       K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast))

@@ -21,9 +21,10 @@ from band_tpu_torch.tflite.parser import parse_tflite_file as tparse
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 MODELS = sorted(os.path.basename(p)[:-7]
                 for p in glob.glob(os.path.join(DATA, "*.tflite")))
-# the op set of the port's first slice covers these models whole
+# the op set of the port's slices covers these models whole
 SLICE_MODELS = ["effnetlite_int8", "fc_int8", "mobilenet_v2_int8",
-                "resnetish_int8"]
+                "resnetish_int8", "tconv_int8", "attention_int8",
+                "cnn_ops_int8", "fsrcnn_x2_small_int8", "fsrcnn_x2_int8"]
 
 
 def _path(name):

@@ -171,3 +171,48 @@ def test_full_width_mobilenet_v2_matches_goldens():
     for i, outs in enumerate(ex.execute_batched(below, [[x] for x in xs])):
         np.testing.assert_array_equal(outs[0].numpy(), logits[i])
     assert len(np.unique(logits)) > 100  # the logits carry information
+
+
+def test_attention_between_means_matches_band_tpu_and_tflite_within_2():
+    """attention_int8 (FULLY_CONNECTED, TRANSPOSE, BATCH_MATMUL, SOFTMAX,
+    the layer norm's MEAN, SQUARED_DIFFERENCE, RSQRT, NEG): every program
+    between its MEANs, fed the port's own activations, byte-equal to
+    band_tpu's (tolerance 0, the float fallbacks included); the whole
+    model within 2 quant units of TFLite (band_tpu's own bound,
+    tests/test_model_families.py:59), per request and as a stacked
+    window of 4."""
+    from tests.gen_torch_ops_goldens import OPS_GOLDENS_PATH
+
+    name = "attention_int8"
+    z = np.load(OPS_GOLDENS_PATH)
+    tg, jg = tparse(_path(name)), jparse(_path(name))
+    td = tg.tensor(tg.inputs[0])
+    want = z[f"{name}/exact0"]
+    xs = golden_inputs(int(z[f"{name}/seed"]), td.shape, td.dtype, len(want))
+    n = len(tg.ops)
+    means = [op.index for op in tg.ops if op.opname == "MEAN"]
+    cuts = [0] + [c for m in means for c in (m, m + 1)] + [n]
+    segments = [list(range(a, b)) for a, b in zip(cuts[:-1], cuts[1:])
+                if b > a and tg.ops[a].opname != "MEAN"]
+    assert len(segments) == len(means) + 1
+    for i, x in enumerate(xs[:4]):
+        _, (out,) = _run_port(tg, range(n), [x])
+        assert np.abs(out.astype(int) - want[i].astype(int)).max() <= 2
+        prog_all = tbuild(tg, range(n))
+        ctx = LowerCtx(tg, params_from_jax(prog_all.params), prog_all.meta)
+        ctx.set(tg.inputs[0], torch.from_numpy(x))
+        for op in tg.ops:
+            get_lowering(op.opname).trace(ctx, op)
+        for seg in segments:
+            tprog = tbuild(tg, seg)
+            ins = [ctx.arr(t).numpy() for t in tprog.input_ids]
+            _, touts = _run_port(tg, seg, ins)
+            jprog, jouts = _run_band_tpu(jg, seg, ins)
+            assert tprog.output_ids == jprog.output_ids
+            for a, b in zip(touts, jouts):
+                np.testing.assert_array_equal(a, b)
+    ex = ModelExecutor(0, tg, 0, torch.device("cpu"))
+    key = ex.prepare_subgraph(range(n), [0])
+    for i, outs in enumerate(ex.execute_batched(key, [[x] for x in xs[:4]])):
+        np.testing.assert_array_equal(outs[0].numpy(),
+                                      ex.execute(key, [xs[i]])[0].numpy())

@@ -1,0 +1,251 @@
+"""The op set ported for the int8 decoder and attention models, op by op:
+each op of tconv_int8, fsrcnn_x2_small_int8, cnn_ops_int8 and
+attention_int8 that this port registers beside the main path runs as a
+one-op program of the port and of band_tpu (conv_mode="f32_split"), both
+fed the TFLite interpreter's own input tensors to it
+(experimental_preserve_all_tensors=True), and is compared with band_tpu's
+output and with TFLite's.
+
+Tolerances:
+- ops computed in integers, and the structural ops: 0 against band_tpu
+  and 0 against TFLite;
+- TRANSPOSE_CONV, PRELU and LEAKY_RELU: 0 against TFLite, the only
+  reference (band_tpu rounds them differently: ROADMAP faults C3, C4);
+- the float fallbacks (RESIZE_BILINEAR, BATCH_MATMUL, SQUARED_DIFFERENCE
+  and the float unary table): within 1 quant unit of band_tpu and of
+  TFLite on quantized outputs (the test prints how many bytes differ),
+  and within rtol 1e-5, atol 1e-6 of band_tpu on float outputs (torch's
+  transcendental functions are not XLA's); any other float output
+  exactly.
+
+GELU is emitted by no model here (the converter decomposes it), so the
+unary table is also run on the int8 and the float input of cnn_ops_int8's
+LOG and COS with the op renamed.
+"""
+
+import copy
+import functools
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from band_tpu.backend.program import build_program as jbuild
+from band_tpu.tflite.parser import parse_tflite_file as jparse
+from band_tpu_torch.backend.program import build_program as tbuild
+from band_tpu_torch.backend.program import params_from_jax
+from band_tpu_torch.errors import LoweringError
+from band_tpu_torch.ops import lowerings as L
+from band_tpu_torch.tflite.parser import parse_tflite_file as tparse
+from tests.conftest import make_tfl_interpreter
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+MODELS = ("tconv_int8", "fsrcnn_x2_small_int8", "cnn_ops_int8",
+          "attention_int8")
+SEEDS = (0, 1)
+TFLITE_ONLY = {"TRANSPOSE_CONV", "PRELU", "LEAKY_RELU"}
+FLOAT_FALLBACK = {"RESIZE_BILINEAR", "BATCH_MATMUL",
+                  "SQUARED_DIFFERENCE"} | set(L._FLOAT_UNARY)
+NEW_OPS = TFLITE_ONLY | FLOAT_FALLBACK | {
+    "SHAPE", "STRIDED_SLICE", "PACK", "SLICE", "TRANSPOSE", "RELU", "RELU6",
+    "CONCATENATION", "PAD", "PADV2", "MIRROR_PAD", "SPLIT", "SPLIT_V",
+    "DEPTH_TO_SPACE", "SPACE_TO_DEPTH", "RESIZE_NEAREST_NEIGHBOR"}
+
+
+def _path(name):
+    return os.path.join(DATA, f"{name}.tflite")
+
+
+@functools.lru_cache(maxsize=None)
+def _graphs(name):
+    return tparse(_path(name)), jparse(_path(name))
+
+
+@functools.lru_cache(maxsize=None)
+def _tensors(name, seed):
+    """Every tensor of one TFLite run on a seeded int8 input."""
+    it = make_tfl_interpreter(_path(name),
+                              experimental_preserve_all_tensors=True)
+    it.allocate_tensors()
+    ind = it.get_input_details()[0]
+    rng = np.random.default_rng(seed)
+    it.set_tensor(ind["index"], rng.integers(-128, 128, size=ind["shape"])
+                  .astype(ind["dtype"]))
+    it.invoke()
+    g = _graphs(name)[0]
+    return {t: np.array(it.get_tensor(t)) for t in range(len(g.tensors))
+            if not g.tensor(t).is_constant and g.tensor(t).shape is not None
+            and _has(it, t)}
+
+
+def _has(it, t):
+    try:
+        it.get_tensor(t)
+        return True
+    except ValueError:
+        return False
+
+
+def _cases():
+    out = []
+    for name in MODELS:
+        g = tparse(_path(name))
+        for op in g.ops:
+            if op.opname in NEW_OPS:
+                out.append(pytest.param(name, op.index,
+                                        id=f"{name}-{op.index}-{op.opname}"))
+    return out
+
+
+def _run_port(g, ops, feeds):
+    prog = tbuild(g, ops)
+    outs = prog.make_fn()(params_from_jax(prog.params),
+                          [torch.from_numpy(feeds[t]) for t in prog.input_ids])
+    return prog, [o.numpy() for o in outs]
+
+
+def _run_band_tpu(g, ops, feeds):
+    prog = jbuild(g, ops, exact=True, conv_mode="f32_split")
+    outs = jax.jit(prog.make_fn())(prog.params,
+                                   [feeds[t] for t in prog.input_ids])
+    return prog, [np.asarray(o) for o in outs]
+
+
+def _held(got, want, what, tol, counts):
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    if got.dtype.kind == "f":
+        counts[what] = int((got != want).sum())
+        np.testing.assert_allclose(got, want, rtol=tol and 1e-5,
+                                   atol=tol and 1e-6, err_msg=what)
+        return
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    counts[what] = int((d > 0).sum())
+    assert int(d.max(initial=0)) <= tol, (what, int(d.max()))
+
+
+@pytest.mark.parametrize("name,index", _cases())
+def test_op_matches_band_tpu_and_tflite(name, index):
+    tg, jg = _graphs(name)
+    op = tg.ops[index]
+    tol = 1 if op.opname in FLOAT_FALLBACK else 0
+    counts = {}
+    for seed in SEEDS:
+        feeds = _tensors(name, seed)
+        tprog, touts = _run_port(tg, [index], feeds)
+        for t, got in zip(tprog.output_ids, touts):
+            _held(got, feeds[t], f"seed {seed} TFLite tensor {t}", tol,
+                  counts)
+        if op.opname in TFLITE_ONLY:
+            continue
+        jprog, jouts = _run_band_tpu(jg, [index], feeds)
+        assert tprog.output_ids == jprog.output_ids
+        for t, got, want in zip(tprog.output_ids, touts, jouts):
+            _held(got, want, f"seed {seed} band_tpu tensor {t}", tol, counts)
+    print(f"{name} op {index} {op.opname}: differing bytes {counts}")
+
+
+@pytest.mark.parametrize("opname", sorted(L._FLOAT_UNARY))
+@pytest.mark.parametrize("source", [4, 12], ids=["int8", "float"])
+def test_float_unary_table_matches_band_tpu(opname, source):
+    """Every op of the float unary table on cnn_ops_int8's LOG input
+    (int8 in and out, positive) and COS input (float32 in and out), the
+    op renamed in both packages' graphs."""
+    tg, jg = (copy.deepcopy(g) for g in _graphs("cnn_ops_int8"))
+    assert tg.ops[source].opname in ("LOG", "COS")
+    tg.ops[source].opname = jg.ops[source].opname = opname
+    counts = {}
+    for seed in SEEDS:
+        feeds = _tensors("cnn_ops_int8", seed)
+        tprog, (got,) = _run_port(tg, [source], feeds)
+        _, (want,) = _run_band_tpu(jg, [source], feeds)
+        _held(got, want, f"seed {seed}", 1, counts)
+    print(f"{opname} on op {source}'s input: differing bytes {counts}")
+
+
+def test_every_new_op_is_registered_and_covered():
+    from band_tpu_torch.ops.registry import REGISTRY
+
+    assert NEW_OPS <= set(REGISTRY)
+    seen = {tparse(_path(n)).ops[i].opname
+            for n in MODELS for i in range(len(tparse(_path(n)).ops))}
+    # every new op but GELU (test_float_unary_table_matches_band_tpu) is
+    # in one of the models
+    assert NEW_OPS - seen == {"GELU"}
+
+
+# --------------------------------------------------------------------------
+# the request axis
+# --------------------------------------------------------------------------
+
+def _one_op(name, opname):
+    g = copy.deepcopy(_graphs(name)[0])
+    return g, next(op for op in g.ops if op.opname == opname)
+
+
+@pytest.mark.parametrize("opname,edit", [
+    ("CONCATENATION", lambda g, op: op.options.update(axis=0)),
+    ("CONCATENATION", lambda g, op: op.options.update(axis=-4)),
+    ("PACK", lambda g, op: None),
+    ("SPLIT", lambda g, op: setattr(g.tensor(op.inputs[0]), "data",
+                                    np.array(0, np.int32))),
+    ("SPLIT_V", lambda g, op: setattr(g.tensor(op.inputs[2]), "data",
+                                      np.array(0, np.int32))),
+    ("TRANSPOSE", lambda g, op: setattr(g.tensor(op.inputs[1]), "data",
+                                        np.array([1, 0, 2, 3], np.int32))),
+    ("PAD", lambda g, op: setattr(g.tensor(op.inputs[1]), "data",
+                                  np.array([[1, 0], [0, 0], [0, 0], [0, 0]],
+                                           np.int32))),
+    ("SLICE", lambda g, op: setattr(g.tensor(op.inputs[2]), "data",
+                                    np.array([0, 6, 8, 8], np.int32))),
+    ("STRIDED_SLICE", lambda g, op: op.options.update(shrink_axis_mask=1)),
+], ids=["concat0", "concat-4", "pack", "split", "split_v", "transpose",
+        "pad", "slice", "strided_slice"])
+def test_request_axis_is_refused(opname, edit):
+    """An op that would index, split, pack, pad, permute or concatenate
+    along the leading (request) axis of per-request data is refused when
+    the program is built, with a LoweringError naming the op."""
+    name = "attention_int8" if opname == "TRANSPOSE" else "cnn_ops_int8"
+    if opname == "PACK":
+        # PACK of the prelude's values is allowed; of data at axis 0 not
+        g, op = _one_op("tconv_int8", "PACK")
+        op.inputs[0] = g.ops[3].inputs[2]  # the TRANSPOSE_CONV's data
+    else:
+        g, op = _one_op(name, opname)
+        edit(g, op)
+    with pytest.raises(LoweringError, match=f"{opname} op {op.index}"):
+        tbuild(g, [op.index])
+
+
+def test_shape_prelude_is_not_per_request():
+    """SHAPE -> STRIDED_SLICE -> PACK slices and packs axis 0 of a shape
+    vector, which carries no requests: built and run as values of the
+    model's shape, also for a stacked window."""
+    tg = _graphs("tconv_int8")[0]
+    prog = tbuild(tg, [0, 1, 2])
+    x = torch.zeros((4, 5, 5, 8), dtype=torch.int8)  # four requests
+    outs = prog.make_fn()(params_from_jax(prog.params), [x])
+    pack = prog.output_ids.index(tg.ops[2].outputs[0])
+    np.testing.assert_array_equal(outs[pack].numpy(), [1, 11, 11, 16])
+    assert L._is_shape_value(tg, tg.ops[2].outputs[0])
+    assert not L._is_shape_value(tg, tg.ops[3].outputs[0])
+
+
+def test_batch_matmul_refuses_tf32(monkeypatch):
+    """On the card BATCH_MATMUL runs only with TF32 off."""
+    tg = _graphs("attention_int8")[0]
+    op = next(o for o in tg.ops if o.opname == "BATCH_MATMUL")
+
+    class CudaLike(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    feeds = _tensors("attention_int8", 0)
+    ctx = L.LowerCtx(tg, {}, {})
+    for t in op.inputs:
+        ctx.set(t, torch.from_numpy(feeds[t]).as_subclass(CudaLike))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(LoweringError, match="TF32"):
+        L._batch_matmul(ctx, op)
