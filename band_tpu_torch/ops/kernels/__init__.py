@@ -16,6 +16,7 @@ B2          qconv.qconv2d_exact        band_tpu/ops/pallas/qconv.py:152
 B3          qdwconv.qdwconv2d_exact    band_tpu/ops/pallas/qdwconv.py:114
 B4          qmatmul.qmatmul_fast       band_tpu/ops/pallas/qmatmul.py:42
 B2 fast     qconv.qconv2d_fast         band_tpu/ops/lowerings.py:563-575 (XLA conv + requantize_fast)
+B2 mma      csrc/qconv_mma.cuh         B2's and B2 fast's general branch (counted apart as well)
 B3 fast     qdwconv.qdwconv2d_fast     band_tpu/ops/lowerings.py:943-964 (XLA conv + requantize_fast)
 softmax     softmax.lut_softmax        band_tpu/ops/quant.py:443 (XLA, no Pallas)
 ==========  =========================  =======================================
@@ -35,7 +36,8 @@ from .common import recording  # noqa: F401
 LAUNCHES = {
     c.name: c
     for c in (_qm.launches, _qc.launches, _qd.launches, _sm.launches,
-              _qm.fast_launches, _qc.fast_launches, _qd.fast_launches)
+              _qm.fast_launches, _qc.fast_launches, _qd.fast_launches,
+              _qc.mma_launches, _qc.fast_mma_launches)
 }
 
 

@@ -58,8 +58,11 @@
 //     template case: ~10% on the small convs, PERF.md).
 //  6. Anything else (Ci above 16, Oc not a multiple of 8 or above 64, a
 //     patch and weights beyond 48 KB of shared memory) takes the general
-//     branch, qgemm.cuh's implicit-GEMM loop, chosen from the shape by the
-//     plan.
+//     branch, qconv_mma.cuh's tensor-core implicit GEMM, with the tile
+//     the plan picks from the shape.  qgemm.cuh's __dp4a loop, the first
+//     port's general branch, is picked by no plan: it stays behind the
+//     forcing hook as the yardstick that chip_smoke.py times beside the
+//     mma branch.
 //
 // Exactness: dp4a sums int8 products into int32 with the int32 wrap, and
 // the w_zp and bias terms are added in uint32 in the epilogue, as in the
@@ -68,27 +71,12 @@
 
 #include <cstdint>
 
+#include "qconv_mma.cuh"
 #include "qgemm.cuh"
 
 namespace band {
 
 constexpr int kDirectMaxThreads = 256;  // the direct kernel's launch bound
-
-// n / d without a division instruction, for n < 2^32 / d: one high
-// multiply by m = ceil(2^32 / d), exact since n * (m * d - 2^32) < 2^32
-// (d == 1 passes n through)
-struct FastDiv {
-  uint32_t d, m;
-  FastDiv() = default;
-  explicit FastDiv(int div)
-      : d(static_cast<uint32_t>(div)),
-        m(div == 1 ? 0u
-                   : static_cast<uint32_t>((0x100000000ull + div - 1) / div)) {}
-  __device__ __forceinline__ int operator()(int n) const {
-    return d == 1u ? n
-                   : static_cast<int>(__umulhi(static_cast<uint32_t>(n), m));
-  }
-};
 
 // the geometry of a direct launch; the plan (qconv.py conv_plan) fixes the
 // tile (th, tw) and the patch (ph, pw) it stages
@@ -334,11 +322,14 @@ cudaError_t launch_direct(int variant, dim3 grid, int threads, int smem,
   return cudaErrorInvalidValue;
 }
 
-// A launch plan from qconv.py conv_plan: variant -1 is the general
-// implicit-GEMM loop (which sizes its own grid), else a direct variant
-// with its tile, patch, grid, block and dynamic shared memory.
+// A launch plan from qconv.py conv_plan.  branch 0: a direct variant with
+// its tile, patch, grid, block and dynamic shared memory; 1: the mma
+// branch (variant: the N tile, 8 << variant columns), with its tile,
+// patch, slabs a channel group, gathering or not, grid and shared memory;
+// 2: qgemm.cuh's loop (which sizes its own grid).
 struct ConvPlan {
-  int variant, th, tw, ph, pw, gx, gy, gz, threads, smem;
+  int branch, variant, th, tw, ph, pw, gx, gy, gz, threads, smem, slabs,
+      gather;
 };
 
 template <class Ep>
@@ -350,7 +341,7 @@ int launch_qconv(const void* x, const void* w, void* out, int n, int h,
   const int8_t* px = static_cast<const int8_t*>(x);
   const int8_t* pw = static_cast<const int8_t*>(w);
   int8_t* po = static_cast<int8_t*>(out);
-  if (p.variant >= 0) {
+  if (p.branch == 0) {
     const DirectGeom g{h, wd, ci, oh, ow, oc, kh, kw, sh, sw, dh, dw, pt, pl,
                        x_zp, p.th, p.tw, p.ph, p.pw, FastDiv(oc / 8),
                        FastDiv(p.pw)};
@@ -361,6 +352,12 @@ int launch_qconv(const void* x, const void* w, void* out, int n, int h,
             : launch_direct<false>(p.variant, grid, p.threads, p.smem, s, px, pw, po, g, ep);
     return static_cast<int>(err);
   }
+  if (p.branch == 1)
+    return static_cast<int>(launch_mma(
+        p.variant, p.th, p.tw, p.ph, p.pw, p.slabs, p.gather != 0, p.gx,
+        p.gy, p.smem, s, px, pw, po, n, h, wd, ci, oh, ow, oc, kh, kw, sh,
+        sw, dh, dw, pt, pl, x_zp, ep));
+  if (p.branch != 2) return static_cast<int>(cudaErrorInvalidValue);
   const int M = n * oh * ow;
   const int K = kh * kw * ci;
   const dim3 grid((M + kBM - 1) / kBM, (oc + kBN - 1) / kBN);
@@ -385,14 +382,16 @@ extern "C" int band_qconv2d_exact(
     const void* shift, void* out, int n, int h, int wd, int ci, int oh,
     int ow, int oc, int kh, int kw, int sh, int sw, int dh, int dw, int pt,
     int pl, int qstride, int x_zp, int w_zp, int out_zp, int qmin, int qmax,
-    int rounding, int variant, int th, int tw, int ph, int pw, int gx,
-    int gy, int gz, int threads, int smem, void* stream) {
+    int rounding, int branch, int variant, int th, int tw, int ph, int pw,
+    int gx, int gy, int gz, int threads, int smem, int slabs, int gather,
+    void* stream) {
   using namespace band;
   const Epilogue ep{static_cast<const int32_t*>(bias),
                     static_cast<const int32_t*>(qm),
                     static_cast<const int32_t*>(shift),
                     qstride, w_zp, out_zp, qmin, qmax, rounding};
-  const ConvPlan p{variant, th, tw, ph, pw, gx, gy, gz, threads, smem};
+  const ConvPlan p{branch, variant, th, tw, ph, pw, gx, gy,
+                   gz, threads, smem, slabs, gather};
   return launch_qconv(x, w, out, n, h, wd, ci, oh, ow, oc, kh, kw, sh, sw, dh,
                       dw, pt, pl, x_zp, ep, p, stream);
 }
@@ -401,14 +400,15 @@ extern "C" int band_qconv2d_fast(
     const void* x, const void* w, const void* bias, const void* mult,
     void* out, int n, int h, int wd, int ci, int oh, int ow, int oc, int kh,
     int kw, int sh, int sw, int dh, int dw, int pt, int pl, int mstride,
-    int x_zp, int w_zp, int out_zp, int qmin, int qmax, int variant, int th,
-    int tw, int ph, int pw, int gx, int gy, int gz, int threads, int smem,
-    void* stream) {
+    int x_zp, int w_zp, int out_zp, int qmin, int qmax, int branch,
+    int variant, int th, int tw, int ph, int pw, int gx, int gy, int gz,
+    int threads, int smem, int slabs, int gather, void* stream) {
   using namespace band;
   const FastEpilogue ep{static_cast<const int32_t*>(bias),
                         static_cast<const float*>(mult), mstride, w_zp,
                         out_zp, qmin, qmax};
-  const ConvPlan p{variant, th, tw, ph, pw, gx, gy, gz, threads, smem};
+  const ConvPlan p{branch, variant, th, tw, ph, pw, gx, gy,
+                   gz, threads, smem, slabs, gather};
   return launch_qconv(x, w, out, n, h, wd, ci, oh, ow, oc, kh, kw, sh, sw, dh,
                       dw, pt, pl, x_zp, ep, p, stream);
 }

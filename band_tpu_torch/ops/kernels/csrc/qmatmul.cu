@@ -74,6 +74,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma.cuh"
 #include "requant.cuh"
 
 namespace band {
@@ -136,22 +137,6 @@ struct Operands {
   int M, N, K;
   int va, vb;       // copy widths of A and B rows: 16, 8, 4 or 1
 };
-
-template <int V>
-__device__ __forceinline__ void cp_async(uint8_t* dst, const int8_t* src,
-                                         bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? V : 0;  // 0 source bytes: the copy writes zeros
-  if constexpr (V == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(V), "r"(n)
-                 : "memory");
-  }
-}
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -234,29 +219,6 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const Operands& op,
 
 __device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a . b over one 16 x 8 x 32 step (s8 x s8 -> s32)
-__device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// w0..w3: four K rows of four columns each; o[j]: column j's four K bytes
-__device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1,
-                                             uint32_t w2, uint32_t w3,
-                                             uint32_t (&o)[4]) {
-  const uint32_t l01 = __byte_perm(w0, w1, 0x5140);
-  const uint32_t h01 = __byte_perm(w0, w1, 0x7362);
-  const uint32_t l23 = __byte_perm(w2, w3, 0x5140);
-  const uint32_t h23 = __byte_perm(w2, w3, 0x7362);
-  o[0] = __byte_perm(l01, l23, 0x5410);
-  o[1] = __byte_perm(l01, l23, 0x7632);
-  o[2] = __byte_perm(h01, h23, 0x5410);
-  o[3] = __byte_perm(h01, h23, 0x7632);
 }
 
 // Requantize 8 sums of row m, columns n..n+7, and store the bytes.

@@ -6,15 +6,19 @@ Replaces ``band_tpu/ops/pallas/qconv.py:152 qconv2d_exact`` (Pallas
 kernel ``_qconv_kernel``).  That kernel took a zero-point-padded input
 at stride 1; this one adds stride, dilation and padding (taps outside
 the image read ``x_zp``), because on the card it carries every CONV_2D
-that is not a 1x1 stride-1 matmul: PyTorch has no int8 convolution on
-CUDA, and cuDNN runs float32 convolutions in TF32 by default.  The CUDA
-source is ``csrc/qconv.cu``.  ``conv_plan`` picks, from the shape, its
-direct kernel (a block stages its input patch and the weights in shared
-memory as ``__dp4a`` words, channels padded to 4, 8 or 16 with zero
-bytes; for the stems and other convs of Ci up to 16, Oc a multiple of 8
-up to 64) or the implicit GEMM over the taps (dy, dx, ci) of
-``csrc/qgemm.cuh`` for everything else.  At the slice models' sizes
-latency bounds it, not the bytes or the multiplies; see PERF.md.
+that is not a 1x1 stride-1 matmul, and every TRANSPOSE_CONV: PyTorch has
+no int8 convolution on CUDA, and cuDNN runs float32 convolutions in TF32
+by default.  The CUDA source is ``csrc/qconv.cu``.  ``conv_plan`` picks,
+from the shape, its direct kernel (a block stages its input patch and the
+weights in shared memory as ``__dp4a`` words, channels padded to 4, 8 or
+16 with zero bytes; for the stems and other convs of Ci up to 16, Oc a
+multiple of 8 up to 64) or the general branch: the tensor-core implicit
+GEMM of ``csrc/qconv_mma.cuh`` (a block stages its input patch once, K
+runs in 16-byte chunks of (tap, channel slab) through ``ldmatrix`` and
+``mma.sync`` m16n8k32, an N tile of 8, 16 or 32 columns).  The ``__dp4a``
+loop of ``csrc/qgemm.cuh``, the first port's general branch, is picked by
+no plan; ``loop_plan`` forces it for comparison.  See PERF.md for what
+bounds each.
 
 ``qconv2d_fast`` is the same kernel with the float32 epilogue of fast
 numerics, which on the TPU was XLA's conv followed by
@@ -38,9 +42,12 @@ from .common import (LaunchCount, alignment, check_epilogue,
 
 launches = LaunchCount("qconv2d_exact")
 fast_launches = LaunchCount("qconv2d_fast")
+# the launches of each that took the mma branch (csrc/qconv_mma.cuh)
+mma_launches = LaunchCount("qconv2d_exact_mma")
+fast_mma_launches = LaunchCount("qconv2d_fast_mma")
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 32 + [ctypes.c_void_p]
-_FAST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 31 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 35 + [ctypes.c_void_p]
+_FAST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 34 + [ctypes.c_void_p]
 _fn = None
 _fast_fn = None
 
@@ -51,22 +58,43 @@ MAX_DIRECT_CI = 16      # input channels the direct kernel takes, at most
 MAX_THREADS = 256       # the direct kernel's launch bound
 MAX_OC = 64             # output channels of a direct block, at most
 MAX_SMEM = 48 * 1024    # dynamic shared memory without opting in
+MAX_SMEM_OPTIN = 232448  # a block's dynamic shared memory with the opt-in
+MAX_GRID_X = 2**31 - 1
 MAX_GRID_YZ = 65535
 GEMM_TILE, GEMM_THREADS = 64, 256   # qgemm.cuh's block tile and threads
+# The mma branch (csrc/qconv_mma.cuh): N tiles (8 << variant columns),
+# block pixels (64 MI, MI = 2 or 4), 4 warps; K chunks of 16 bytes.
+MMA_NTILES = (8, 16, 32)
+MMA_PIXELS = (128, 256)
+MMA_THREADS = 128
+CHUNK = 16
+# K bytes of a group (its padding included) from which the tensor cores'
+# int32 sums could overflow (|a * b| <= 2^14): each group stays below, and
+# the kernel adds the groups' sums modulo 2^32.
+MAX_MMA_K = 2**17
+BRANCHES = ("direct", "mma", "loop")  # the C side's branch codes 0, 1, 2
 # The plan's rule, from sweep_conv.py on the slice models' convs (PERF.md)
 PLAN_CV = 8             # channels of a thread
 PLAN_THREADS = 128      # threads of a block
 PAIR_BLOCKS = 528       # a thread takes 2 pixels where that still leaves
                         # this many blocks (4 per SM), else 1
+PLAN_MMA_WIDE = 264     # 16 x 16 mma tiles where they leave this many
+                        # blocks (2 per SM), else 8 x 16
+PLAN_MMA_NARROW = 132   # below this many pixel tiles (one per SM), N
+                        # tiles of 8, for more blocks
 
 
 class ConvPlan(NamedTuple):
-    variant: int   # index into DIRECT_VARIANTS; -1: the general loop
+    branch: str    # "direct", "mma" or "loop" (BRANCHES)
+    variant: int   # direct: index into DIRECT_VARIANTS; mma: N tile index
+                   # into MMA_NTILES; loop: -1
     tile: tuple    # (th, tw) output rows and columns of a block
     patch: tuple   # (ph, pw) input rows and columns a block stages
     grid: tuple    # (x, y, z) blocks
     threads: int   # threads of a block
     smem: int      # dynamic shared memory bytes
+    slabs: int = 0  # mma: 16-channel slabs of a channel group
+    gather: bool = False  # mma: one tap a group, no halo (mma_plan)
 
     @property
     def blocks(self) -> int:
@@ -74,11 +102,16 @@ class ConvPlan(NamedTuple):
 
     @property
     def name(self) -> str:
-        """direct / channels / pixels / tile, or "general"."""
-        if self.variant < 0:
-            return "general"
+        """direct / channels / pixels / tile; mma / N tile / tile /
+        channels of a group [/ gather]; or "loop"."""
+        if self.branch == "loop":
+            return "loop"
+        th, tw = self.tile
+        if self.branch == "mma":
+            return (f"mma/n{MMA_NTILES[self.variant]}/{th}x{tw}/"
+                    f"c{CHUNK * self.slabs}" + "/gather" * self.gather)
         cv, p = DIRECT_VARIANTS[self.variant]
-        return f"direct/c{cv}/p{p}/{self.tile[0]}x{self.tile[1]}"
+        return f"direct/c{cv}/p{p}/{th}x{tw}"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -89,13 +122,106 @@ def conv_out_size(size: int, k: int, stride: int, dil: int, pad_total: int):
     return (size + pad_total - (k - 1) * dil - 1) // stride + 1
 
 
-def general_plan(n: int, oh: int, ow: int, oc: int) -> ConvPlan:
-    """qgemm.cuh's implicit GEMM: 64 x 64 tiles of [n*oh*ow, oc], row
-    tiles on grid x, 256 threads (the kernel sizes its own grid; this one
-    is for the record)."""
-    return ConvPlan(-1, (0, 0), (0, 0),
+def loop_plan(n: int, oh: int, ow: int, oc: int) -> ConvPlan:
+    """qgemm.cuh's __dp4a implicit-GEMM loop: 64 x 64 tiles of [n*oh*ow,
+    oc], row tiles on grid x, 256 threads (the kernel sizes its own grid;
+    this one is for the record)."""
+    return ConvPlan("loop", -1, (0, 0), (0, 0),
                     (_cdiv(n * oh * ow, GEMM_TILE), _cdiv(oc, GEMM_TILE), 1),
                     GEMM_THREADS, 0)
+
+
+def mma_layout(ph: int, pw: int, kh: int, kw: int, slabs: int):
+    """(pixel bytes, column bytes, K steps, bytes of shared memory without
+    the weights) of an mma block: a patch pixel holds ``slabs`` slabs of 16
+    channels in an odd number of 16-byte units (ldmatrix's 8 row addresses
+    in 8 bank groups); a weight column, the group's kh*kw*slabs chunks
+    rounded up to whole m16n8k32 steps plus one unit; the chunk table, an
+    int per chunk."""
+    ps = CHUNK * (slabs | 1)
+    ksteps = (kh * kw * slabs + 1) // 2
+    ws = 2 * CHUNK * ksteps + CHUNK
+    return ps, ws, ksteps, ph * pw * ps + 8 * ksteps
+
+
+def mma_plan(variant: int, n: int, oh: int, ow: int, oc: int, kh: int,
+             kw: int, stride, dilation, th: int, tw: int, slabs: int,
+             gather: bool = False) -> ConvPlan:
+    """The mma branch with N tile MMA_NTILES[variant] on th x tw output
+    tiles and channel groups of ``slabs`` slabs: grid (pixel tiles of all
+    images, column tiles), 128 threads, the patch, weights and chunk
+    table in shared memory (csrc/qconv_mma.cuh mma_smem).  A gathering
+    block stages, one tap at a time, the input pixel of each output pixel
+    for that tap: its patch is th x tw pixels, whatever the stride,
+    dilation and taps."""
+    (sh, sw), (dh, dw) = stride, dilation
+    if gather:
+        (ph, pw), taps = (th, tw), (1, 1)
+    else:
+        ph = (th - 1) * sh + (kh - 1) * dh + 1
+        pw = (tw - 1) * sw + (kw - 1) * dw + 1
+        taps = (kh, kw)
+    bn = MMA_NTILES[variant]
+    _, ws, _, rest = mma_layout(ph, pw, *taps, slabs)
+    return ConvPlan("mma", variant, (th, tw), (ph, pw),
+                    (n * _cdiv(oh, th) * _cdiv(ow, tw), _cdiv(oc, bn), 1),
+                    MMA_THREADS, rest + bn * ws, slabs, gather)
+
+
+def mma_fits(plan: ConvPlan, ci: int, kh: int, kw: int) -> bool:
+    """Whether an mma plan of a conv with kh x kw taps launches: 128 or
+    256 pixels a block, 1 to ceil(ci / 16) slabs a group, a group's K
+    steps below MAX_MMA_K bytes, its shared memory within the opt-in
+    limit, its grid within bounds."""
+    th, tw = plan.tile
+    taps = 1 if plan.gather else kh * kw
+    ksteps = _cdiv(taps * plan.slabs, 2)
+    return (th * tw in MMA_PIXELS and 1 <= plan.slabs <= _cdiv(ci, CHUNK)
+            and 2 * CHUNK * ksteps < MAX_MMA_K
+            and plan.smem <= MAX_SMEM_OPTIN
+            and plan.grid[0] <= MAX_GRID_X and plan.grid[1] <= MAX_GRID_YZ)
+
+
+def mma_ntile(oc: int) -> int:
+    """The narrowest N tile that holds oc columns, else the widest."""
+    return next((i for i, bn in enumerate(MMA_NTILES) if oc <= bn),
+                len(MMA_NTILES) - 1)
+
+
+def mma_tile(pixels: int):
+    """th x tw = pixels output pixels, 16 to a row: the squarest tile of
+    16-pixel m16 rows, whose halo is smallest."""
+    return pixels // 16, 16
+
+
+def general_plan(n: int, oh: int, ow: int, ci: int, oc: int, kh: int,
+                 kw: int, stride, dilation) -> ConvPlan:
+    """The general branch of a conv that the direct kernel does not take:
+    the mma branch on 16 x 16 tiles where they leave PLAN_MMA_WIDE blocks,
+    else 8 x 16; with the narrowest N tile that holds oc, or N tiles of 8
+    where the pixel tiles are fewer than PLAN_MMA_NARROW; its channel
+    groups as few as keep it within MAX_SMEM (else the fewest within
+    MAX_SMEM_OPTIN), each below MAX_MMA_K bytes of K.  Where no group
+    fits at that N tile, the narrower N tiles, then the wider; where none
+    fits at all (a halo too large for shared memory), the same search for
+    a gathering block, which fits with one slab a group.  Only a grid
+    beyond its bounds (Oc above 65,535 column tiles of 32) has no plan."""
+    wide = n * _cdiv(oh, 16) * _cdiv(ow, 16) >= PLAN_MMA_WIDE
+    th, tw = mma_tile(MMA_PIXELS[1] if wide else MMA_PIXELS[0])
+    narrow = n * _cdiv(oh, th) * _cdiv(ow, tw) < PLAN_MMA_NARROW
+    v0 = 0 if narrow else mma_ntile(oc)
+    ntiles = [v0, *range(v0 - 1, -1, -1), *range(v0 + 1, len(MMA_NTILES))]
+    nslab = _cdiv(ci, CHUNK)
+    for gather in (False, True):
+        for v in ntiles:
+            for limit in (MAX_SMEM, MAX_SMEM_OPTIN):
+                for groups in range(1, nslab + 1):
+                    p = mma_plan(v, n, oh, ow, oc, kh, kw, stride, dilation,
+                                 th, tw, _cdiv(nslab, groups), gather)
+                    if p.smem <= limit and mma_fits(p, ci, kh, kw):
+                        return p
+    raise ValueError(f"B2: no mma plan fits a conv of {n} x {oh} x {ow} "
+                     f"outputs and {oc} channels")
 
 
 def direct_words(ci: int) -> int:
@@ -116,7 +242,7 @@ def direct_plan(variant: int, n: int, oh: int, ow: int, ci: int, oc: int,
     ph = (th - 1) * sh + (kh - 1) * dh + 1
     pw = (tw - 1) * sw + (kw - 1) * dw + 1
     smem = 4 * direct_words(ci) * (kh * kw * oc + ph * pw)
-    return ConvPlan(variant, (th, tw), (ph, pw),
+    return ConvPlan("direct", variant, (th, tw), (ph, pw),
                     (_cdiv(ow, tw), _cdiv(oh, th), n),
                     th * tw // p * (oc // cv), smem)
 
@@ -152,15 +278,17 @@ def conv_plan(n: int, oh: int, ow: int, ci: int, oc: int, kh: int, kw: int,
 
     The direct kernel takes ci up to MAX_DIRECT_CI, Oc a multiple of
     PLAN_CV up to MAX_OC and weights on an 8-byte boundary (it loads
-    them 8 bytes at a time) while its patch and weights fit MAX_SMEM;
-    anything else runs the general loop.  A block has PLAN_THREADS
-    threads of PLAN_CV channels (fewer only where the patch would not
-    fit); a thread computes 2 output pixels where that leaves PAIR_BLOCKS
-    blocks, else 1."""
-    groups = oc // PLAN_CV
-    if oc % PLAN_CV or oc > MAX_OC or ci > MAX_DIRECT_CI or align % 8:
-        return general_plan(n, oh, ow, oc)
+    them 8 bytes at a time) while its patch and weights fit MAX_SMEM; a
+    block has PLAN_THREADS threads of PLAN_CV channels (fewer only where
+    the patch would not fit); a thread computes 2 output pixels where
+    that leaves PAIR_BLOCKS blocks, else 1.  Anything else takes the
+    general branch (general_plan), the mma branch, whatever its K, taps,
+    stride or dilation.  The plan reaches qgemm.cuh's loop for no shape:
+    only the forcing hook does (loop_plan)."""
     stride, dilation = tuple(stride), tuple(dilation)
+    if (oc % PLAN_CV or oc > MAX_OC or ci > MAX_DIRECT_CI or align % 8):
+        return general_plan(n, oh, ow, ci, oc, kh, kw, stride, dilation)
+    groups = oc // PLAN_CV
 
     def plan(p, threads):
         th, tw = _tile(threads // groups * p, ow)
@@ -171,11 +299,13 @@ def conv_plan(n: int, oh: int, ow: int, ci: int, oc: int, kh: int, kw: int,
     threads = PLAN_THREADS
     p = 2 if plan(2, threads).blocks >= PAIR_BLOCKS else 1
     best = plan(p, threads)
-    # a patch too large for shared memory: smaller tiles, then the loop
+    # a patch too large for shared memory: smaller tiles, then the
+    # general branch
     while not fits(best, ci, oc) and threads // 2 >= groups:
         threads //= 2
         best = plan(p, threads)
-    return best if fits(best, ci, oc) else general_plan(n, oh, ow, oc)
+    return (best if fits(best, ci, oc) else
+            general_plan(n, oh, ow, ci, oc, kh, kw, stride, dilation))
 
 
 def _acc_plain(x, w_km, bias, kh, kw, stride, dilation, padding, x_zp,
@@ -245,9 +375,11 @@ def _geometry(x, w_km, kh, kw, stride, dilation, padding):
 
 
 def _plan_args(p: ConvPlan):
-    """A plan as the C entry points take it: variant, th, tw, ph, pw,
-    grid x, y, z, threads, shared memory bytes."""
-    return (p.variant, *p.tile, *p.patch, *p.grid, p.threads, p.smem)
+    """A plan as the C entry points take it: branch code, variant, th,
+    tw, ph, pw, grid x, y, z, threads, shared memory bytes, slabs,
+    gather."""
+    return (BRANCHES.index(p.branch), p.variant, *p.tile, *p.patch, *p.grid,
+            p.threads, p.smem, p.slabs, int(p.gather))
 
 
 def qconv2d_exact(x, w_km, bias, qm, shift, kh, kw, stride=(1, 1),
@@ -288,6 +420,8 @@ def qconv2d_exact(x, w_km, bias, qm, shift, kh, kw, stride=(1, 1),
                  int(qmin), int(qmax), Q.ROUNDING_CODES[rounding],
                  *_plan_args(p))
     launches.add()
+    if p.branch == "mma":
+        mma_launches.add()
     return out
 
 
@@ -323,4 +457,6 @@ def qconv2d_fast(x, w_km, bias, mult, kh, kw, stride=(1, 1),
                  int(x_zp), int(w_zp), int(out_zp), int(qmin), int(qmax),
                  *_plan_args(p))
     fast_launches.add()
+    if p.branch == "mma":
+        fast_mma_launches.add()
     return out

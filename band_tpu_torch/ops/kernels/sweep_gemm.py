@@ -27,17 +27,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
 DATA = os.path.join(ROOT, "tests", "data")
 
 
-def capture_calls(model, batch, lowering, key):
+def capture_calls(model, batch, lowering, key, stand_in=None):
     """key(*args, **kwargs) -> calls, over every call that one run of
-    ``model`` (a tests/data model) at ``batch`` makes to the kernel that
-    ops/lowerings.py binds as ``lowering``, from the port's program run
-    on the CPU."""
+    ``model`` (a tests/data model; without its custom ops, which run on a
+    host worker) at ``batch`` makes to the kernel that ops/lowerings.py
+    binds as ``lowering``, from the port's program run on the CPU;
+    ``stand_in``, if given, runs in the kernel's place."""
     from ...backend.program import build_program, params_from_jax
     from ...tflite.parser import parse_tflite_file
     from .. import lowerings as L
 
     g = parse_tflite_file(os.path.join(DATA, f"{model}.tflite"))
-    prog = build_program(g, range(len(g.ops)), exact=True)
+    # every op but a custom op (the SSD models' host-only post-process)
+    prog = build_program(g, [op.index for op in g.ops if not op.is_custom],
+                         exact=True)
     params = params_from_jax(prog.params, torch.device("cpu"))
     calls = {}
     kernel = getattr(L, lowering)
@@ -45,7 +48,7 @@ def capture_calls(model, batch, lowering, key):
     def capture(*args, **kw):
         k = key(*args, **kw)
         calls[k] = calls.get(k, 0) + 1
-        return kernel(*args, **kw)
+        return (stand_in or kernel)(*args, **kw)
 
     shape = g.tensor(g.inputs[0]).shape[1:]
     setattr(L, lowering, capture)

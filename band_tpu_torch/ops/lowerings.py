@@ -1441,7 +1441,7 @@ def _batch_matmul(ctx: LowerCtx, op: OpNode) -> None:
 
 
 # --------------------------------------------------------------------------
-# TRANSPOSE_CONV: phase convolutions on kernel B2
+# TRANSPOSE_CONV: the sub-pixel phases as one union convolution on kernel B2
 # --------------------------------------------------------------------------
 
 def _tconv_pads(o, in_h, in_w, kh, kw, sh, sw, out_h, out_w):
@@ -1474,6 +1474,20 @@ def _tconv_phases(k: int, s: int, pb: int, out_size: int):
     return out
 
 
+def _tconv_window(phases, size: int):
+    """The union window of one axis's phases: (lo, taps, pads, crop, T)
+    -- the phases' taps span input offsets lo .. lo + taps - 1 (over the
+    phases that have taps); the union conv computes T = max T_r outputs,
+    reads the input padded by ``pads`` (x_zp, B2's own padding) and its
+    output rows from ``crop`` on are the phases' t = 0, 1, ..."""
+    live = [(off, ka) for _, ka, off, _ in phases if ka > 0]
+    lo = min(off for off, _ in live)
+    taps = max(off + ka for off, ka in live) - lo
+    T = max(t for *_, t in phases)
+    end = lo + T + taps - 1  # one past the last input row the outputs read
+    return lo, taps, (max(0, -lo), max(0, end - size)), max(lo, 0), T
+
+
 def _wrap_int32(v: np.ndarray) -> np.ndarray:
     return ((v.astype(np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)).astype(
         np.int32)
@@ -1481,13 +1495,18 @@ def _wrap_int32(v: np.ndarray) -> np.ndarray:
 
 def _prepare_transpose_conv(graph: Graph, op: OpNode,
                             exact: bool) -> Dict[str, Any]:
-    """Per phase (rh, rw) of the sub-pixel decomposition, the B2 operands
-    of its VALID conv: the kernel slice as [taps*Ci, Oc] words, one int32
-    bias vector (bias - x_zp * sum(w) + k * x_zp * w_zp, plus the phase's
-    badj: the x_zp and w_zp mass of the taps the phase does not compute),
-    the padding B2 fills with x_zp and the rows and columns of its output
-    to keep.  A phase with no taps has a constant output per channel,
-    requantized here.
+    """The B2 operands of one union conv of every sub-pixel phase (rh, rw),
+    per rounding group.  Its window spans, on each axis, the phases'
+    input offsets (_tconv_window); its output channels are (rh, rw, c)
+    for the group's channels c.  Each phase's kernel slice w[u0::s] sits
+    at its own offset in the window, and every tap a phase does not have
+    holds w_zp: (w - w_zp) is 0 there, so the tap adds nothing to conv -
+    w_zp * window-sum, in or out of the image (exact under the int32
+    wrap).  Phase channels carry the phase's bias (bias - x_zp * sum(w) +
+    k * x_zp * w_zp, plus badj: the x_zp and w_zp mass of the taps the
+    phase does not compute) and repeat the group's multipliers.  A phase
+    with no taps is an all-w_zp slice: its output is its requantized
+    bias.
 
     Rounding (fault C3 in ROADMAP.md): TFLite 2.21 requantizes an int8
     TRANSPOSE_CONV per channel through optimized_ops::Quantize, whose
@@ -1495,9 +1514,9 @@ def _prepare_transpose_conv(graph: Graph, op: OpNode,
     and whose scalar tail, channels 8*floor(Oc/8) and up, with
     MultiplyByQuantizedMultiplier's double rounding; its multipliers are
     the per-channel double(s_x) * double(s_w) / double(s_out) even for
-    one scale.  So the exact form runs one B2 launch per phase and
-    rounding group.  band_tpu rounds every channel as ruy; uint8 weights
-    and fast numerics follow band_tpu."""
+    one scale.  So the exact form runs one B2 launch per rounding group.
+    band_tpu rounds every channel as ruy; uint8 weights and fast numerics
+    follow band_tpu (one group)."""
     w_td = graph.tensor(op.inputs[1])
     x_td = graph.tensor(op.inputs[2])
     out_td = graph.tensor(op.outputs[0])
@@ -1526,10 +1545,6 @@ def _prepare_transpose_conv(graph: Graph, op: OpNode,
         k8 = oc // 8 * 8
         groups = [g for g in ((0, k8, "ruy"), (k8, oc, "double"))
                   if g[1] > g[0]]
-    epilogue = ("mult",) if "mult" in d else ("qm", "shift")
-    for g, (c0, c1, _) in enumerate(groups):
-        for name in epilogue:
-            d[f"{name}_{g}"] = np.array(np.broadcast_to(d[name], (oc,))[c0:c1])
 
     o = op.options
     sh, sw = o["stride_h"], o["stride_w"]
@@ -1542,109 +1557,80 @@ def _prepare_transpose_conv(graph: Graph, op: OpNode,
     w_i8, xzp, wzp = d.pop("w"), d["x_zp"], d["w_zp"]
     bias = d.pop("bias").astype(np.int64)
     full_sum = w_i8.astype(np.int64).sum(axis=(0, 1, 2))
-    phases = []
-    for rh, (u0h, kah, offh, th) in enumerate(
-            _tconv_phases(kh, sh, pb_h, out_h)):
-        for rw, (u0w, kaw, offw, tw) in enumerate(
-                _tconv_phases(kw, sw, pb_w, out_w)):
-            if th <= 0 or tw <= 0:
-                continue
+    phases_h = _tconv_phases(kh, sh, pb_h, out_h)
+    phases_w = _tconv_phases(kw, sw, pb_w, out_w)
+    lo_h, uh, pads_h, crop_h, t_h = _tconv_window(phases_h, in_h)
+    lo_w, uw, pads_w, crop_w, t_w = _tconv_window(phases_w, in_w)
+    # [taps h, taps w, ci, phase, oc]: w_zp where a phase has no tap
+    wu = np.full((uh, uw, ci, sh * sw, oc), wzp, np.int8)
+    pbias = np.zeros((sh * sw, oc), np.int32)
+    for rh, (u0h, kah, offh, _) in enumerate(phases_h):
+        for rw, (u0w, kaw, offw, _) in enumerate(phases_w):
             wp = w_i8[u0h::sh, u0w::sw]
             taps_p = wp.shape[0] * wp.shape[1] * ci
             badj = (xzp * (full_sum - wp.astype(np.int64).sum(axis=(0, 1, 2)))
                     - wzp * (kh * kw * ci - taps_p) * xzp)
-            pbias = _wrap_int32(bias + badj)
-            key = f"{rh}_{rw}"
-            if kah == 0 or kaw == 0:
-                d[f"fill_{key}"] = _tconv_fill(d, groups, pbias, out_td)
-                phases.append((rh, rw, th, tw, None))
-                continue
-            lo_h, hi_h = offh, offh + th + kah - 1
-            lo_w, hi_w = offw, offw + tw + kaw - 1
-            pads = ((max(0, -lo_h), max(0, hi_h - in_h)),
-                    (max(0, -lo_w), max(0, hi_w - in_w)))
-            w_km = wp.reshape(kah * kaw * ci, oc)
-            for g, (c0, c1, _) in enumerate(groups):
-                d[f"w_{key}_{g}"] = np.ascontiguousarray(w_km[:, c0:c1])
-                d[f"bias_{key}_{g}"] = np.ascontiguousarray(pbias[c0:c1])
-            phases.append((rh, rw, th, tw,
-                           (kah, kaw, pads, (max(lo_h, 0), max(lo_w, 0)))))
+            p = rh * sw + rw
+            pbias[p] = _wrap_int32(bias + badj)
+            wu[offh - lo_h:offh - lo_h + kah, offw - lo_w:offw - lo_w + kaw,
+               :, p] = wp
+    wu = wu.reshape(uh * uw * ci, sh * sw, oc)
+    epilogue = ("mult",) if "mult" in d else ("qm", "shift")
+    for g, (c0, c1, _) in enumerate(groups):
+        d[f"w_{g}"] = np.ascontiguousarray(
+            wu[:, :, c0:c1].reshape(uh * uw * ci, -1))
+        d[f"bias_{g}"] = np.ascontiguousarray(pbias[:, c0:c1].reshape(-1))
+        for name in epilogue:
+            d[f"{name}_{g}"] = np.tile(
+                np.broadcast_to(d[name], (oc,))[c0:c1], sh * sw)
     for name in ("qm", "shift", "mult"):
         d.pop(name, None)
-    d.update(phases=tuple(phases), groups=tuple(groups),
-             out_hw=(out_h, out_w), oc=oc,
-             even=out_h % sh == 0 and out_w % sw == 0)
+    d.update(groups=tuple(groups), taps=(uh, uw), pads=(pads_h, pads_w),
+             crop=(crop_h, crop_w), tiles=(t_h, t_w), out_hw=(out_h, out_w),
+             oc=oc)
     return d
-
-
-def _tconv_fill(d, groups, pbias: np.ndarray, out_td: TensorDef):
-    """The requantized output of a phase with no taps (acc = its bias),
-    per channel, through the epilogue the kernels run."""
-    acc = torch.from_numpy(pbias.astype(np.int64))
-    parts = []
-    for g, (c0, c1, rounding) in enumerate(groups):
-        a = acc[c0:c1]
-        if "mult" in d:
-            parts.append(Q.requantize_fast(
-                a, torch.from_numpy(d[f"mult_{g}"]), d["out_zp"], d["qmin"],
-                d["qmax"], out_td.dtype))
-        else:
-            parts.append(Q.requantize_exact(
-                a, d[f"qm_{g}"], d[f"shift_{g}"], d["out_zp"], d["qmin"],
-                d["qmax"], out_td.dtype, rounding))
-    return torch.cat(parts).numpy()
 
 
 @register("TRANSPOSE_CONV", prepare=_prepare_transpose_conv,
           static_inputs=(0,))
 def _transpose_conv(ctx: LowerCtx, op: OpNode) -> None:
-    """Each phase is one B2 launch (B2 fast in fast numerics) per rounding
-    group, requant fused, its out-of-range window filled with x_zp by
-    B2's own padding and w_zp's window sum subtracted by B2.  The phases
-    interleave into the output: a pixel shuffle (each phase written into
-    an [n, H/sh, sh, W/sw, sw, Oc] view) when sh and sw divide the output
-    size, else a strided scatter into a zeroed output.  The output-shape
-    input (SHAPE -> STRIDED_SLICE -> PACK) is not read: the IR's static
-    shape is authoritative, and the request axis is x's leading one."""
+    """One B2 launch (B2 fast in fast numerics) per rounding group computes
+    every phase, requant fused, its window filled with x_zp by B2's own
+    padding and w_zp's window sum subtracted by B2.  Its output [n, T_h,
+    T_w, (sh, sw, c)] lands in the interleave with one copy: a view
+    permuted to [n, T_h, sh, T_w, sw, c].  Where a stride does not divide
+    the output size the phases' last rows and columns past it are cut
+    (one more copy).  The output-shape input (SHAPE -> STRIDED_SLICE ->
+    PACK) is not read: the IR's static shape is authoritative, and the
+    request axis is x's leading one."""
     x = _to_int8_domain(ctx.arr(op.inputs[2]))
-    out_td = ctx.graph.tensor(op.outputs[0])
-    dt = Q.torch_dtype(out_td.dtype)
+    dt = Q.torch_dtype(ctx.graph.tensor(op.outputs[0]).dtype)
     n = x.shape[0]
     out_h, out_w = ctx.smeta(op, "out_hw")
     oc = ctx.smeta(op, "oc")
     sh, sw = op.options["stride_h"], op.options["stride_w"]
-    even = ctx.smeta(op, "even")
-    if even:
-        out = torch.empty((n, out_h // sh, sh, out_w // sw, sw, oc),
-                          dtype=dt, device=x.device)
-    else:
-        out = torch.zeros((n, out_h, out_w, oc), dtype=dt, device=x.device)
-
-    def dest(rh, rw, c0, c1):
-        if even:
-            return out[:, :, rh, :, rw, c0:c1]
-        return out[:, rh::sh, rw::sw, c0:c1]
-
+    uh, uw = ctx.smeta(op, "taps")
+    ch, cw = ctx.smeta(op, "crop")
+    t_h, t_w = ctx.smeta(op, "tiles")
+    full = torch.empty((n, t_h, sh, t_w, sw, oc), dtype=dt, device=x.device)
     fast = f"op{op.index}/mult_0" in ctx.params
-    rq = dict(stride=(1, 1), dilation=(1, 1),
+    rq = dict(kh=uh, kw=uw, stride=(1, 1), dilation=(1, 1),
+              padding=ctx.smeta(op, "pads"),
               x_zp=int(ctx.smeta(op, "x_zp")), w_zp=int(ctx.smeta(op, "w_zp")),
               out_zp=int(ctx.smeta(op, "out_zp")),
               qmin=int(ctx.smeta(op, "qmin")), qmax=int(ctx.smeta(op, "qmax")),
               out_dtype=dt)
-    for rh, rw, th, tw, conv in ctx.smeta(op, "phases"):
-        key = f"{rh}_{rw}"
-        if conv is None:
-            dest(rh, rw, 0, oc)[...] = ctx.param(op, f"fill_{key}")
-            continue
-        kah, kaw, pads, (ch, cw) = conv
-        for g, (c0, c1, rounding) in enumerate(ctx.smeta(op, "groups")):
-            w, b = ctx.param(op, f"w_{key}_{g}"), ctx.param(op, f"bias_{key}_{g}")
-            if fast:
-                p = qconv2d_fast(x, w, b, ctx.param(op, f"mult_{g}"), kh=kah,
-                                 kw=kaw, padding=pads, **rq)
-            else:
-                p = qconv2d_exact(x, w, b, ctx.param(op, f"qm_{g}"),
-                                  ctx.param(op, f"shift_{g}"), kh=kah, kw=kaw,
-                                  padding=pads, rounding=rounding, **rq)
-            dest(rh, rw, c0, c1)[...] = p[:, ch:ch + th, cw:cw + tw]
-    ctx.set(op.outputs[0], out.reshape(n, out_h, out_w, oc))
+    for g, (c0, c1, rounding) in enumerate(ctx.smeta(op, "groups")):
+        w, b = ctx.param(op, f"w_{g}"), ctx.param(op, f"bias_{g}")
+        if fast:
+            u = qconv2d_fast(x, w, b, ctx.param(op, f"mult_{g}"), **rq)
+        else:
+            u = qconv2d_exact(x, w, b, ctx.param(op, f"qm_{g}"),
+                              ctx.param(op, f"shift_{g}"), rounding=rounding,
+                              **rq)
+        u = u[:, ch:ch + t_h, cw:cw + t_w].unflatten(3, (sh, sw, c1 - c0))
+        full[..., c0:c1] = u.permute(0, 1, 3, 2, 4, 5)
+    out = full.reshape(n, t_h * sh, t_w * sw, oc)
+    if (t_h * sh, t_w * sw) != (out_h, out_w):
+        out = out[:, :out_h, :out_w].contiguous()
+    ctx.set(op.outputs[0], out)

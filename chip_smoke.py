@@ -32,9 +32,11 @@ Phases:
                C 7/13/33, multiplier 3, 5x5, stride (2, 1), x one byte
                off alignment, ...); for both convs every branch of
                conv_plan (its own plan on stems and small-Ci convs, the
-               general loop) and every direct variant and the general
-               loop forced, each with w_zp 0 and != 0 and int8 and uint8
-               outputs; for the softmax every branch of softmax_plan
+               mma branch on Ci 56 and 72, Oc 1 to 70, several channel
+               groups) and every direct variant, the mma branch with
+               each N tile (8, 16, 32) on 128- and 256-pixel tiles and
+               qgemm.cuh's loop forced, each with w_zp 0 and != 0 and
+               int8 and uint8 outputs; for the softmax every branch of softmax_plan
                (the thread kernel, the row kernel at 32, 64 and 256
                threads) on 1 and 8 rows of depth 10, 1000 and 1001, int8
                and uint8 in and out; for the fast kernels also per-tensor and
@@ -45,9 +47,11 @@ Phases:
                and a bias near +-2^31 under split-K;
              - on every call of the decoder models (FSRCNN x2 at 360x640
                and at 24x40, tconv_int8, cnn_ops_int8, attention_int8) at
-               b1 and b8, exact and (FSRCNN, tconv_int8) fast: the
-               TRANSPOSE_CONV phase convs on B2's general and direct
-               branches, the 1x1 convs on B1; each model's outputs equal
+               b1, b8 and in a b32 window, exact and (FSRCNN,
+               tconv_int8) fast: each
+               TRANSPOSE_CONV's union conv of its sub-pixel phases on
+               B2's mma or direct branch, the 1x1 convs on B1; each
+               model's outputs equal
                to tests/data/torch_ops_goldens.npz (the digests at full
                width; 0, or the stated quant units of a float-fallback
                output, at the small sizes).
@@ -65,7 +69,7 @@ Phases:
              PyTorch kernel in the same CUDA-graph harness, and 35 times
              it.  Then, from the real calls of the five tests/data models
              at b1 and b8, one ``qconv:`` line per distinct B2 shape
-             (plan, B2 and B2 fast, both with the general loop forced,
+             (plan, B2 and B2 fast, both with qgemm.cuh's loop forced,
              a cuDNN float32 conv as yardstick, bound) and one
              ``softmax:`` line per distinct SOFTMAX shape (plan, the
              thread and the row kernel forced, torch.softmax in float32
@@ -99,11 +103,13 @@ Phases:
              their fast instances must launch, no other kernel.  Printed:
              req/s at b1 and in the burst, device time, launches and busy
              share of a b1 request (torch.profiler), and one
-             ``qconv_general:`` line per B2 call of a request that takes
-             the general implicit-GEMM branch (the 3x3 12 -> 12 convs and
-             the four deconv phase convs): B2 and B2 fast against their
-             plain versions (0 differing bytes), the bound and a cuDNN
-             float32 conv of the same shape.
+             ``qconv_general:`` line per B2 call of a request off the
+             direct kernel (the 3x3 12 -> 12 convs and the deconv's union
+             conv, which must take the mma branch: checked, and that the
+             deconv is one B2 launch a request in each numerics): B2 and
+             B2 fast against their plain versions (0 differing bytes),
+             the same calls with qgemm.cuh's loop forced, the bound and a
+             cuDNN float32 conv of the same shape.
  8. depth    the logits below each model's SOFTMAX, from the program on
              the card at b1 and stacked b8, byte-equal to the golden
              logits; and the fast program's output below the first MEAN,
@@ -180,8 +186,10 @@ Phases:
              Every model processes requests, none is canceled without an
              SLO, and the codispatch config's rounds fuse.
 Then it prints the kernels line (each kernel's launches in the engine
-phase of its numerics, in the sr phase and in the codispatch phase), and
-last the device line.
+phase of its numerics, in the sr phase and in the codispatch phase; B2's
+general branch, the mma kernel of csrc/qconv_mma.cuh, in two entries of
+its own, exact and fast, with its launches and a b1 FSRCNN request's
+times from the sr phase), and last the device line.
 """
 
 import collections
@@ -283,6 +291,18 @@ SR_SYNC = 16
 SR_BURST = 32
 SR_KERNELS = {"exact": ("qmatmul_exact", "qconv2d_exact"),
               "fast": ("qmatmul_fast", "qconv2d_fast")}
+# B2's general branch (csrc/qconv_mma.cuh), counted apart from its
+# wrapper's other launches; its main path is the sr phase
+MMA_KERNELS = {
+    "qconv2d_exact_mma": dict(
+        wrapper="qconv2d_exact",
+        source="band_tpu_torch/ops/kernels/csrc/qconv_mma.cuh",
+        replaces="band_tpu/ops/pallas/qconv.py:152"),
+    "qconv2d_fast_mma": dict(
+        wrapper="qconv2d_fast",
+        source="band_tpu_torch/ops/kernels/csrc/qconv_mma.cuh",
+        replaces="band_tpu/ops/lowerings.py:563"),
+}
 
 
 def log(msg):
@@ -472,10 +492,19 @@ def dwconv_plan_of(args, kw, out):
                           tuple(kw["dilation"]), QD.alignment(x, w, out))
 
 
+def b2_plan(args, kw, out):
+    """The conv_plan a captured B2 call (exact or fast) ran under."""
+    from band_tpu_torch.ops.kernels import qconv as QC
+
+    x, w = args[0], args[1]
+    return QC.conv_plan(x.shape[0], out.shape[1], out.shape[2], x.shape[3],
+                        w.shape[1], kw["kh"], kw["kw"], tuple(kw["stride"]),
+                        tuple(kw["dilation"]), QC.alignment(w))
+
+
 def plan_of(name, args, kw, out):
     """The plan branch an exact kernel call ran under, as a label."""
     from band_tpu_torch.ops import kernels as K
-    from band_tpu_torch.ops.kernels import qconv as QC
     from band_tpu_torch.ops.kernels import softmax as SM
 
     if name == "qmatmul_exact":
@@ -484,11 +513,7 @@ def plan_of(name, args, kw, out):
     if name == "qdwconv2d_exact":
         return dwconv_plan_of(args, kw, out).name
     if name == "qconv2d_exact":
-        x, w = args[0], args[1]
-        return QC.conv_plan(x.shape[0], out.shape[1], out.shape[2],
-                            x.shape[3], w.shape[1], kw["kh"], kw["kw"],
-                            tuple(kw["stride"]), tuple(kw["dilation"]),
-                            QC.alignment(w)).name
+        return b2_plan(args, kw, out).name
     depth = args[0].shape[-1]
     return SM.softmax_plan(args[0].numel() // depth, depth).name
 
@@ -575,6 +600,16 @@ def same(torch, name, got, want, what):
            if got.numel() else 0)
     check(err == 0, f"{name} {what}: max |kernel - plain| = {err}")
     return err
+
+
+def held(torch, worst, name, args, kw, out, want, what):
+    """same() of a captured kernel call: its error goes into worst[name],
+    and into worst[name + "_mma"] where B2 took the mma branch."""
+    err = same(torch, name, out, want, what)
+    worst[name] = max(worst[name], err)
+    if (name in ("qconv2d_exact", "qconv2d_fast")
+            and b2_plan(args, kw, out).branch == "mma"):
+        worst[name + "_mma"] = max(worst[name + "_mma"], err)
 
 
 def synthetic_cases(torch, K, Q, dev):
@@ -884,12 +919,14 @@ def conv_plan_cases(torch, K, rng, i8, epilogue, out_args):
     """Both convs (B2 and its fast instance) on every branch of conv_plan:
     its own plan on stems and small-Ci convs (Ci 1, 3, 8, 16; stride 1
     and 2; Oc 16 to 64; x one byte into a buffer) and on shapes that take
-    the general loop (Oc 70, 5x5 with Oc 9); then on geometries that
-    reach every compiled instance (1, 2 and 4 words per pixel; 3x3 and
-    other taps) each direct variant forced onto a ragged 2x4 tile and
-    the general loop forced, each with w_zp 0 and 3 and int8 and uint8
-    outputs.
-    Per-channel and per-tensor multipliers in turn."""
+    the mma branch (Oc 70, 5x5 with Oc 9, Ci 56 and 72, Oc 1, 4, 12 and
+    65); then on geometries that reach every compiled direct instance (1,
+    2 and 4 words per pixel; 3x3 and other taps) each direct variant
+    forced onto a ragged 2x4 tile, and on those and the mma shapes (K of
+    147,456 bytes in channel groups among them) the mma branch forced with
+    each N tile (8, 16, 32) on 128- and 256-pixel tiles and as a gathering
+    block, and qgemm.cuh's loop forced, each with w_zp 0 and 3 and int8
+    and uint8 outputs.  Per-channel and per-tensor multipliers in turn."""
     from band_tpu_torch.ops.kernels import qconv as QC
 
     def add(geom, i, plan=None, w_zp=None, od=None):
@@ -941,25 +978,48 @@ def conv_plan_cases(torch, K, rng, i8, epilogue, out_args):
         (1, 9, 10, 16, 16, 3, 3, (1, 1), same, 4),
         (1, 9, 10, 16, 64, 3, 3, (2, 2), s2, 0),
         (2, 11, 10, 5, 24, 5, 5, (1, 2), ((2, 2), (2, 2)), 0),
-        (1, 9, 9, 16, 70, 3, 3, (1, 1), same, 0),       # general
+        (1, 9, 9, 16, 70, 3, 3, (1, 1), same, 0),       # mma
         (2, 12, 12, 5, 9, 5, 5, (1, 2), ((2, 2), (1, 2)), 0),
         (1, 10, 11, 3, 16, 3, 5, (1, 1), ((1, 1), (2, 2)), 0),
         (1, 9, 8, 16, 16, 5, 3, (2, 1), ((2, 2), (1, 1)), 1),
     ]
+    mma_geoms = [
+        (1, 23, 37, 56, 4, 5, 5, (1, 1), ((2, 2), (2, 2)), 0),
+        (2, 17, 21, 12, 12, 3, 3, (1, 1), same, 0),
+        (1, 13, 19, 56, 1, 5, 4, (1, 1), ((2, 1), (2, 2)), 0),
+        (1, 11, 9, 72, 65, 3, 3, (2, 2), s2, 1),
+        (1, 9, 70, 200, 32, 3, 3, (1, 1), same, 0),   # 3 channel groups
+        (1, 5, 7, 16384, 24, 3, 3, (1, 1), same, 0),  # K >= 2^17 bytes
+    ]
     cases = []
     i = 0
-    for geom in geoms:
+    for geom in geoms + mma_geoms:
         cases += add(geom, i)
         i += 1
-    # every instance: 1, 2 and 4 words per pixel, 3x3 and other taps
-    for geom in (geoms[1], geoms[4], geoms[5], geoms[7], geoms[10],
-                 geoms[11]):
-        plans = [lambda n, oh, ow, ci, oc, kh, kw, st: QC.general_plan(
-            n, oh, ow, oc)]
-        plans += [lambda n, oh, ow, ci, oc, kh, kw, st, v=v: QC.direct_plan(
-            v, n, oh, ow, ci, oc, kh, kw, st, (1, 1), 2, 4)
-            for v in range(len(QC.DIRECT_VARIANTS))]
-        for plan in plans:
+
+    def mma(v, pixels, gather=False):
+        def plan(n, oh, ow, ci, oc, kh, kw, st):
+            th, tw = QC.mma_tile(pixels)
+            return QC.mma_plan(v, n, oh, ow, oc, kh, kw, st, (1, 1), th,
+                               tw, QC.general_plan(n, oh, ow, ci, oc, kh, kw,
+                                                   st, (1, 1)).slabs, gather)
+        return plan
+
+    forcings = [lambda n, oh, ow, ci, oc, kh, kw, st: QC.loop_plan(
+        n, oh, ow, oc)]
+    forcings += [mma(v, pixels) for v in range(len(QC.MMA_NTILES))
+                 for pixels in QC.MMA_PIXELS]
+    forcings += [mma(v, QC.MMA_PIXELS[0], gather=True)
+                 for v in range(len(QC.MMA_NTILES))]
+    direct = [lambda n, oh, ow, ci, oc, kh, kw, st, v=v: QC.direct_plan(
+        v, n, oh, ow, ci, oc, kh, kw, st, (1, 1), 2, 4)
+        for v in range(len(QC.DIRECT_VARIANTS))]
+    # every instance: 1, 2 and 4 words per pixel, 3x3 and other taps; the
+    # mma branch's N tiles and pixel tiles, with one and several groups
+    direct_geoms = (geoms[1], geoms[4], geoms[5], geoms[7], geoms[10],
+                    geoms[11])
+    for geom in direct_geoms + tuple(mma_geoms):
+        for plan in forcings + (direct if geom in direct_geoms else []):
             for w_zp in (0, 3):
                 for od in (torch.int8, torch.uint8):
                     cases += add(geom, i, plan, w_zp, od)
@@ -1118,9 +1178,8 @@ def codispatch_bucket_calls(torch, dev, graphs, goldens, plain, worst,
             for kname, args, kw, out in calls:
                 want = plain[kname](*args, **kw)
                 torch.cuda.synchronize()
-                worst[kname] = max(worst[kname], same(
-                    torch, kname, out, want,
-                    f"{name} b{b} {tuple(args[0].shape)}"))
+                held(torch, worst, kname, args, kw, out, want,
+                    f"{name} b{b} {tuple(args[0].shape)}")
                 branches[(kname, plan_of(kname, args, kw, out))] += 1
             check(not any(n in FAST for n, *_ in calls),
                   f"{name} b{b}: a kernel of the fast numerics")
@@ -1140,11 +1199,11 @@ def codispatch_bucket_calls(torch, dev, graphs, goldens, plain, worst,
 
 def decoder_calls(torch, dev, graphs, ops_goldens, plain, worst):
     """Every kernel call of the decoder models (FSRCNN at full width and
-    at 24x40, tconv_int8, cnn_ops_int8, attention_int8) at b1 and b8, in
-    exact numerics and, where there are fast goldens, in fast numerics,
-    held byte-equal to plain; each model's outputs there equal to its
-    goldens.  Returns FSRCNN's b1 calls by numerics (the sr phase times
-    them)."""
+    at 24x40, tconv_int8, cnn_ops_int8, attention_int8) at b1, b8 and in
+    a b32 window, in exact numerics and, where there are fast goldens, in
+    fast numerics, held byte-equal to plain; each model's outputs there
+    equal to its goldens.  Returns FSRCNN's b1 calls by numerics (the sr
+    phase times them)."""
     from band_tpu_torch.backend.program import build_program, params_from_jax
     from band_tpu_torch.ops import lowerings as L
 
@@ -1159,7 +1218,7 @@ def decoder_calls(torch, dev, graphs, ops_goldens, plain, worst):
             params = params_from_jax(prog.params, dev)
             fn = prog.make_fn()
             pos = [prog.output_ids.index(t) for t in g.outputs]
-            for b in (1, MAX_BATCH):
+            for b in (1, MAX_BATCH, CO_BATCH):
                 idx = [i % len(gd["xs"]) for i in range(b)]
                 x = torch.from_numpy(np.concatenate(
                     [gd["xs"][i] for i in idx])).to(dev)
@@ -1168,9 +1227,8 @@ def decoder_calls(torch, dev, graphs, ops_goldens, plain, worst):
                 for kname, args, kw, out in calls:
                     want = plain[kname](*args, **kw)
                     torch.cuda.synchronize()
-                    worst[kname] = max(worst[kname], same(
-                        torch, kname, out, want,
-                        f"{name} {kind} b{b} {tuple(args[0].shape)}"))
+                    held(torch, worst, kname, args, kw, out, want,
+                        f"{name} {kind} b{b} {tuple(args[0].shape)}")
                 check(not any(n in (FAST if exact else EXACT_ONLY)
                               for n, *_ in calls),
                       f"{name} {kind}: a kernel of the other numerics")
@@ -1185,6 +1243,8 @@ def decoder_calls(torch, dev, graphs, ops_goldens, plain, worst):
                 log(f"kernels: {name} {kind} b{b}: {len(calls)} calls "
                     f"{dict(used)} byte-equal to plain (tolerance 0); the "
                     "output equal to the goldens")
+                del calls, outs
+                torch.cuda.empty_cache()
     return sr_calls
 
 
@@ -1201,7 +1261,7 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
              "qmatmul_fast": K.qmatmul_fast_plain,
              "qconv2d_fast": K.qconv2d_fast_plain,
              "qdwconv2d_fast": K.qdwconv2d_fast_plain}
-    worst = {n: 0 for n in KERNELS}
+    worst = {n: 0 for n in list(KERNELS) + list(MMA_KERNELS)}
 
     # synthetic cases
     for name, kern, ref, label in synthetic_cases(torch, K, Q, dev):
@@ -1228,9 +1288,8 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
                 for name, args, kw, out in calls:
                     want = plain[name](*args, **kw)
                     torch.cuda.synchronize()
-                    worst[name] = max(worst[name], same(
-                        torch, name, out, want,
-                        f"MobileNetV2 {what} b{b} {tuple(args[0].shape)}"))
+                    held(torch, worst, name, args, kw, out, want,
+                        f"MobileNetV2 {what} b{b} {tuple(args[0].shape)}")
                 check(not any(n in (EXACT_ONLY if not exact else FAST)
                               for n, *_ in calls),
                       f"MobileNetV2 {what}: a kernel of the other numerics")
@@ -1255,9 +1314,8 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
                 for kname, args, kw, out in calls:
                     want = plain[kname](*args, **kw)
                     torch.cuda.synchronize()
-                    worst[kname] = max(worst[kname], same(
-                        torch, kname, out, want,
-                        f"{name} b{b} {tuple(args[0].shape)}"))
+                    held(torch, worst, kname, args, kw, out, want,
+                        f"{name} b{b} {tuple(args[0].shape)}")
                 kinds = sorted({n for n, *_ in calls})
                 check({"qconv2d_exact", "qmatmul_exact"} <= set(kinds)
                       and not set(kinds) & set(FAST),
@@ -1279,6 +1337,8 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
         stats = {n: dict(launches_b1=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                          bytes_s=0.0, ops_s=0.0, library_ms=None)
                  for n in KERNELS}
+        # B2's mma branch: its b1 launches only (the sr phase times it)
+        stats.update({n: dict(launches_b1=0) for n in MMA_KERNELS})
         softmax_calls = [c for c in per_b[1] if c[0] == "lut_softmax"]
         per_b[1] = [c for c in per_b[1] if c[0] != "lut_softmax"] + \
             softmax_calls[:1]
@@ -1288,6 +1348,9 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
         for name, args, kw, out in per_b[1]:
             s = stats[name]
             s["launches_b1"] += 1
+            if (name in ("qconv2d_exact", "qconv2d_fast")
+                    and b2_plan(args, kw, out).branch == "mma"):
+                stats[name + "_mma"]["launches_b1"] += 1
             ms = graph_ms(torch, lambda: wrapper[name](*args, **kw))
             s["ms"] += ms
             s["plain_ms"] += eager_ms(torch, lambda: plain[name](*args, **kw))
@@ -1391,8 +1454,8 @@ def conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens, sm_ghz):
     """One ``qconv:`` line per distinct B2 shape and one ``softmax:`` line
     per distinct SOFTMAX shape of the slice models, at b1 and b8, from
     their real calls on the card: the plan and its times beside the other
-    branches forced (for B2 the general implicit-GEMM loop, the parent
-    commit's kernel; for the softmax the thread and the row kernel), the
+    branches forced (for B2 qgemm.cuh's __dp4a loop, the first port's
+    general branch; for the softmax the thread and the row kernel), the
     yardstick, the bound, and for the softmax the serial floor: depth
     dependent float32 adds at FADD_CYCLES each, at the card's top SM
     clock."""
@@ -1430,10 +1493,10 @@ def conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens, sm_ghz):
                                     kw["kh"], kw["kw"], stride,
                                     tuple(kw["dilation"]),
                                     QC.alignment(args[1]))
-                general = QC.general_plan(n, out.shape[1], out.shape[2], oc)
+                loop = QC.loop_plan(n, out.shape[1], out.shape[2], oc)
                 exact = lambda: K.qconv2d_exact(*args, **kw)  # noqa: E731
                 fast = lambda: K.qconv2d_fast(*fargs, **fkw)  # noqa: E731
-                gen = forced(QC, "conv_plan", general)
+                gen = forced(QC, "conv_plan", loop)
                 log("qconv: " + json.dumps({
                     "shape": "x".join(map(str, shape)), "oc": oc,
                     "stride": list(stride), "batch": b,
@@ -1441,8 +1504,8 @@ def conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens, sm_ghz):
                     "blocks": plan.blocks, "threads": plan.threads,
                     "exact_ms": graph_ms(torch, exact),
                     "fast_ms": graph_ms(torch, fast),
-                    "general_exact_ms": graph_ms(torch, gen(exact)),
-                    "general_fast_ms": graph_ms(torch, gen(fast)),
+                    "loop_exact_ms": graph_ms(torch, gen(exact)),
+                    "loop_fast_ms": graph_ms(torch, gen(fast)),
                     "library_ms": graph_ms(torch, conv_library(
                         torch, dev, args, kw, depthwise=False)),
                     "bound_ms": bound_ms("qconv2d_exact", args, kw, out)}))
@@ -1689,37 +1752,49 @@ def profile_phase(torch, dev, graphs, goldens, exact, name=FULL_WIDTH):
 
 def sr_general_lines(torch, dev, sr_calls, smi):
     """One ``qconv_general:`` line per distinct B2 call of a b1 FSRCNN
-    request that takes the general implicit-GEMM branch (the 3x3 12 -> 12
-    convs and the deconv's phase convs): B2 and B2 fast times, the plain
-    version's (eager), 0 differing bytes (checked again here), the bound
-    and a cuDNN float32 conv of the same shape (conv_library)."""
+    request off the direct kernel (the 3x3 12 -> 12 convs and the
+    deconv's union conv): its plan, which must be the mma branch, B2 and
+    B2 fast times, the same calls with qgemm.cuh's loop forced (the first
+    port's general branch), the plain version's (eager), the largest
+    |kernel - plain| (0, checked again here), the bound and a cuDNN
+    float32 conv of the same shape (conv_library).  Checked first: in each numerics a request makes
+    6 B2 calls, of which one (Ci 56) is the deconv."""
     from band_tpu_torch.ops import kernels as K
     from band_tpu_torch.ops.kernels import qconv as QC
 
     shapes = {}
     for kind, calls in sr_calls.items():
-        for name, args, kw, out in calls:
-            if name not in ("qconv2d_exact", "qconv2d_fast"):
-                continue
+        convs = [c for c in calls if c[0] in ("qconv2d_exact",
+                                              "qconv2d_fast")]
+        deconvs = [c for c in convs if c[1][0].shape[3] == 56]
+        check(len(convs) == 6 and len(deconvs) == 1,
+              f"sr {kind}: {len(convs)} B2 calls a request, "
+              f"{len(deconvs)} of them the deconv (want 6 and 1)")
+        for name, args, kw, out in convs:
             x, w = args[0], args[1]
-            plan = QC.conv_plan(x.shape[0], out.shape[1], out.shape[2],
-                                x.shape[3], w.shape[1], kw["kh"], kw["kw"],
-                                tuple(kw["stride"]), tuple(kw["dilation"]),
-                                QC.alignment(w))
-            if plan.variant >= 0:
+            plan = b2_plan(args, kw, out)
+            if plan.branch == "direct":
                 continue
+            check(plan.branch == "mma", f"sr {kind}: a B2 call of FSRCNN "
+                  f"{tuple(x.shape)} took {plan.name}")
             key = (tuple(x.shape), kw["kh"], kw["kw"], w.shape[1],
                    tuple(tuple(p) for p in kw["padding"]))
-            d = shapes.setdefault(key, dict(calls=0))
+            d = shapes.setdefault(key, dict(calls=0, plan=plan))
             d["calls"] += name == "qconv2d_exact"
             d.setdefault(name, (args, kw, out))
     check(shapes, "sr: no B2 call of FSRCNN took the general branch")
     plain = {"qconv2d_exact": K.qconv2d_plain,
              "qconv2d_fast": K.qconv2d_fast_plain}
+    # per b1 request, summed over its mma calls, for the kernels line
+    stats = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_s=0.0,
+                     ops_s=0.0, library_ms=0.0, max_abs_err=0)
+             for n in MMA_KERNELS}
     for (shape, kh, kw_, oc, pad), d in sorted(shapes.items()):
+        plan = d["plan"]
         line = {"shape": "x".join(map(str, shape)), "taps": f"{kh}x{kw_}",
                 "oc": oc, "padding": [list(p) for p in pad],
-                "calls_per_request": d["calls"], "plan": "general"}
+                "calls_per_request": d["calls"], "plan": plan.name,
+                "blocks": plan.blocks, "smem": plan.smem}
         for name in ("qconv2d_exact", "qconv2d_fast"):
             args, kw, out = d[name]
             run = getattr(K, name)
@@ -1727,15 +1802,32 @@ def sr_general_lines(torch, dev, sr_calls, smi):
                        plain[name](*args, **kw), f"sr {shape} {kh}x{kw_}")
             tag = "exact" if name == "qconv2d_exact" else "fast"
             line[f"{tag}_ms"] = graph_ms(torch, lambda: run(*args, **kw))
+            loop = forced(QC, "conv_plan", QC.loop_plan(
+                shape[0], out.shape[1], out.shape[2], oc))
+            line[f"{tag}_loop_ms"] = graph_ms(
+                torch, loop(lambda: run(*args, **kw)))
             line[f"{tag}_plain_ms"] = eager_ms(
                 torch, lambda: plain[name](*args, **kw))
-            line[f"{tag}_differing_bytes"] = err
+            line[f"{tag}_max_abs_err"] = err
         args, kw, out = d["qconv2d_exact"]
         line["bound_ms"] = bound_ms("qconv2d_exact", args, kw, out)
         line["library_ms"] = graph_ms(torch, conv_library(
             torch, dev, args, kw, depthwise=False))
         line["card"] = smi
         log("qconv_general: " + json.dumps(line))
+        nbytes, ops, rate = work("qconv2d_exact", args, kw, out)
+        for name, meta in MMA_KERNELS.items():
+            tag = "exact" if meta["wrapper"] == "qconv2d_exact" else "fast"
+            st, k = stats[name], d["calls"]
+            st["ms"] += k * line[f"{tag}_ms"]
+            st["plain_ms"] += k * line[f"{tag}_plain_ms"]
+            st["bound_ms"] += k * line["bound_ms"]
+            st["bytes_s"] += k * 1e3 * nbytes / HBM_BYTES_PER_S
+            st["ops_s"] += k * 1e3 * ops / rate
+            st["library_ms"] += k * line["library_ms"]
+            st["max_abs_err"] = max(st["max_abs_err"],
+                                    line[f"{tag}_max_abs_err"])
+    return stats
 
 
 def sr_b32(torch, dev, graphs, gd, smi):
@@ -1854,6 +1946,9 @@ def sr_phase(torch, dev, bt, K, graphs, ops_goldens, sr_calls, smi):
     for name in KERNELS:
         check((counts[name] > 0) == (name in ran),
               f"sr: kernel {name} launched {counts[name]} times")
+    for name in MMA_KERNELS:
+        check(counts[name] > 0, f"sr: {name} (B2's general branch) never "
+              "launched")
     log(f"sr: launches {json.dumps(counts)}")
     sr_b32(torch, dev, graphs, gd, smi)
     for kind in ("exact", "fast"):
@@ -1862,8 +1957,8 @@ def sr_phase(torch, dev, bt, K, graphs, ops_goldens, sr_calls, smi):
         log(f"sr: {kind} per request: device {p['device_kernel_ms']} ms, "
             f"{p['launches']} launches, busy share "
             f"{p['device_busy_share']} ({smi})")
-    sr_general_lines(torch, dev, sr_calls, smi)
-    return counts, rates
+    mma_stats = sr_general_lines(torch, dev, sr_calls, smi)
+    return counts, rates, mma_stats
 
 
 # --------------------------------------------------------------------------
@@ -2708,8 +2803,8 @@ def main():
                                            fast_goldens, card,
                                            bt.DeviceFlag.GPU, "fast")
     mixed_phase(bt, K, goldens, fast_goldens, bt.DeviceFlag.GPU)
-    sr_counts, sr_rates = sr_phase(torch, dev, bt, K, graphs, ops_goldens,
-                                   sr_calls, smi)
+    sr_counts, sr_rates, mma_stats = sr_phase(torch, dev, bt, K, graphs,
+                                              ops_goldens, sr_calls, smi)
     depth_phase(torch, dev, graphs, goldens, fast_goldens)
     profile_phase(torch, dev, graphs, goldens, exact=True)
     profile_phase(torch, dev, graphs, goldens, exact=False)
@@ -2742,6 +2837,22 @@ def main():
             # replays of the fused b32 graph count its captured calls
             "codispatch_launches": co_counts[name],
             # the sr phase's FSRCNN x2 requests, exact and fast
+            "sr_launches": sr_counts[name],
+        })
+    for name, meta in MMA_KERNELS.items():
+        s = mma_stats[name]
+        # B2's general branch: its launches on its main path, the sr
+        # phase; the times of a b1 FSRCNN request's mma calls; its largest
+        # error over those and every captured call that took it
+        line.append({
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": sr_counts[name],
+            "max_abs_err": max(s["max_abs_err"], worst[name]), "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "bytes" if s["bytes_s"] >= s["ops_s"] else "operations",
+            "library_ms": s["library_ms"],
+            "mobilenet_v2_b1_launches": stats[name]["launches_b1"],
+            "codispatch_launches": co_counts[name],
             "sr_launches": sr_counts[name],
         })
     log(json.dumps({"kernels": line}))

@@ -271,8 +271,9 @@ CONV_GEOMS = [
                                             (3, torch.uint8)])
 def test_conv_plan_branches_match_plain(dev, geom, w_zp, out_dtype):
     """B2 and its fast instance under conv_plan's own plan, every direct
-    variant forced onto a ragged tile, and the general implicit-GEMM loop
-    forced: byte-equal to the plain versions."""
+    variant forced onto a ragged tile, the mma branch forced with each N
+    tile, and qgemm.cuh's loop forced: byte-equal to the plain
+    versions."""
     n, h, w, ci, oc, st, pad, offset = geom
     rng = np.random.default_rng(23 + ci + oc)
     x = _i8(rng, dev, n * h * w * ci + offset)[offset:].view(n, h, w, ci)
@@ -289,15 +290,18 @@ def test_conv_plan_branches_match_plain(dev, geom, w_zp, out_dtype):
     want_fast = K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast)
     oh = (h + sum(pad[0]) - 3) // st[0] + 1
     ow = (w + sum(pad[1]) - 3) // st[1] + 1
+    th, tw = QC.mma_tile(QC.MMA_PIXELS[0])
     plans = [QC.conv_plan(n, oh, ow, ci, oc, 3, 3, st, (1, 1),
                           QC.alignment(wk)),
-             QC.general_plan(n, oh, ow, oc)]
+             QC.loop_plan(n, oh, ow, oc)]
+    plans += [QC.mma_plan(v, n, oh, ow, oc, 3, 3, st, (1, 1), th, tw, 1)
+              for v in range(len(QC.MMA_NTILES))]
     plans += [p for p in (QC.direct_plan(v, n, oh, ow, ci, oc, 3, 3, st,
                                          (1, 1), 2, 4)
                           for v in range(len(QC.DIRECT_VARIANTS)))
               if QC.fits(p, ci, oc)]
-    assert plans[0].variant >= 0
-    assert len(plans) == 2 + len(QC.DIRECT_VARIANTS)
+    assert plans[0].branch == "direct"
+    assert len(plans) == 2 + len(QC.MMA_NTILES) + len(QC.DIRECT_VARIANTS)
     K.reset_launches()
     for plan in plans:
         with _forced(QC, "conv_plan", plan):
@@ -307,6 +311,100 @@ def test_conv_plan_branches_match_plain(dev, geom, w_zp, out_dtype):
         assert torch.equal(got_fast, want_fast), plan
     counts = K.launch_counts()
     assert counts["qconv2d_exact"] == counts["qconv2d_fast"] == len(plans)
+
+
+# (n, h, w, ci, oc, kh, kw, stride, dilation, padding, x's byte offset):
+# FSRCNN's union deconv and 3x3 12 -> 12 conv at full width, a ragged Ci
+# with x off alignment, Oc 65 and 200 (column tiles on grid y), stride 2,
+# dilation 2, a block above 48 KB of shared memory (the opt-in), Ci 200
+# in three channel groups, K of 147,456 bytes (Ci 16384) in channel
+# groups each below 2^17 bytes, taps 54 apart (only an N tile of 8 fits
+# Oc 32) and taps 60 apart (no patch fits: a gathering block)
+MMA_GEOMS = [
+    (1, 360, 640, 56, 4, 5, 5, (1, 1), (1, 1), ((2, 2), (2, 2)), 0),
+    (1, 360, 640, 12, 12, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)), 0),
+    (2, 13, 11, 5, 9, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)), 1),
+    (1, 17, 19, 27, 65, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)), 0),
+    (1, 12, 14, 32, 200, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)), 0),
+    (2, 21, 19, 24, 16, 3, 3, (2, 2), (1, 1), ((0, 1), (0, 1)), 0),
+    (1, 20, 22, 20, 24, 3, 3, (1, 1), (2, 2), ((2, 2), (2, 2)), 0),
+    (1, 200, 200, 16, 32, 11, 11, (1, 1), (1, 1), ((5, 5), (5, 5)), 3),
+    (1, 9, 70, 200, 32, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)), 0),
+    (1, 5, 7, 16384, 24, 3, 3, (1, 1), (1, 1), ((1, 1), (1, 1)), 0),
+    (1, 130, 130, 32, 32, 3, 3, (1, 1), (54, 54), ((54, 54), (54, 54)), 0),
+    (1, 130, 130, 32, 16, 3, 3, (1, 1), (60, 60), ((60, 60), (60, 60)), 0),
+]
+
+
+@pytest.mark.parametrize("geom", MMA_GEOMS, ids=lambda g: "x".join(
+    map(str, g[:5])) + f"-{g[5]}x{g[6]}-s{g[7][0]}-d{g[8][0]}")
+@pytest.mark.parametrize("w_zp,out_dtype", [(0, torch.int8),
+                                            (3, torch.uint8)])
+def test_mma_branch_matches_plain(dev, geom, w_zp, out_dtype):
+    """The general branch (csrc/qconv_mma.cuh) under conv_plan's plan,
+    with each N tile forced where it fits, and as a gathering block,
+    exact and fast numerics, byte-equal to the plain versions."""
+    n, h, w, ci, oc, kh, kw, st, dil, pad, offset = geom
+    rng = np.random.default_rng(ci + oc + kh)
+    x = _i8(rng, dev, n * h * w * ci + offset)[offset:].view(n, h, w, ci)
+    wk = _i8(rng, dev, kh * kw * ci, oc)
+    epi = _epilogue(rng, oc, kh * kw * ci, dev)
+    mult = torch.from_numpy((30.0 / (np.sqrt(kh * kw * ci) * 73.0 * 73.0)
+                             * rng.uniform(0.5, 2.0, oc)).astype(
+                                 np.float32)).to(dev)
+    conv = dict(kh=kh, kw=kw, stride=st, dilation=dil, padding=pad,
+                x_zp=-68)
+    oh = QC.conv_out_size(h, kh, st[0], dil[0], sum(pad[0]))
+    ow = QC.conv_out_size(w, kw, st[1], dil[1], sum(pad[1]))
+    plan = QC.conv_plan(n, oh, ow, ci, oc, kh, kw, st, dil, QC.alignment(wk))
+    assert plan.branch == "mma", plan
+    if kh == 11:
+        assert plan.smem > QC.MAX_SMEM, plan
+    assert plan.gather == (dil[0] == 60), plan
+    if dil[0] == 54:
+        assert QC.MMA_NTILES[plan.variant] == 8, plan
+    th, tw = plan.tile
+    plans = [plan] + [
+        p for p in (QC.mma_plan(v, n, oh, ow, oc, kh, kw, st, dil, th, tw,
+                                plan.slabs, gather)
+                    for v in range(len(QC.MMA_NTILES))
+                    for gather in (False, True))
+        if QC.mma_fits(p, ci, kh, kw)]
+    args = dict(_args(out_dtype, "ruy", w_zp), **conv)
+    fast = dict(_fast_args(out_dtype, w_zp), **conv)
+    want = K.qconv2d_plain(x, wk, *epi, **args)
+    want_fast = K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast)
+    for p in plans:
+        with _forced(QC, "conv_plan", p):
+            got = K.qconv2d_exact(x, wk, *epi, **args)
+            got_fast = K.qconv2d_fast(x, wk, epi[0], mult, **fast)
+        assert torch.equal(got, want), p
+        assert torch.equal(got_fast, want_fast), p
+
+
+@pytest.mark.parametrize("w_zp", [0, 3])
+def test_mma_branch_k_beyond_2_17_wraps_as_plain(dev, w_zp):
+    """K of 147,456 bytes with every x, x_zp and weight at -128: the sum,
+    9 * 16384 * 2^14 = 2,415,919,104, leaves int32.  Each channel group
+    stays below 2^17 bytes of K, so the tensor cores' int32 sums are
+    exact, and the groups add modulo 2^32: exact and fast outputs
+    byte-equal to the plain versions' int32 wrap."""
+    n, h, w, ci, oc = 1, 5, 7, 16384, 24
+    x = torch.full((n, h, w, ci), -128, dtype=torch.int8, device=dev)
+    wk = torch.full((9 * ci, oc), -128, dtype=torch.int8, device=dev)
+    rng = np.random.default_rng(217)
+    epi = _epilogue(rng, oc, 9 * ci, dev)
+    mult = torch.full((oc,), 1e-9, dtype=torch.float32, device=dev)
+    conv = dict(kh=3, kw=3, padding=((1, 1), (1, 1)), x_zp=-128)
+    plan = QC.conv_plan(n, h, w, ci, oc, 3, 3, (1, 1), (1, 1),
+                        QC.alignment(wk))
+    assert plan.branch == "mma" and plan.slabs < 1024, plan
+    args = dict(_args(torch.int8, "ruy", w_zp), **conv)
+    fast = dict(_fast_args(torch.int8, w_zp), **conv)
+    assert torch.equal(K.qconv2d_exact(x, wk, *epi, **args),
+                       K.qconv2d_plain(x, wk, *epi, **args))
+    assert torch.equal(K.qconv2d_fast(x, wk, epi[0], mult, **fast),
+                       K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast))
 
 
 @pytest.mark.parametrize("rows", [1, 8])
@@ -412,20 +510,16 @@ def test_gpu_worker_serves_the_fast_goldens(dev):
 def _fsrcnn_general_geoms():
     """FSRCNN x2's (360x640) convs that take B2's general branch: the four
     3x3 12 -> 12 mapping convs (Oc not a multiple of 8) and the deconv's
-    four phase convs (Ci 56, Oc 1), with the padding the lowering gives
-    each phase: (kh, kw, ci, oc, ((top, bottom), (left, right)))."""
-    from band_tpu_torch.ops.lowerings import _tconv_phases
+    union conv of its four sub-pixel phases (Ci 56, Oc 4), with the
+    padding the lowering gives it: (kh, kw, ci, oc, ((top, bottom), (left,
+    right)))."""
+    from band_tpu_torch.ops.lowerings import _tconv_phases, _tconv_window
 
-    geoms = [(3, 3, 12, 12, ((1, 1), (1, 1)))]
     h, w = 360, 640
-    ph = _tconv_phases(9, 2, 3, 2 * h)
-    pw = _tconv_phases(9, 2, 3, 2 * w)
-    for _, kah, offh, th in ph:
-        for _, kaw, offw, tw in pw:
-            geoms.append((kah, kaw, 56, 1, (
-                (-offh, offh + th + kah - 1 - h),
-                (-offw, offw + tw + kaw - 1 - w))))
-    return geoms
+    _, uh, pads_h, _, _ = _tconv_window(_tconv_phases(9, 2, 3, 2 * h), h)
+    _, uw, pads_w, _, _ = _tconv_window(_tconv_phases(9, 2, 3, 2 * w), w)
+    return [(3, 3, 12, 12, ((1, 1), (1, 1))),
+            (uh, uw, 56, 4, (pads_h, pads_w))]
 
 
 @pytest.mark.parametrize("geom", _fsrcnn_general_geoms(),
@@ -433,8 +527,7 @@ def _fsrcnn_general_geoms():
 @pytest.mark.parametrize("rounding", ["ruy", "double"])
 def test_fsrcnn_general_branch_shapes_match_plain(dev, geom, rounding):
     """B2 and B2 fast at FSRCNN's full-width general-branch shapes (the
-    plan picks the implicit-GEMM loop), byte-equal to the plain
-    versions."""
+    plan picks the mma branch), byte-equal to the plain versions."""
     kh, kw, ci, oc, pad = geom
     h, w = 360, 640
     rng = np.random.default_rng(kh * 10 + kw + ci)
@@ -449,7 +542,7 @@ def test_fsrcnn_general_branch_shapes_match_plain(dev, geom, rounding):
     ow = w + sum(pad[1]) - kw + 1
     assert (oh, ow) == (h, w)
     assert QC.conv_plan(1, oh, ow, ci, oc, kh, kw, (1, 1), (1, 1),
-                        QC.alignment(wk)).variant < 0
+                        QC.alignment(wk)).branch == "mma"
     args = dict(_args(torch.int8, rounding, 0), **conv)
     got = K.qconv2d_exact(x, wk, *epi, **args)
     assert torch.equal(got, K.qconv2d_plain(x, wk, *epi, **args))
@@ -492,20 +585,32 @@ def test_gpu_worker_serves_fsrcnn_small(dev):
 
 
 def test_general_branch_beyond_65535_row_tiles(dev):
-    """B2's general branch on 19 stacked FSRCNN frames (4,377,600 output
-    pixels: 68,400 row tiles of 64, above grid y's 65,535), exact and
-    fast, byte-equal to the plain versions."""
+    """B2's general branch on 72 stacked FSRCNN frames (16,588,800 output
+    pixels: 66,240 pixel tiles of 16 x 16, above grid y's 65,535), and
+    qgemm.cuh's loop forced on 19 of them (4,377,600 output pixels:
+    68,400 row tiles of 64), exact and fast, byte-equal to the plain
+    versions."""
     rng = np.random.default_rng(19)
-    x = _i8(rng, dev, 19, 360, 640, 12)
+    x = _i8(rng, dev, 72, 360, 640, 12)
     wk = _i8(rng, dev, 9 * 12, 12)
     epi = _epilogue(rng, 12, 9 * 12, dev)
     mult = torch.full((12,), 1e-3, dtype=torch.float32, device=dev)
     conv = dict(kh=3, kw=3, padding=((1, 1), (1, 1)), x_zp=-92)
-    assert QC.conv_plan(19, 360, 640, 12, 12, 3, 3, (1, 1), (1, 1),
-                        QC.alignment(wk)).grid[0] == 68400
+    plan = QC.conv_plan(72, 360, 640, 12, 12, 3, 3, (1, 1), (1, 1),
+                        QC.alignment(wk))
+    assert plan.branch == "mma" and plan.grid == (66240, 1, 1), plan
     args = dict(_args(torch.int8, "ruy", 0), **conv)
     assert torch.equal(K.qconv2d_exact(x, wk, *epi, **args),
                        K.qconv2d_plain(x, wk, *epi, **args))
     fast = dict(_fast_args(torch.int8, 0), **conv)
     assert torch.equal(K.qconv2d_fast(x, wk, epi[0], mult, **fast),
+                       K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast))
+    x = x[:19]
+    loop = QC.loop_plan(19, 360, 640, 12)
+    assert loop.grid[0] == 68400
+    with _forced(QC, "conv_plan", loop):
+        got = K.qconv2d_exact(x, wk, *epi, **args)
+        got_fast = K.qconv2d_fast(x, wk, epi[0], mult, **fast)
+    assert torch.equal(got, K.qconv2d_plain(x, wk, *epi, **args))
+    assert torch.equal(got_fast,
                        K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast))

@@ -77,6 +77,14 @@ def _tensors(name, seed):
     return out
 
 
+def _pixel_shuffle(prog, op):
+    """Whether the union conv's phases interleave into the whole output
+    (each stride divides the output size), with no rows or columns cut."""
+    t_h, t_w = prog.meta[f"op{op.index}/tiles"]
+    return (t_h * op.options["stride_h"], t_w * op.options["stride_w"]) == \
+        tuple(prog.meta[f"op{op.index}/out_hw"])
+
+
 def _port(g, index, feeds, exact=True):
     """The one-op program, fed the output-shape input (when it is not a
     constant) and x from ``feeds``."""
@@ -103,7 +111,7 @@ def test_exact_matches_tflite(name, index, even, roundings):
         prog, got = _port(tg, index, t)
         np.testing.assert_array_equal(got, t[op.outputs[0]],
                                       err_msg=f"seed {seed}")
-    assert prog.meta[f"op{index}/even"] == even
+    assert _pixel_shuffle(prog, op) == even
     assert tuple(r for _, _, r in prog.meta[f"op{index}/groups"]) == \
         roundings
 
@@ -179,10 +187,15 @@ def _scatter_reference(g, op, x, prog):
     meta = prog.meta
     out = []
     for gi, (c0, c1, rounding) in enumerate(meta[f"op{op.index}/groups"]):
+        # the union's multipliers: the group's, once per phase
+        qm, shift = (np.asarray(prog.params[f"op{op.index}/{k}_{gi}"])
+                     for k in ("qm", "shift"))
+        for v in (qm, shift):
+            np.testing.assert_array_equal(
+                v, np.tile(v[:c1 - c0], s_h * s_w))
         out.append(Q.requantize_exact(
             torch.from_numpy(acc[..., c0:c1]),
-            prog.params[f"op{op.index}/qm_{gi}"],
-            prog.params[f"op{op.index}/shift_{gi}"],
+            torch.from_numpy(qm[:c1 - c0]), torch.from_numpy(shift[:c1 - c0]),
             meta[f"op{op.index}/out_zp"], meta[f"op{op.index}/qmin"],
             meta[f"op{op.index}/qmax"], out_td.dtype, rounding).numpy())
     return np.concatenate(out, axis=-1)
@@ -246,10 +259,96 @@ def test_phase_without_taps(exact):
     t = dict(_tensors("tconv_int8", 0))
     t[op.inputs[0]] = np.array([1, 19, 19, 16], np.int32)
     prog, got = _port(tg, 3, t, exact=exact)
-    fills = [k for k in prog.params if "/fill_" in k]
-    assert len(fills) == 7  # phase 3 of rows with any column phase, and back
-    assert not prog.meta["op3/even"]
+    # the union's phases without taps: their kernel slices hold w_zp only
+    w = np.asarray(prog.params["op3/w_0"])
+    w = w.reshape(w.shape[0], 16, -1)  # [taps * Ci, phase, channel]
+    tapless = [p for p in range(16)
+               if (w[:, p] == prog.meta["op3/w_zp"]).all()]
+    assert tapless == [3, 7, 11, 12, 13, 14, 15]  # phase 3 of either axis
+    assert not _pixel_shuffle(prog, op)
     np.testing.assert_array_equal(got, _band_tpu(jg, 3, t, exact))
     if exact:
         np.testing.assert_array_equal(
             got, _scatter_reference(tg, op, t[op.inputs[2]], prog))
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("name,index,even,roundings", DECONVS, ids=IDS)
+def test_one_b2_call_per_rounding_group(name, index, even, roundings, exact,
+                                        monkeypatch):
+    """The lowering runs every sub-pixel phase of a rounding group as one
+    B2 call (B2 fast in fast numerics), counted through a wrapper on the
+    CPU: each over the deconv's input x, with the union's taps and the
+    phases' channels (sh * sw of each of the group's channels); and the
+    result stays TFLite's (exact) or band_tpu's (fast)."""
+    from band_tpu_torch.ops import lowerings as L
+
+    tg, jg = _graphs(name)
+    op = tg.ops[index]
+    t = _tensors(name, 0)
+    kernel = "qconv2d_exact" if exact else "qconv2d_fast"
+    calls = []
+
+    def count(f):
+        def g(*args, **kw):
+            calls.append((args, kw))
+            return f(*args, **kw)
+        return g
+
+    monkeypatch.setattr(L, kernel, count(getattr(L, kernel)))
+    prog, got = _port(tg, index, t, exact=exact)
+    groups = prog.meta[f"op{index}/groups"]
+    assert len(calls) == len(groups) == (len(roundings) if exact else 1)
+    phases = op.options["stride_h"] * op.options["stride_w"]
+    for (c0, c1, _), (args, kw) in zip(groups, calls):
+        assert tuple(args[0].shape) == t[op.inputs[2]].shape
+        assert (kw["kh"], kw["kw"]) == tuple(prog.meta[f"op{index}/taps"])
+        assert args[1].shape[1] == phases * (c1 - c0)
+    want = t[op.outputs[0]] if exact else _band_tpu(jg, index, t, False)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,index,even,roundings", DECONVS, ids=IDS)
+def test_union_places_each_phase_at_its_offset(name, index, even,
+                                               roundings):
+    """The union conv's kernel, per phase (rh, rw): the slice w[u0::s] of
+    the 180-degree-rotated kernel at the phase's input offset (off - lo)
+    on each axis, w_zp on every other tap of the window.  tconv_int8's
+    3x3 and cnn_ops_int8's deconvs have phases with different offsets
+    (-1 and 0) and tap counts (2 and 1); FSRCNN's both at -2, with 5 and
+    4 taps."""
+    from band_tpu_torch.ops.lowerings import (_tconv_pads, _tconv_phases,
+                                              _tconv_window)
+
+    tg = _graphs(name)[0]
+    op = tg.ops[index]
+    prog = tbuild(tg, [index])
+    meta = lambda k: prog.meta[f"op{index}/{k}"]  # noqa: E731
+    w_td = tg.tensor(op.inputs[1])
+    x_td = tg.tensor(op.inputs[2])
+    oc, kh, kw, ci = w_td.shape
+    w = np.transpose(w_td.data[:, ::-1, ::-1, :], (1, 2, 3, 0))
+    sh, sw = op.options["stride_h"], op.options["stride_w"]
+    out_h, out_w = meta("out_hw")
+    in_h, in_w = x_td.shape[1:3]
+    pb_h, pb_w = _tconv_pads(op.options, in_h, in_w, kh, kw, sh, sw, out_h,
+                             out_w)
+    ph = _tconv_phases(kh, sh, pb_h, out_h)
+    pw = _tconv_phases(kw, sw, pb_w, out_w)
+    lo_h, uh, pads_h, _, _ = _tconv_window(ph, in_h)
+    lo_w, uw, pads_w, _, _ = _tconv_window(pw, in_w)
+    assert meta("taps") == (uh, uw) and meta("pads") == (pads_h, pads_w)
+    if (name, index) in (("tconv_int8", 3), ("cnn_ops_int8", 23)):
+        assert len({off for _, _, off, _ in ph}) == 2
+    wzp = meta("w_zp")
+    for g, (c0, c1, _) in enumerate(meta("groups")):
+        wu = np.asarray(prog.params[f"op{index}/w_{g}"]).reshape(
+            uh, uw, ci, sh * sw, c1 - c0)
+        for rh, (u0h, kah, offh, _) in enumerate(ph):
+            for rw, (u0w, kaw, offw, _) in enumerate(pw):
+                want = np.full((uh, uw, ci, c1 - c0), wzp, np.int64)
+                want[offh - lo_h:offh - lo_h + kah,
+                     offw - lo_w:offw - lo_w + kaw] = \
+                    w[u0h::sh, u0w::sw, :, c0:c1].astype(np.int64)
+                np.testing.assert_array_equal(
+                    wu[:, :, :, rh * sw + rw], want, err_msg=f"{rh},{rw}")
