@@ -113,7 +113,7 @@ class ModelExecutor:
             waiter.wait(timeout=600)
         try:
             prog = build_program(self.graph, op_indices, exact=self.exact,
-                                 host=self.host)
+                                 host=self.host, device=self.device)
             # weights move to the worker's device once, here
             params = params_from_jax(prog.params, self.device)
             with self._lock:

@@ -28,7 +28,7 @@ import torch
 from ..errors import LoweringError
 from ..ir.graph import Graph
 from ..ops.host_ops import has_host_impl, run_host_op
-from ..ops.lowerings import LowerCtx
+from ..ops.lowerings import LowerCtx, require_ieee_fp32
 from ..ops.registry import REGISTRY, get_lowering
 
 
@@ -176,11 +176,13 @@ def _run_custom(ctx: LowerCtx, op) -> None:
 
 def build_program(
     graph: Graph, op_indices: Sequence[int], exact: bool = True,
-    host: bool = False,
+    host: bool = False, device=None,
 ) -> SubgraphProgram:
     """A program over ``op_indices``.  ``host`` (a host worker's program)
     admits custom ops with a host implementation; on any other worker a
-    custom op raises LoweringError."""
+    custom op raises LoweringError.  For a card (``device`` a CUDA
+    device) a float32 contraction is refused while TF32 is on
+    (ops/lowerings.py require_ieee_fp32)."""
     custom = [oi for oi in op_indices if graph.ops[oi].is_custom]
     if custom and not host:
         raise LoweringError("custom ops can only be prepared on host workers")
@@ -195,6 +197,8 @@ def build_program(
     )
     if missing:
         raise LoweringError(f"unsupported ops in subgraph: {missing}")
+    if device is not None and torch.device(device).type == "cuda":
+        require_ieee_fp32(graph, op_indices)
     op_indices = tuple(sorted(op_indices))
     inputs, outputs = subgraph_boundary(graph, op_indices)
     params, meta = prepare_params(

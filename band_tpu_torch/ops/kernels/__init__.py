@@ -15,6 +15,7 @@ B1          qmatmul.qmatmul_exact      band_tpu/ops/pallas/qmatmul.py:135
 B2          qconv.qconv2d_exact        band_tpu/ops/pallas/qconv.py:152
 B3          qdwconv.qdwconv2d_exact    band_tpu/ops/pallas/qdwconv.py:114
 B4          qmatmul.qmatmul_fast       band_tpu/ops/pallas/qmatmul.py:42
+B4 hybrid   qmatmul.qmatmul_hybrid     band_tpu/ops/lowerings.py:971-995 (jnp.dot + float32 rescale, no Pallas)
 B2 fast     qconv.qconv2d_fast         band_tpu/ops/lowerings.py:563-575 (XLA conv + requantize_fast)
 B2 mma      csrc/qconv_mma.cuh         B2's and B2 fast's general branch (counted apart as well)
 B3 fast     qdwconv.qdwconv2d_fast     band_tpu/ops/lowerings.py:943-964 (XLA conv + requantize_fast)
@@ -27,7 +28,8 @@ from .qconv import (qconv2d_exact, qconv2d_fast, qconv2d_fast_plain,  # noqa: F4
 from .qdwconv import (qdwconv2d_exact, qdwconv2d_fast,  # noqa: F401
                       qdwconv2d_fast_plain, qdwconv2d_plain)
 from .qmatmul import (gemm_plan, qmatmul_exact, qmatmul_fast,  # noqa: F401
-                      qmatmul_fast_plain, qmatmul_plain)
+                      qmatmul_fast_plain, qmatmul_hybrid,
+                      qmatmul_hybrid_plain, qmatmul_plain)
 from .softmax import lut_softmax, lut_softmax_plain  # noqa: F401
 from . import qconv as _qc, qdwconv as _qd, qmatmul as _qm, softmax as _sm
 from .common import recording  # noqa: F401
@@ -37,6 +39,7 @@ LAUNCHES = {
     c.name: c
     for c in (_qm.launches, _qc.launches, _qd.launches, _sm.launches,
               _qm.fast_launches, _qc.fast_launches, _qd.fast_launches,
+              _qm.hybrid_launches,
               _qc.mma_launches, _qc.fast_mma_launches)
 }
 

@@ -1,6 +1,7 @@
 // Int8 matmul with a fused requant epilogue on Hopper's tensor cores: the
-// exact TFLite requant (kernel B1) and the float32 requant of fast numerics
-// (kernel B4).
+// exact TFLite requant (kernel B1), the float32 requant of fast numerics
+// (kernel B4), and B4's core with the float32-output epilogue of
+// dynamic-range models (qmatmul_hybrid).
 //
 // B1 replaces band_tpu/ops/pallas/qmatmul.py:135 qmatmul_exact (kernel body
 // _qmatmul_exact_kernel, pallas_call at :165): every FULLY_CONNECTED and
@@ -14,6 +15,14 @@
 // function, not the Pallas blocks: the TPU kernel took M and N in tiles of
 // 256 with the whole K resident and had no w_zp term; this one takes any
 // shape, the weight zero point of uint8-era models and uint8 outputs.
+//
+// qmatmul_hybrid is the same tensor-core product with requant.cuh's
+// HybridEpilogue: A holds int8 codes of float activations quantized per
+// row at run time, and out[M, N] = act((float(acc) - zp[m] * rowsum[n]) *
+// (scale[m] * w_scale[n]) + bias[n]) is stored as float32 (band_tpu's
+// hybrid FULLY_CONNECTED, band_tpu/ops/lowerings.py:971-995, whose int8
+// product is jnp.dot, not a Pallas kernel).  A K split adds the int32
+// partials before the epilogue, as for B1 and B4.
 //
 // What bounds it on the H100.  MobileNetV2's GEMMs at batch 1 are small
 // (M = 1..12544 pixels, N and K = 16..1280 channels): 0.1-50 MOPs over a
@@ -243,13 +252,35 @@ __device__ __forceinline__ void store_row8(
   }
 }
 
+// The hybrid epilogue of 8 sums of row m, columns n..n+7: 8 floats, two
+// 16-byte stores where N % 8 == 0 (and the base is 16-byte aligned).
+__device__ __forceinline__ void store_row8(
+    const HybridEpilogue& ep, const HybridEpilogue::Params (&p)[8],
+    const int32_t (&v)[8], int32_t, float* out, int m, int n, int M, int N,
+    bool vec) {
+  if (m >= M || n >= N) return;
+  const HybridEpilogue::Row r = ep.row(m);
+  float f[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = ep.apply(v[e], p[e], r);
+  float* o = out + static_cast<size_t>(m) * N + n;
+  if (vec) {
+    reinterpret_cast<float4*>(o)[0] = make_float4(f[0], f[1], f[2], f[3]);
+    reinterpret_cast<float4*>(o)[1] = make_float4(f[4], f[5], f[6], f[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (n + e < N) o[e] = f[e];
+  }
+}
+
 // out = ep(A . B, rowsum(A)).  Block (x, y, z): rows x * BM, columns
 // y * BN, K steps [z * kt_per, (z + 1) * kt_per) of 32 bytes; with
 // splits > 1 the z blocks of a cluster add their partials before the
 // epilogue.
 template <int W, int MI, int SK, class Ep>
 __global__ void __launch_bounds__(32 * W)
-    qmatmul_kernel(Operands op, int8_t* __restrict__ out, int kt_per,
+    qmatmul_kernel(Operands op, typename Ep::Out* __restrict__ out, int kt_per,
                    int splits, bool vec_out, Ep ep) {
   using T = Tile<W, MI, SK>;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -408,7 +439,7 @@ __global__ void __launch_bounds__(32 * W)
 }
 
 template <int W, int MI, int SK, class Ep>
-cudaError_t launch_tile(const Operands& op, int8_t* out, int kt_per,
+cudaError_t launch_tile(const Operands& op, typename Ep::Out* out, int kt_per,
                         int splits, const Ep& ep, cudaStream_t s) {
   using T = Tile<W, MI, SK>;
   cudaLaunchConfig_t cfg = {};
@@ -431,8 +462,10 @@ cudaError_t launch_tile(const Operands& op, int8_t* out, int kt_per,
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
+  // 8 output elements in one or two 16-byte stores
+  constexpr uintptr_t kVec = sizeof(typename Ep::Out) == 1 ? 8 : 16;
   const bool vec_out =
-      op.N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+      op.N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % kVec == 0;
   return cudaLaunchKernelEx(&cfg, qmatmul_kernel<W, MI, SK, Ep>, op, out,
                             kt_per, splits, vec_out, ep);
 }
@@ -457,7 +490,7 @@ int launch_qmatmul(const void* a, const void* b, void* out, int M, int N,
   const Operands op{static_cast<const int8_t*>(a),
                     static_cast<const int8_t*>(b), M, N, K,
                     copy_width(a, K), copy_width(b, N)};
-  int8_t* o = static_cast<int8_t*>(out);
+  auto* o = static_cast<typename Ep::Out*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (tile) {
@@ -496,5 +529,22 @@ extern "C" int band_qmatmul_fast(const void* a, const void* b,
   const FastEpilogue ep{static_cast<const int32_t*>(bias),
                         static_cast<const float*>(mult), mstride, w_zp,
                         out_zp, qmin, qmax};
+  return launch_qmatmul(a, b, out, M, N, K, tile, splits, kt_per, ep, stream);
+}
+
+extern "C" int band_qmatmul_hybrid(const void* a, const void* b,
+                                   const void* bias, const void* w_scale,
+                                   const void* rowsum, const void* zp,
+                                   const void* scale, void* out, int M, int N,
+                                   int K, int rows, int act, int tile,
+                                   int splits, int kt_per, void* stream) {
+  using namespace band;
+  if (rows < 1 || act < 0 || act > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HybridEpilogue ep{static_cast<const float*>(bias),
+                          static_cast<const float*>(w_scale),
+                          static_cast<const int32_t*>(rowsum),
+                          static_cast<const float*>(zp),
+                          static_cast<const float*>(scale), rows, act};
   return launch_qmatmul(a, b, out, M, N, K, tile, splits, kt_per, ep, stream);
 }

@@ -1,6 +1,8 @@
 // The requantization epilogues shared by the int8 kernels: the bit-exact
-// TFLite one (Epilogue) and the float32 one of fast numerics
-// (FastEpilogue).  The kernels take either as a template parameter.
+// TFLite one (Epilogue), the float32 one of fast numerics (FastEpilogue),
+// and the float32-output one of dynamic-range (hybrid) models
+// (HybridEpilogue, the GEMM's only).  The kernels take one as a template
+// parameter; ``Out`` is the type of the output element it gives.
 //
 // Replaces the requant that band_tpu traces into every exact Pallas
 // kernel (band_tpu/ops/quant.py:286 multiply_by_quantized_multiplier and
@@ -60,6 +62,7 @@ __device__ __forceinline__ int32_t requantize(int32_t acc, int32_t qm,
 // Per-output-channel requant parameters.  qm and shift hold one entry
 // (per-tensor quantization, qstride 0) or one per channel (qstride 1).
 struct Epilogue {
+  using Out = int8_t;
   const int32_t* bias;
   const int32_t* qm;
   const int32_t* shift;
@@ -108,6 +111,7 @@ struct Epilogue {
 // clamp sees the right sign whatever the size.  mult holds one entry
 // (per-tensor, mstride 0) or one per channel (mstride 1).
 struct FastEpilogue {
+  using Out = int8_t;
   const int32_t* bias;
   const float* mult;
   int mstride;
@@ -139,6 +143,57 @@ struct FastEpilogue {
   __device__ __forceinline__ int8_t operator()(int32_t acc, int32_t wsum,
                                                int c) const {
     return apply(acc, wsum, params(c));
+  }
+};
+
+// Dynamic-range (hybrid) epilogue: float activations quantized per row
+// at run time (q, zp[r], scale[r] for quantized row r, which covers `rows`
+// consecutive GEMM rows), int8 weights with a float32 scale per column.
+// band_tpu's hybrid FULLY_CONNECTED (band_tpu/ops/lowerings.py:971-995,
+// its bias and fused activation :1045-1054), in its order of operations:
+//   v = float32(acc)                       (__int2float_rn)
+//   v = v - zp[r] * float32(rowsum[n])     (asymmetric rows only)
+//   v = v * (scale[r] * w_scale[n])
+//   v = v + bias[n]                        (when there is a bias)
+//   out = act(v)                           (NONE, RELU or RELU6)
+// Each step is one _rn intrinsic, so nvcc contracts nothing into an FMA
+// and the result equals the same float32 steps in PyTorch bit for bit.
+// The weights have no zero point: the kernel's rowsum(A) MMA stays off.
+struct HybridEpilogue {
+  using Out = float;
+  static constexpr int w_zp = 0;
+  const float* bias;       // [N], or null
+  const float* w_scale;    // [N]
+  const int32_t* rowsum;   // [N] column sums of B, or null (symmetric rows)
+  const float* zp;         // [M / rows], or null (symmetric rows)
+  const float* scale;      // [M / rows]
+  int rows;
+  int act;                 // 0 NONE, 1 RELU, 2 RELU6
+
+  struct Params {
+    float bias, w_scale, rowsum;
+  };
+  __device__ __forceinline__ Params params(int c) const {
+    return Params{bias != nullptr ? bias[c] : 0.f, w_scale[c],
+                  rowsum != nullptr ? __int2float_rn(rowsum[c]) : 0.f};
+  }
+  struct Row {
+    float zp, scale;
+  };
+  __device__ __forceinline__ Row row(int m) const {
+    const int r = m / rows;
+    return Row{zp != nullptr ? zp[r] : 0.f, scale[r]};
+  }
+
+  __device__ __forceinline__ float apply(int32_t acc, const Params& p,
+                                         const Row& r) const {
+    float v = __int2float_rn(acc);
+    if (zp != nullptr) v = __fsub_rn(v, __fmul_rn(r.zp, p.rowsum));
+    v = __fmul_rn(v, __fmul_rn(r.scale, p.w_scale));
+    if (bias != nullptr) v = __fadd_rn(v, p.bias);
+    if (act == 1) v = v < 0.f ? 0.f : v;
+    if (act == 2) v = v < 0.f ? 0.f : (v > 6.f ? 6.f : v);
+    return v;
   }
 };
 

@@ -1,6 +1,7 @@
-"""Int8 matmul + fused requant: the exact TFLite requant (kernel B1) and
-the float32 requant of fast numerics (kernel B4), each with its plain
-version.
+"""Int8 matmul + fused requant: the exact TFLite requant (kernel B1), the
+float32 requant of fast numerics (kernel B4), and B4's core with the
+float32-output epilogue of dynamic-range models (``qmatmul_hybrid``),
+each with its plain version.
 
 B1 replaces ``band_tpu/ops/pallas/qmatmul.py:135 qmatmul_exact`` (Pallas
 kernel ``_qmatmul_exact_kernel``): every exact int8 FULLY_CONNECTED and
@@ -12,6 +13,15 @@ output tiles alone leave the card idle, and the requant fused into its
 epilogue.  ``gemm_plan`` chooses the tile and the split per shape.  At the
 shapes MobileNetV2 gives it, latency bounds it, not the card's memory or
 int8 tensor-core rate; see PERF.md for its times beside its bound.
+
+``qmatmul_hybrid`` serves every hybrid FULLY_CONNECTED and 1x1 stride-1
+CONV_2D of a dynamic-range model: A holds the int8 codes of float rows
+quantized at run time (ops/quant.py), and the epilogue rescales the int32
+sum to float32 (requant.cuh HybridEpilogue).  In band_tpu that product is
+``jnp.dot`` (band_tpu/ops/lowerings.py:239-242, :971-995), not a Pallas
+kernel; on the card a float32 product of int8 values stops being exact
+once |acc| passes 2^24, and PyTorch's int8 product (``torch._int_mm``)
+takes no M below 17, so it runs on this kernel.
 """
 
 from __future__ import annotations
@@ -29,11 +39,17 @@ from .common import (LaunchCount, check_epilogue, check_fast_epilogue,
 
 launches = LaunchCount("qmatmul_exact")
 fast_launches = LaunchCount("qmatmul_fast")
+hybrid_launches = LaunchCount("qmatmul_hybrid")
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _FAST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_HYBRID_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _fn = None
 _fast_fn = None
+_hybrid_fn = None
+
+# fused activations of the hybrid epilogue, by TFLite name
+HYBRID_ACTIVATIONS = {"NONE": 0, "RELU": 1, "RELU6": 2}
 
 KSTEP = 32        # K bytes of one tensor-core step (mma m16n8k32)
 MAX_SPLITS = 8    # blocks of one thread-block cluster (the portable limit)
@@ -188,4 +204,92 @@ def qmatmul_fast(a, b, bias, mult, out_zp=0, qmin=-128, qmax=127, w_zp=0,
                  mstride, int(w_zp), int(out_zp), int(qmin), int(qmax),
                  plan.tile, plan.splits, plan.kt_per)
     fast_launches.add()
+    return out
+
+
+def hybrid_activation(v: torch.Tensor, activation: str) -> torch.Tensor:
+    """The hybrid epilogue's fused activation: v < 0 -> 0 (RELU), and v >
+    6 -> 6 (RELU6), as requant.cuh compares (a NaN passes through)."""
+    if activation == "NONE":
+        return v
+    v = torch.where(v < 0.0, 0.0, v)
+    return torch.where(v > 6.0, 6.0, v) if activation == "RELU6" else v
+
+
+def qmatmul_hybrid_plain(a, b, w_scale, w_rowsum, zp, scale, bias=None,
+                         rows=1, activation="NONE"):
+    """act((float32(A . B) - zp * rowsum) * (scale * w_scale) + bias) in
+    plain PyTorch: the product in float64 (exact), then band_tpu's float32
+    steps (band_tpu/ops/lowerings.py:985-995), each rounded once.  zp and
+    scale hold one entry per ``rows`` rows of A; zp None: symmetric rows
+    (no rowsum term); bias None: no bias."""
+    acc = (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int64)
+    v = Q.wrap32(acc).to(torch.int32).to(torch.float32)
+    if zp is not None:
+        zp_r = zp.reshape(-1, 1).repeat_interleave(rows, dim=0)
+        v = v - zp_r * w_rowsum.to(torch.float32)
+    scale_r = scale.reshape(-1, 1).repeat_interleave(rows, dim=0)
+    v = v * (scale_r * w_scale)
+    if bias is not None:
+        v = v + bias
+    return hybrid_activation(v, activation)
+
+
+def _check_hybrid(a, b, w_scale, w_rowsum, zp, scale, bias, rows,
+                  activation):
+    M, K, N = _check_operands(a, b)
+    dev = a.device
+    check_tensor(w_scale, "w_scale", torch.float32, 1, dev)
+    require(w_scale.numel() == N, f"w_scale has {w_scale.numel()} != {N}")
+    require(rows >= 1 and M % rows == 0, f"{M} rows in groups of {rows}")
+    check_tensor(scale, "scale", torch.float32, 1, dev)
+    require(scale.numel() == M // rows,
+            f"scale has {scale.numel()} != {M // rows}")
+    if zp is not None:
+        check_tensor(zp, "zp", torch.float32, 1, dev)
+        require(zp.numel() == M // rows, f"zp has {zp.numel()} != {M // rows}")
+        check_tensor(w_rowsum, "w_rowsum", torch.int32, 1, dev)
+        require(w_rowsum.numel() == N,
+                f"w_rowsum has {w_rowsum.numel()} != {N}")
+    if bias is not None:
+        check_tensor(bias, "bias", torch.float32, 1, dev)
+        require(bias.numel() == N, f"bias has {bias.numel()} != {N}")
+    require(activation in HYBRID_ACTIVATIONS,
+            f"hybrid fused activation {activation!r}")
+    return M, K, N
+
+
+def qmatmul_hybrid(a, b, w_scale, w_rowsum, zp, scale, bias=None, rows=1,
+                   activation="NONE"):
+    """out[M, N] = act((float32(A[M, K] . B[K, N]) - zp[m] * w_rowsum[n]) *
+    (scale[m] * w_scale[n]) + bias[n]), float32, with zp[m] and scale[m]
+    the entries of row m // rows.
+
+    a, b int8; w_scale, scale, zp and bias float32 (zp None for
+    symmetric rows, whose w_rowsum is then unused; bias None for none);
+    w_rowsum int32 [N]; activation NONE, RELU or RELU6.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel."""
+    global _hybrid_fn
+    M, K, N = _check_hybrid(a, b, w_scale, w_rowsum, zp, scale, bias, rows,
+                            activation)
+    if not on_card(a):
+        return qmatmul_hybrid_plain(a, b, w_scale, w_rowsum, zp, scale, bias,
+                                    rows, activation)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    if _hybrid_fn is None:
+        _hybrid_fn = build.bind("qmatmul", "band_qmatmul_hybrid",
+                                _HYBRID_ARGTYPES)
+    plan = gemm_plan(M, N, K)
+
+    def opt(t):
+        return build.ptr(t) if t is not None else ctypes.c_void_p(None)
+
+    build.launch(_hybrid_fn, a.device, build.ptr(a), build.ptr(b), opt(bias),
+                 build.ptr(w_scale), opt(w_rowsum if zp is not None else None),
+                 opt(zp), build.ptr(scale), build.ptr(out), M, N, K, rows,
+                 HYBRID_ACTIVATIONS[activation], plan.tile, plan.splits,
+                 plan.kt_per)
+    hybrid_launches.add()
     return out

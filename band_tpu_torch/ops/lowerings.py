@@ -40,10 +40,20 @@ permute or concatenate along it is refused when the program is built
 (a LoweringError naming the op), unless its operand is a shape value
 (``_is_shape_value``) and carries no requests.
 
-The op set is that of the slices so far (MobileNetV2, the tests/data
-CNNs, quant_act_int8, the SSD backbones, tconv_int8, attention_int8,
-cnn_ops_int8 and FSRCNN); float and hybrid variants of the conv-family
-ops raise LoweringError.
+Float32 and dynamic-range (hybrid) models: CONV_2D, DEPTHWISE_CONV_2D
+and FULLY_CONNECTED with float activations run F.conv2d and F.linear in
+IEEE float32 (``require_ieee_fp32``: a program with such an op is refused
+on a card while the TF32 flag that would change it is on), or, with int8
+weights, band_tpu's hybrid semantics: each request's input quantized by
+its own range at run time (quant.asym_quant_rows), the FC and the 1x1
+convs on kernel qmatmul_hybrid, the other convs as float32 convs of the
+residuals.  ADD, SUB, MUL, the pools, MEAN, SOFTMAX, RELU, RELU6 and the
+structural ops take float tensors as band_tpu does.
+
+The op set is that of the slices so far (MobileNetV2 int8, fp16 and
+dynamic range, the tests/data CNNs, quant_act_int8, the SSD backbones,
+tconv_int8, attention_int8, cnn_ops_int8 and FSRCNN); float and hybrid
+TRANSPOSE_CONV raise LoweringError.
 """
 
 from __future__ import annotations
@@ -60,7 +70,8 @@ from ..ir.graph import Graph, OpNode, QuantParams, TensorDef
 from . import quant as Q
 from .kernels import (lut_softmax, qconv2d_exact, qconv2d_fast,
                       qdwconv2d_exact, qdwconv2d_fast, qmatmul_exact,
-                      qmatmul_fast)
+                      qmatmul_fast, qmatmul_hybrid)
+from .kernels.qmatmul import HYBRID_ACTIVATIONS
 from .registry import register
 
 
@@ -161,13 +172,113 @@ def _stacked_shape(x: torch.Tensor, in_td: TensorDef, shape) -> Tuple[int, ...]:
     return (b * shape[0],) + shape[1:]
 
 
-def _require_int8_path(graph: Graph, op: OpNode) -> None:
+def _float_input(graph: Graph, op: OpNode) -> bool:
+    """Whether op's activation input is float: a float32 op, or a hybrid
+    one where its weights are int8 (band_tpu's test for the float and
+    hybrid branches)."""
     x_td = graph.tensor(op.inputs[0])
-    if x_td.quant is None or x_td.dtype.kind == "f":
+    return x_td.quant is None or x_td.dtype.kind == "f"
+
+
+def _hybrid_weights(graph: Graph, op: OpNode) -> bool:
+    """A float op with quantized constant weights: dynamic range.  Only
+    int8 weights with zero points 0 (TFLite's hybrid kernels) are taken."""
+    w_td = graph.tensor(op.inputs[1])
+    if w_td.dtype.kind not in "iu" or w_td.quant is None:
+        return False
+    if w_td.dtype != np.int8 or np.any(w_td.quant.zero_point != 0):
         raise LoweringError(
-            f"{op.opname} op {op.index}: float and hybrid variants are not "
-            "ported to PyTorch yet (int8/uint8 only)"
-        )
+            f"{op.opname} op {op.index}: hybrid weights must be int8 with "
+            "zero point 0")
+    return True
+
+
+def _apply_float_activation(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """A float32 op's fused activation (band_tpu/ops/lowerings.py:158)."""
+    if activation == "NONE":
+        return x
+    if activation == "RELU":
+        return torch.clamp(x, min=0.0)
+    if activation == "RELU6":
+        return torch.clamp(x, 0.0, 6.0)
+    if activation == "RELU_N1_TO_1":
+        return torch.clamp(x, -1.0, 1.0)
+    if activation == "TANH":
+        return torch.tanh(x)
+    raise LoweringError(f"unsupported activation {activation}")
+
+
+def _prepared(ctx: LowerCtx, op: OpNode, key: str, ref_key: str, derive):
+    """The port's prepared parameter ``key``; for band_tpu's prepared
+    parameters (``params_from_jax``), which name the same tensor in
+    band_tpu's layout, ``derive`` of its ``ref_key``."""
+    k = f"op{op.index}/{key}"
+    if k in ctx.params:
+        return ctx.params[k]
+    return derive(ctx.param(op, ref_key))
+
+
+def _optional(ctx: LowerCtx, op: OpNode, key: str):
+    return ctx.params.get(f"op{op.index}/{key}")
+
+
+# --------------------------------------------------------------------------
+# TF32: every float32 contraction of the port runs in IEEE float32
+# --------------------------------------------------------------------------
+
+# The PyTorch flag that would let each kind of float32 contraction round
+# its operands to TF32 (10-bit mantissas) on the card.
+TF32_CONV = "torch.backends.cudnn.allow_tf32"
+TF32_MATMUL = "torch.backends.cuda.matmul.allow_tf32"
+
+
+def tf32_on(flag: str) -> bool:
+    if flag == TF32_CONV:
+        return bool(torch.backends.cudnn.allow_tf32)
+    return bool(torch.backends.cuda.matmul.allow_tf32)
+
+
+def tf32_flag(graph: Graph, op: OpNode) -> Optional[str]:
+    """The flag that must be off for ``op`` on a card, or None: float and
+    hybrid convs other than the hybrid 1x1 ones (cuDNN), float
+    FULLY_CONNECTED and BATCH_MATMUL (cuBLAS).  The hybrid GEMMs run the
+    int8 kernel and take no flag."""
+    if op.opname == "BATCH_MATMUL":
+        return TF32_MATMUL
+    if op.opname not in ("CONV_2D", "DEPTHWISE_CONV_2D", "FULLY_CONNECTED") \
+            or op.is_custom or not _float_input(graph, op):
+        return None
+    w_td = graph.tensor(op.inputs[1])
+    hybrid = w_td.dtype.kind in "iu" and w_td.quant is not None
+    if op.opname == "FULLY_CONNECTED":
+        return None if hybrid else TF32_MATMUL
+    if hybrid and op.opname == "CONV_2D" and _gemm_conv(graph, op):
+        return None
+    return TF32_CONV
+
+
+def require_ieee_fp32(graph: Graph, op_indices) -> None:
+    """The port's TF32 rule, applied when a program is built for a card:
+    a float32 contraction is refused while the flag that would run it in
+    TF32 is on, rather than the flag being changed behind the caller."""
+    for oi in op_indices:
+        flag = tf32_flag(graph, graph.ops[oi])
+        if flag is not None and tf32_on(flag):
+            op = graph.ops[oi]
+            raise LoweringError(
+                f"{op.opname} op {op.index}: TF32 is on ({flag} is True, "
+                "which rounds a float32 contraction's operands to 10-bit "
+                f"mantissas); the port does not change it: set {flag} = "
+                "False")
+
+
+def _check_tf32(x: torch.Tensor, op: OpNode, flag: str) -> None:
+    """The TF32 rule at run time, for a flag turned on after the build."""
+    if x.is_cuda and tf32_on(flag):
+        raise LoweringError(
+            f"{op.opname} op {op.index}: TF32 is on ({flag} is True); a "
+            f"float32 contraction runs only in IEEE float32: set {flag} = "
+            "False")
 
 
 def _requant(ctx: LowerCtx, op: OpNode, out_td: TensorDef):
@@ -265,9 +376,47 @@ def _prepare_conv_common(
     return out
 
 
+def _gemm_conv(graph: Graph, op: OpNode) -> bool:
+    """1x1 stride-1 convs (unpadded whatever their padding): GEMMs."""
+    w = graph.tensor(op.inputs[1]).shape
+    o = op.options
+    return (int(w[1]), int(w[2])) == (1, 1) and \
+        (o["stride_h"], o["stride_w"]) == (1, 1)
+
+
+def _prepare_float_conv(graph: Graph, op: OpNode, w_ohwi: np.ndarray,
+                        gemm: bool) -> Dict[str, Any]:
+    """The float and hybrid branches of the conv prepares
+    (band_tpu/ops/lowerings.py:433-455, :715-725) with band_tpu's keys
+    (``bias``, ``w_scale``) where the layout is the same and new keys where
+    the port needs its own: ``w_ohwi`` (float weights) and ``w_q_ohwi``
+    (hybrid weights as float32 integers) [O, kh, kw, I], which permute to
+    PyTorch's OIHW with channels-last strides and no copy; for a hybrid 1x1
+    conv, a GEMM on qmatmul_hybrid, ``w_i8`` [Ci, Oc] int8 and
+    ``w_rowsum`` [Oc] int32.  (band_tpu keeps ``w`` and ``w_q`` in HWIO;
+    the lowerings derive the port's layouts from them.)"""
+    d: Dict[str, Any] = {}
+    if len(op.inputs) > 2 and op.inputs[2] >= 0:
+        d["bias"] = graph.tensor(op.inputs[2]).data.astype(np.float32)
+    if not _hybrid_weights(graph, op):
+        d["w_ohwi"] = np.ascontiguousarray(w_ohwi, np.float32)
+        return d
+    oc = w_ohwi.shape[0]
+    scale = graph.tensor(op.inputs[1]).quant.scale.astype(np.float32)
+    d["w_scale"] = np.ascontiguousarray(np.broadcast_to(scale, (oc,)))
+    if gemm:
+        w = np.ascontiguousarray(w_ohwi.reshape(oc, -1).T)  # [Ci, Oc]
+        d["w_i8"] = w
+        d["w_rowsum"] = w.astype(np.int64).sum(axis=0).astype(np.int32)
+    else:
+        d["w_q_ohwi"] = np.ascontiguousarray(w_ohwi, np.float32)
+    return d
+
+
 def _prepare_conv2d(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
-    _require_int8_path(graph, op)
     w_td = graph.tensor(op.inputs[1])
+    if _float_input(graph, op):
+        return _prepare_float_conv(graph, op, w_td.data, _gemm_conv(graph, op))
     w_hwio = np.transpose(w_td.data, (1, 2, 3, 0))  # OHWI -> HWIO
     kh, kw, ci, _ = w_hwio.shape
     return _prepare_conv_common(
@@ -276,11 +425,103 @@ def _prepare_conv2d(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     )
 
 
+def _hybrid_gemm(q: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                 rowsum: torch.Tensor, zp: Optional[torch.Tensor],
+                 scale: torch.Tensor, bias: Optional[torch.Tensor], rows: int,
+                 act: str) -> torch.Tensor:
+    """One qmatmul_hybrid launch on the float32 integer codes ``q`` (rows
+    x K) with RELU or RELU6 fused into its epilogue, any other activation
+    after it."""
+    kact = act if act in HYBRID_ACTIVATIONS else "NONE"
+    out = qmatmul_hybrid(
+        q.to(torch.int8), w, w_scale.expand(w.shape[1]).contiguous(), rowsum,
+        zp, scale.reshape(-1), bias, rows=rows, activation=kact)
+    return out if kact == act else _apply_float_activation(out, act)
+
+
+def _ohwi(w_hwio: torch.Tensor) -> torch.Tensor:
+    """band_tpu's HWIO conv weights (depthwise: [kh, kw, 1, C*m]) as the
+    port's [O, kh, kw, I]."""
+    return w_hwio.permute(3, 0, 1, 2).contiguous()
+
+
+def _float_conv(ctx: LowerCtx, op: OpNode, x: torch.Tensor,
+                w_ohwi: torch.Tensor, groups: int,
+                bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """A float32 conv of NHWC ``x`` (band_tpu's lax.conv_general_dilated,
+    band_tpu/ops/lowerings.py:591-606, :836-851) as F.conv2d on NCHW
+    views of x and of the [O, kh, kw, I] weights (channels-last strides,
+    no copy), ``groups`` groups; the result NHWC.  TFLite's SAME padding
+    puts the odd pixel after: where before and after differ, F.pad pads
+    first, as F.conv2d pads both sides alike."""
+    opts = op.options
+    kh, kw = w_ohwi.shape[1], w_ohwi.shape[2]
+    (pt, pb), (pl, pr) = _conv_pads(opts, x.shape[1], x.shape[2], kh, kw)
+    _check_tf32(x, op, TF32_CONV)
+    xc = x.permute(0, 3, 1, 2)
+    pad = (pt, pl)
+    if (pt, pl) != (pb, pr):
+        xc, pad = F.pad(xc, (pl, pr, pt, pb)), (0, 0)
+    y = F.conv2d(xc, w_ohwi.permute(0, 3, 1, 2), bias,
+                 (opts["stride_h"], opts["stride_w"]), pad,
+                 (opts.get("dilation_h", 1), opts.get("dilation_w", 1)),
+                 groups)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _float_conv_op(ctx: LowerCtx, op: OpNode, groups: int) -> None:
+    """Float and hybrid CONV_2D and DEPTHWISE_CONV_2D.
+
+    Float: one F.conv2d with the bias, then the fused activation.
+    Hybrid (dynamic range), band_tpu's semantics: each request's input is
+    quantized by its own range (quant.asym_quant_rows).  A 1x1 stride-1
+    CONV_2D is a GEMM on qmatmul_hybrid, exact in int32 as TFLite's
+    hybrid conv, with the request's zp and scale over its H*W rows and
+    bias and RELU/RELU6 in the epilogue.  Every other hybrid conv is a
+    float32 conv of the residuals q - zp, zero-padded, as band_tpu runs
+    it (exact while the window's sum stays below 2^24: 9 * 255 * 127 for
+    a depthwise 3x3), then * (scale * w_scale) + bias."""
+    x = ctx.arr(op.inputs[0])
+    act = op.options.get("activation", "NONE")
+    out_td = ctx.graph.tensor(op.outputs[0])
+    bias = _optional(ctx, op, "bias")
+    if not _hybrid_weights(ctx.graph, op):
+        w = _prepared(ctx, op, "w_ohwi", "w", _ohwi)
+        out = _float_conv(ctx, op, x, w, groups, bias)
+        ctx.set(op.outputs[0], _apply_float_activation(out, act).to(
+            Q.torch_dtype(out_td.dtype)))
+        return
+    w_scale = ctx.param(op, "w_scale")
+    if op.opname == "CONV_2D" and _gemm_conv(ctx.graph, op):
+        w = _prepared(ctx, op, "w_i8", "w_q",
+                      lambda w: w.reshape(w.shape[2], w.shape[3]).to(
+                          torch.int8).contiguous())
+        rowsum = _prepared(ctx, op, "w_rowsum", "w_q",
+                           lambda w: w.sum(dim=(0, 1, 2)).to(torch.int32))
+        n, h, w_, ci = x.shape
+        q, zp, scale = Q.asym_quant_rows(x)
+        out = _hybrid_gemm(q.reshape(n * h * w_, ci), w, w_scale, rowsum,
+                           zp.reshape(-1), scale, bias, h * w_, act)
+        ctx.set(op.outputs[0], out.reshape(n, h, w_, w.shape[1]))
+        return
+    w = _prepared(ctx, op, "w_q_ohwi", "w_q", _ohwi)
+    r, scale = Q.hybrid_quant_input(x)
+    acc = _float_conv(ctx, op, r, w, groups, None)
+    acc = acc * (scale * w_scale)
+    if bias is not None:
+        acc = acc + bias
+    ctx.set(op.outputs[0], _apply_float_activation(acc, act))
+
+
 @register("CONV_2D", prepare=_prepare_conv2d)
 def _conv2d(ctx: LowerCtx, op: OpNode) -> None:
     """1x1 stride-1 unpadded convs are matmuls (kernel B1, or B4 with fast
     numerics); every other conv runs the implicit-GEMM conv kernel (B2,
-    or its fast instance) with its own padding."""
+    or its fast instance) with its own padding.  Float and hybrid convs:
+    ``_float_conv_op``."""
+    if _float_input(ctx.graph, op):
+        _float_conv_op(ctx, op, groups=1)
+        return
     x = _to_int8_domain(ctx.arr(op.inputs[0]))
     w = ctx.param(op, "w")  # HWIO int8
     out_td = ctx.graph.tensor(op.outputs[0])
@@ -308,8 +549,11 @@ def _conv2d(ctx: LowerCtx, op: OpNode) -> None:
 # --------------------------------------------------------------------------
 
 def _prepare_dwconv2d(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
-    _require_int8_path(graph, op)
     w_td = graph.tensor(op.inputs[1])
+    if _float_input(graph, op):
+        # TFLite layout [1, kh, kw, C*m] -> [C*m, kh, kw, 1]
+        return _prepare_float_conv(
+            graph, op, np.transpose(w_td.data, (3, 1, 2, 0)), gemm=False)
     # TFLite layout [1, kh, kw, out_c] -> HWIO [kh, kw, 1, out_c]
     w_hwio = np.transpose(w_td.data, (1, 2, 0, 3))
     kh, kw = w_hwio.shape[0], w_hwio.shape[1]
@@ -322,7 +566,13 @@ def _prepare_dwconv2d(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 @register("DEPTHWISE_CONV_2D", prepare=_prepare_dwconv2d)
 def _dwconv2d(ctx: LowerCtx, op: OpNode) -> None:
     """Every int8 depthwise conv runs kernel B3, or its fast instance (any
-    stride, dilation and depth multiplier; padded taps read x_zp)."""
+    stride, dilation and depth multiplier; padded taps read x_zp).  Float
+    and hybrid: ``_float_conv_op`` with one group per input channel
+    (output channel c * m + j reads input channel c, as TFLite's depth
+    multiplier m)."""
+    if _float_input(ctx.graph, op):
+        _float_conv_op(ctx, op, groups=int(ctx.arr(op.inputs[0]).shape[-1]))
+        return
     x = _to_int8_domain(ctx.arr(op.inputs[0]))
     w = ctx.param(op, "w")  # HWIO [kh, kw, 1, C*mult] int8
     out_td = ctx.graph.tensor(op.outputs[0])
@@ -344,24 +594,79 @@ def _dwconv2d(ctx: LowerCtx, op: OpNode) -> None:
 # --------------------------------------------------------------------------
 
 def _prepare_fc(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """Quantized: B1/B4's operands.  Float and hybrid: band_tpu's keys
+    (band_tpu/ops/lowerings.py:998-1026): ``w`` [out, in] float32, or the
+    hybrid ``w_q`` [in, out] int8 (B4's layout), ``w_scale`` [out] and
+    ``w_rowsum`` [out] (int32 sums over in); ``bias`` float32."""
     w_td = graph.tensor(op.inputs[1])
     if w_td.data is None:
         raise LoweringError(
-            f"FULLY_CONNECTED op {op.index}: runtime weights are not ported "
-            "to PyTorch yet"
+            f"FULLY_CONNECTED op {op.index}: runtime weights (a control-flow "
+            "subgraph's input) are not ported to PyTorch yet"
         )
-    _require_int8_path(graph, op)
     w = w_td.data  # [out, in]
+    if _float_input(graph, op):
+        if _hybrid_weights(graph, op):
+            scale = w_td.quant.scale.astype(np.float32)
+            d: Dict[str, Any] = {
+                "w_q": np.ascontiguousarray(w.T.astype(np.int8)),
+                "w_scale": np.ascontiguousarray(
+                    np.broadcast_to(scale, (w.shape[0],))),
+                "w_rowsum": w.astype(np.int64).sum(axis=1).astype(np.int32),
+            }
+        else:
+            d = {"w": np.ascontiguousarray(w, np.float32)}
+        if len(op.inputs) > 2 and op.inputs[2] >= 0:
+            b_td = graph.tensor(op.inputs[2])
+            if not b_td.is_constant:
+                raise LoweringError(
+                    f"FULLY_CONNECTED op {op.index}: a runtime bias is not "
+                    "ported to PyTorch yet")
+            d["bias"] = b_td.data.astype(np.float32)
+        return d
     return _prepare_conv_common(
         graph, op, w_td, np.transpose(w, (1, 0)), sum_axes=(0,),
         k_taps=w.shape[1], exact=exact,
     )
 
 
+def _hybrid_fc(ctx: LowerCtx, op: OpNode, x2: torch.Tensor,
+               act: str) -> torch.Tensor:
+    """Dynamic-range FC (band_tpu/ops/lowerings.py:971-995, TFLite's
+    EvalHybrid): each row of ``x2`` quantized by its own range, symmetric
+    or (``asymmetric_quantize_inputs``) asymmetric, then one qmatmul_hybrid
+    launch with bias and RELU/RELU6 in its epilogue."""
+    if op.options.get("asymmetric_quantize_inputs", False):
+        q, zp, scale = Q.asym_quant_rows(x2)
+        zp = zp.reshape(-1)
+    else:
+        (q, scale), zp = Q.sym_quant_rows(x2), None
+    return _hybrid_gemm(q, ctx.param(op, "w_q"), ctx.param(op, "w_scale"),
+                        ctx.param(op, "w_rowsum"), zp, scale,
+                        _optional(ctx, op, "bias"), 1, act)
+
+
 @register("FULLY_CONNECTED", prepare=_prepare_fc)
 def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
     """Every int8 FC runs kernel B1 (B4 with fast numerics) on the
-    input's rows."""
+    input's rows.  Float: x . w^T + bias in float32 (F.linear; cuBLAS with
+    TF32 refused), then the fused activation.  Hybrid: ``_hybrid_fc``."""
+    if _float_input(ctx.graph, op):
+        x_raw = ctx.arr(op.inputs[0])
+        x2 = x_raw.reshape(-1, x_raw.shape[-1])
+        act = op.options.get("activation", "NONE")
+        out_td = ctx.graph.tensor(op.outputs[0])
+        if _hybrid_weights(ctx.graph, op):
+            out = _hybrid_fc(ctx, op, x2, act)
+        else:
+            _check_tf32(x2, op, TF32_MATMUL)
+            out = _apply_float_activation(F.linear(
+                x2, ctx.param(op, "w"), _optional(ctx, op, "bias")), act)
+        in_td = ctx.graph.tensor(op.inputs[0])
+        ctx.set(op.outputs[0], out.reshape(
+            _stacked_shape(x_raw, in_td, out_td.shape)).to(
+                Q.torch_dtype(out_td.dtype)))
+        return
     x_raw = ctx.arr(op.inputs[0])
     x = _to_int8_domain(x_raw)
     out_td = ctx.graph.tensor(op.outputs[0])
@@ -377,15 +682,13 @@ def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
 # ADD, SUB, MUL
 # --------------------------------------------------------------------------
 
-def _require_quantized_binary(graph: Graph, op: OpNode) -> None:
+def _quantized_binary(graph: Graph, op: OpNode) -> bool:
+    """Whether ADD, SUB or MUL takes the quantized form (else band_tpu's
+    plain one: float32, or int32 for an integer ADD or SUB)."""
     t1, t2 = graph.tensor(op.inputs[0]), graph.tensor(op.inputs[1])
     out_td = graph.tensor(op.outputs[0])
-    if (t1.quant is None or t1.dtype.kind == "f" or t2.quant is None
-            or out_td.quant is None):
-        raise LoweringError(
-            f"{op.opname} op {op.index}: float variants are not ported to "
-            "PyTorch yet"
-        )
+    return not (t1.quant is None or t1.dtype.kind == "f" or t2.quant is None
+                or out_td.quant is None)
 
 
 def _constant_inputs(graph: Graph, op: OpNode) -> Dict[str, Any]:
@@ -394,7 +697,8 @@ def _constant_inputs(graph: Graph, op: OpNode) -> Dict[str, Any]:
 
 
 def _prepare_addsub(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
-    _require_quantized_binary(graph, op)
+    if not _quantized_binary(graph, op):
+        return _constant_inputs(graph, op)
     t1, t2 = graph.tensor(op.inputs[0]), graph.tensor(op.inputs[1])
     out_td = graph.tensor(op.outputs[0])
     s1, zp1 = _scalar_qp(t1.quant)
@@ -449,9 +753,21 @@ def _addsub(ctx: LowerCtx, op: OpNode, sign: int) -> None:
     rescaled to the output, all in int64.  Fast numerics: round_half_even
     ((x1 - zp1) * f1 + sign * (x2 - zp2) * f2) + zpo in float32, band_tpu's
     form (every product and the sum rounded once, no FMA; the
-    differences of 8-bit values are exact in float32)."""
+    differences of 8-bit values are exact in float32).  Float: x1 +/- x2
+    in float32 with the fused activation (band_tpu/ops/lowerings.py:
+    1151-1162); an integer output adds in its own type."""
     out_td = ctx.graph.tensor(op.outputs[0])
     x1, x2 = _binary_inputs(ctx, op)
+    if f"op{op.index}/zp1" not in ctx.meta:
+        if out_td.dtype.kind != "f":
+            out = x1 + x2 if sign > 0 else x1 - x2
+        else:
+            x1, x2 = x1.to(torch.float32), x2.to(torch.float32)
+            out = _apply_float_activation(
+                x1 + x2 if sign > 0 else x1 - x2,
+                op.options.get("activation", "NONE"))
+        ctx.set(op.outputs[0], out.to(Q.torch_dtype(out_td.dtype)))
+        return
     if f"op{op.index}/f1" in ctx.meta:
         p1 = (x1.to(torch.float32) - float(ctx.smeta(op, "zp1"))) * \
             float(ctx.smeta(op, "f1"))
@@ -486,7 +802,8 @@ def _sub(ctx: LowerCtx, op: OpNode) -> None:
 
 
 def _prepare_mul(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
-    _require_quantized_binary(graph, op)
+    if not _quantized_binary(graph, op):
+        return _constant_inputs(graph, op)
     t1, t2 = graph.tensor(op.inputs[0]), graph.tensor(op.inputs[1])
     out_td = graph.tensor(op.outputs[0])
     s1, zp1 = _scalar_qp(t1.quant)
@@ -511,9 +828,16 @@ def _mul(ctx: LowerCtx, op: OpNode) -> None:
     double-rounding MBQM (TFLite's int8 MUL kernels use gemmlowp's
     pipeline, unlike ADD).  Fast numerics: round_half_even(product *
     fm) in float32 (the product of two 8-bit differences is exact
-    there).  A constant operand broadcasts, also over a stacked window."""
+    there).  A constant operand broadcasts, also over a stacked window.
+    Float: x1 * x2 in float32 with the fused activation, stored as the
+    output's type (band_tpu/ops/lowerings.py:1247)."""
     out_td = ctx.graph.tensor(op.outputs[0])
     x1, x2 = _binary_inputs(ctx, op)
+    if f"op{op.index}/qm" not in ctx.meta:
+        store_real(ctx, op.outputs[0], _apply_float_activation(
+            x1.to(torch.float32) * x2.to(torch.float32),
+            op.options.get("activation", "NONE")))
+        return
     if f"op{op.index}/fm" in ctx.meta:
         acc = (x1.to(torch.float32) - float(ctx.smeta(op, "zp1"))) * \
             (x2.to(torch.float32) - float(ctx.smeta(op, "zp2")))
@@ -546,38 +870,44 @@ def _pool_geometry(x: torch.Tensor, o) -> Tuple[Tuple[int, int, int, int],
             (o["stride_h"], o["stride_w"]))
 
 
-def _require_quantized_pool(ctx: LowerCtx, op: OpNode) -> None:
-    if not ctx.is_quantized(op.inputs[0]):
-        raise LoweringError(
-            f"{op.opname} op {op.index}: float pools are not ported to "
-            "PyTorch yet"
-        )
-
-
 @register("MAX_POOL_2D")
 def _max_pool(ctx: LowerCtx, op: OpNode) -> None:
     """Window max in float32 (exact for 8-bit values); padding never wins
-    the max, as the dtype minimum never does in the reference."""
-    _require_quantized_pool(ctx, op)
+    the max, as the dtype minimum never does in the reference.  A float
+    output takes the fused activation (band_tpu/ops/lowerings.py:1310)."""
     x = ctx.arr(op.inputs[0])
     td = ctx.graph.tensor(op.outputs[0])
     pads, window, strides = _pool_geometry(x, op.options)
     xf = F.pad(x.to(torch.float32).permute(0, 3, 1, 2), pads,
                value=float("-inf"))
-    out = F.max_pool2d(xf, window, strides)
-    ctx.set(op.outputs[0],
-            out.permute(0, 2, 3, 1).contiguous().to(Q.torch_dtype(td.dtype)))
+    out = F.max_pool2d(xf, window, strides).permute(0, 2, 3, 1)
+    if td.dtype.kind == "f":
+        out = _apply_float_activation(out, op.options.get("activation",
+                                                          "NONE"))
+    ctx.set(op.outputs[0], out.contiguous().to(Q.torch_dtype(td.dtype)))
 
 
 @register("AVERAGE_POOL_2D")
 def _avg_pool(ctx: LowerCtx, op: OpNode) -> None:
     """Window sums and valid-tap counts in float64 (exact), then TFLite's
     rounded integer division (half away from zero) and the fused
-    activation clamp."""
-    _require_quantized_pool(ctx, op)
+    activation clamp.  Float: the float32 window sum over the count of
+    in-bounds taps, then the fused activation (band_tpu/ops/
+    lowerings.py:1341-1348)."""
     x = ctx.arr(op.inputs[0])
     td = ctx.graph.tensor(op.outputs[0])
     pads, window, strides = _pool_geometry(x, op.options)
+    if not ctx.is_quantized(op.inputs[0]):
+        xf = F.pad(x.to(torch.float32).permute(0, 3, 1, 2), pads)
+        acc = F.avg_pool2d(xf, window, strides, divisor_override=1)
+        ones = F.pad(torch.ones((1, 1, x.shape[1], x.shape[2]),
+                                dtype=torch.float32, device=x.device), pads)
+        count = F.avg_pool2d(ones, window, strides, divisor_override=1)
+        out = _apply_float_activation(
+            (acc / count).permute(0, 2, 3, 1),
+            op.options.get("activation", "NONE"))
+        ctx.set(op.outputs[0], out.contiguous().to(Q.torch_dtype(td.dtype)))
+        return
     xf = F.pad(x.to(torch.float64).permute(0, 3, 1, 2), pads)
     acc = F.avg_pool2d(xf, window, strides, divisor_override=1)
     ones = F.pad(torch.ones((1, 1, x.shape[1], x.shape[2]),
@@ -621,10 +951,7 @@ def _prepare_softmax(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
         in_td.quant is None or in_td.dtype.kind == "f"
         or out_td.quant is None or out_td.dtype.itemsize != 1
     ):
-        raise LoweringError(
-            f"SOFTMAX op {op.index}: only the 8-bit quantized softmax is "
-            "ported to PyTorch yet"
-        )
+        return {}
     xs, _ = _scalar_qp(in_td.quant)
     return {"sm_table": Q.softmax_table(xs, op.options.get("beta", 1.0))}
 
@@ -632,7 +959,14 @@ def _prepare_softmax(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 @register("SOFTMAX", prepare=_prepare_softmax)
 def _softmax(ctx: LowerCtx, op: OpNode) -> None:
     """Bit-exact TFLite quantized softmax (exp table + float32 rows
-    summed left to right) through its kernel."""
+    summed left to right) through its kernel.  Otherwise band_tpu's float
+    form (band_tpu/ops/lowerings.py:1899-1900): softmax(beta * x) over
+    the last axis in float32, between as_float and store_real."""
+    if f"op{op.index}/sm_table" not in ctx.params:
+        x = as_float(ctx, op.inputs[0])
+        beta = float(op.options.get("beta", 1.0))
+        store_real(ctx, op.outputs[0], torch.softmax(beta * x, dim=-1))
+        return
     out_td = ctx.graph.tensor(op.outputs[0])
     os_, ozp = _scalar_qp(out_td.quant)
     ctx.set(op.outputs[0], lut_softmax(
@@ -771,9 +1105,7 @@ def _prepare_mean(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     in_td = graph.tensor(op.inputs[0])
     out_td = graph.tensor(op.outputs[0])
     if in_td.quant is None or in_td.dtype.kind == "f" or out_td.quant is None:
-        raise LoweringError(
-            f"MEAN op {op.index}: float MEAN is not ported to PyTorch yet"
-        )
+        return {}
     axes = tuple(int(v) for v in np.ravel(graph.tensor(op.inputs[1]).data))
     num = 1
     for a in axes:
@@ -789,7 +1121,9 @@ def _prepare_mean(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 @register("MEAN", prepare=_prepare_mean, static_inputs=(1,))
 def _mean(ctx: LowerCtx, op: OpNode) -> None:
     """MBQM(sum(x) - zp_in * n) + zp_out with gemmlowp's double
-    rounding, clamped (TFLite exact); the sum is int64."""
+    rounding, clamped (TFLite exact); the sum is int64.  Float: the float32
+    mean between as_float and store_real (band_tpu/ops/lowerings.py:
+    1999-2000)."""
     x = ctx.arr(op.inputs[0])
     in_rank = len(ctx.graph.tensor(op.inputs[0]).shape)
     axes = tuple(
@@ -801,6 +1135,10 @@ def _mean(ctx: LowerCtx, op: OpNode) -> None:
         )
     out_td = ctx.graph.tensor(op.outputs[0])
     keep_dims = len(out_td.shape) == in_rank
+    if f"op{op.index}/qm" not in ctx.meta:
+        store_real(ctx, op.outputs[0], as_float(ctx, op.inputs[0]).mean(
+            dim=axes, keepdim=keep_dims))
+        return
     acc = x.to(torch.int64).sum(dim=axes, keepdim=keep_dims)
     out = Q.multiply_by_quantized_multiplier(
         acc - int(ctx.smeta(op, "zp_in")), int(ctx.smeta(op, "qm")),
@@ -1200,11 +1538,6 @@ def _prepare_resize(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
         out[f"hi{axis}"] = np.clip(lo + 1, 0, n_in - 1)
         frac = np.clip(src - lo, 0.0, 1.0).astype(np.float32)
         out[f"frac{axis}"] = frac.reshape((-1, 1) if axis == 1 else (-1,))
-    if not nearest and (graph.tensor(op.inputs[0]).quant is None
-                        or graph.tensor(op.outputs[0]).quant is None):
-        raise LoweringError(
-            f"RESIZE_BILINEAR op {op.index}: the float variant is not "
-            "ported to PyTorch yet")
     return out
 
 
@@ -1218,8 +1551,9 @@ def _resize_nearest(ctx: LowerCtx, op: OpNode) -> None:
 
 @register("RESIZE_BILINEAR", prepare=_prepare_resize, static_inputs=(1,))
 def _resize_bilinear(ctx: LowerCtx, op: OpNode) -> None:
-    """Float fallback, band_tpu's form: along rows then columns, lo +
-    (hi - lo) * frac in float32, then quantized."""
+    """band_tpu's float form, for float and quantized tensors alike: along
+    rows then columns, lo + (hi - lo) * frac in float32 between as_float
+    and store_real."""
     v = as_float(ctx, op.inputs[0])
     for axis in (1, 2):
         lo = v.index_select(axis, ctx.param(op, f"lo{axis}"))
@@ -1429,14 +1763,10 @@ def _squared_difference(ctx: LowerCtx, op: OpNode) -> None:
 @register("BATCH_MATMUL")
 def _batch_matmul(ctx: LowerCtx, op: OpNode) -> None:
     """matmul in float32 between as_float and store_real, as band_tpu
-    computes it (outside any Pallas kernel).  On the card TF32 must be
-    off: it would round the operands to 10-bit mantissas."""
+    computes it (outside any Pallas kernel), under the TF32 rule."""
     a = as_float(ctx, op.inputs[0])
     b = as_float(ctx, op.inputs[1])
-    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise LoweringError(
-            f"BATCH_MATMUL op {op.index}: TF32 matmul is on "
-            "(torch.backends.cuda.matmul.allow_tf32)")
+    _check_tf32(a, op, TF32_MATMUL)
     store_real(ctx, op.outputs[0], torch.matmul(a, b))
 
 

@@ -244,6 +244,63 @@ def round_ties_away(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
 
 
+# --------------------------------------------------------------------------
+# Dynamic-range (hybrid) activations: float rows quantized at run time
+# --------------------------------------------------------------------------
+
+# band_tpu's row scales divide by the constants 255 and 127, which XLA
+# compiles into a multiply by their float32 reciprocals: band_tpu's codes
+# are those of the multiply, so the port multiplies too.
+_INV_255 = float(np.float32(1.0 / 255.0))
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def asym_quant_rows(x: torch.Tensor):
+    """Quantize a float32 tensor to int8 codes per leading index (a row:
+    one request of a stacked window, or one of its own leading rows),
+    asymmetrically, as TFLite's AsymmetricQuantizeFloats and band_tpu's
+    ``_asym_quant_rows`` (band_tpu/ops/lowerings.py:406-422), in the float32
+    operations band_tpu runs: scale = (max(rmax, 0) - min(rmin, 0)) *
+    float32(1 / 255), zp = clip(round_ties_away(-128 - rmin / scale)), q =
+    clip(round_ties_away(x / scale) + zp), each division by the scale a
+    true one.  Returns float32 (q, zp, scale), zp and scale shaped [n, 1,
+    ...] to broadcast over x; a degenerate (constant zero) row gets q = 0,
+    zp = 0, scale = 1.  No row reads another's values."""
+    n = x.shape[0]
+    bshape = (n,) + (1,) * (x.dim() - 1)
+    lo, hi = torch.aminmax(x.reshape(n, -1), dim=1)
+    rmin = lo.clamp(max=0.0).reshape(bshape)
+    rmax = hi.clamp(min=0.0).reshape(bshape)
+    degenerate = rmax <= rmin
+    scale = torch.where(degenerate, 1.0, (rmax - rmin) * _INV_255)
+    zp = round_ties_away(-128.0 - rmin / scale).clamp(-128.0, 127.0)
+    zp = torch.where(degenerate, 0.0, zp)
+    q = (round_ties_away(x / scale) + zp).clamp(-128.0, 127.0)
+    q = torch.where(degenerate, 0.0, q)
+    return q, zp, scale
+
+
+def sym_quant_rows(x2: torch.Tensor):
+    """The symmetric form of a hybrid FULLY_CONNECTED's input (TFLite's
+    SymmetricQuantizeFloats; band_tpu/ops/lowerings.py:984-991): per row
+    of the 2-D ``x2``, scale = max|x| * float32(1 / 127), q =
+    clip(round_ties_away(x / scale), -127, 127); a zero row gets q = 0,
+    scale = 1.  Returns float32 (q, scale), scale [n, 1]."""
+    amax = x2.abs().amax(dim=1, keepdim=True)
+    degenerate = amax == 0.0
+    scale = torch.where(degenerate, 1.0, amax * _INV_127)
+    q = round_ties_away(x2 / scale).clamp(-127.0, 127.0)
+    return torch.where(degenerate, 0.0, q), scale
+
+
+def hybrid_quant_input(x: torch.Tensor):
+    """The conv form of ``asym_quant_rows`` (band_tpu/ops/lowerings.py:
+    425-430): the residual q - zp, float32 integers in [-255, 255], so
+    that a zero-padded tap is the real 0.0 exactly, and the scale."""
+    q, zp, scale = asym_quant_rows(x)
+    return q - zp, scale
+
+
 def dequantize(q: torch.Tensor, scale, zero_point) -> torch.Tensor:
     """(q - zero_point) * scale in float32."""
     return (q.to(torch.int32) - int(zero_point)).to(torch.float32) * \

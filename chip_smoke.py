@@ -185,11 +185,33 @@ Phases:
              absolute tests/data paths; one ``benchmark:`` line each.
              Every model processes requests, none is canceled without an
              SLO, and the codispatch config's rounds fuse.
+14. float   (run after sr) MobileNetV2 1.0/224 with fp16 and with
+             dynamic-range post-training quantization
+             (tests/data/mobilenet_v2_{fp16,dynrange}.tflite) at full width
+             on one GPU worker (fixed_worker, max_batch 8), registered
+             through the public API: 4 untimed and 16 timed
+             request_sync and a burst of 32 request_async per model, every output's top-1 equal to
+             TFLite's and its largest deviation within max(2 x band_tpu's
+             on that request, 1e-4 x max|golden|)
+             (tests/data/torch_float_goldens.npz); one dynamic-range
+             request in a window beside a request scaled by 1000 and
+             beside an all-zero one, within 1e-5 of max|output| of the
+             request alone.  Launch counts zeroed just before and read
+             just after: qmatmul_hybrid must launch, no int8 kernel.
+             Printed: req/s at b1 and in the burst, the worst deviation,
+             and device time, launches and busy share of a b1 request of
+             each model.  Before the engine phases, every qmatmul_hybrid
+             call of a dynamic-range request at b1 and b8 is held
+             byte-equal to qmatmul_hybrid_plain, and the b1 calls are
+             timed beside plain, the bound and torch._int_mm (or a
+             float32 torch.matmul where _int_mm refuses the shape): one
+             ``hybrid:`` line per distinct shape.
 Then it prints the kernels line (each kernel's launches in the engine
 phase of its numerics, in the sr phase and in the codispatch phase; B2's
 general branch, the mma kernel of csrc/qconv_mma.cuh, in two entries of
 its own, exact and fast, with its launches and a b1 FSRCNN request's
-times from the sr phase), and last the device line.
+times from the sr phase; qmatmul_hybrid with its launches in the float
+phase and a b1 dynamic-range request's times), and last the device line.
 """
 
 import collections
@@ -293,6 +315,22 @@ SR_KERNELS = {"exact": ("qmatmul_exact", "qconv2d_exact"),
               "fast": ("qmatmul_fast", "qconv2d_fast")}
 # B2's general branch (csrc/qconv_mma.cuh), counted apart from its
 # wrapper's other launches; its main path is the sr phase
+# float: MobileNetV2 1.0/224 with fp16 and with dynamic-range post-training
+# quantization (tests/gen_torch_float_models.py), at full width and depth
+FLOAT_GOLDENS = os.path.join(DATA, "torch_float_goldens.npz")
+FLOAT_MODELS = ("mobilenet_v2_fp16", "mobilenet_v2_dynrange")
+DYNRANGE = "mobilenet_v2_dynrange"
+FLOAT_WARM = 4   # checked, untimed: a b1 request's first cuDNN plans
+FLOAT_SYNC = 16
+FLOAT_BURST = 32
+ISOLATION_REL = 1e-5
+# the hybrid GEMM (qmatmul.cu's mma core, HybridEpilogue); its main path
+# is the float phase
+HYBRID_KERNELS = {
+    "qmatmul_hybrid": dict(
+        source="band_tpu_torch/ops/kernels/csrc/qmatmul.cu",
+        replaces="band_tpu/ops/lowerings.py:971"),
+}
 MMA_KERNELS = {
     "qconv2d_exact_mma": dict(
         wrapper="qconv2d_exact",
@@ -397,6 +435,39 @@ def load_ops_goldens(graphs):
         d["xs"] = _inputs(z, name, graphs[name], n)
         out[name] = d
     return out
+
+
+def float_inputs(seed, shape, n):
+    """tests/gen_torch_float_models.py's request inputs: uniform in
+    [-1, 1], float32."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1.0, 1.0, (n, *shape)).astype(np.float32)
+
+
+def load_float_goldens(graphs):
+    """Goldens of FLOAT_MODELS (tests/gen_torch_float_models.py): xs,
+    TFLite's outputs and band_tpu's largest deviation from them, per
+    request."""
+    z = np.load(FLOAT_GOLDENS)
+    out = {}
+    for name in FLOAT_MODELS:
+        want = z[f"{name}/tflite"]
+        td = graphs[name].tensor(graphs[name].inputs[0])
+        out[name] = dict(xs=float_inputs(int(z[f"{name}/seed"]), td.shape,
+                                         len(want)),
+                         output=want, dev=z[f"{name}/dev"])
+    return out
+
+
+def float_gate(out, golden, band_dev):
+    """(ok, deviation, limit) of one float output: top-1 equal to TFLite's
+    and the largest absolute deviation at most max(2 x band_tpu's on that
+    request, 1e-4 x max|golden|)."""
+    d = float(np.abs(out.astype(np.float64) - golden).max())
+    limit = max(2.0 * float(band_dev), 1e-4 * float(np.abs(golden).max()))
+    ok = (out.shape == golden.shape
+          and int(out.argmax()) == int(golden.argmax()) and d <= limit)
+    return ok, d, limit
 
 
 def decoder_outputs_ok(gd, outs, idx, exact):
@@ -573,7 +644,7 @@ def capture_calls(L, fn, params, inputs):
     output).  The lowerings call the kernels through their module
     globals, which are wrapped for the run."""
     calls = []
-    saved = {n: getattr(L, n) for n in KERNELS}
+    saved = {n: getattr(L, n) for n in list(KERNELS) + list(HYBRID_KERNELS)}
 
     def wrap(name, f):
         def g(*args, **kw):
@@ -1962,6 +2033,235 @@ def sr_phase(torch, dev, bt, K, graphs, ops_goldens, sr_calls, smi):
 
 
 # --------------------------------------------------------------------------
+# float phase: MobileNetV2 fp16 and dynamic range, and the hybrid GEMM
+# --------------------------------------------------------------------------
+
+def same_float(torch, name, got, want, what):
+    """A float32 kernel output byte-equal to its plain version's; returns
+    the largest |kernel - plain| (0)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name} {what}: {got.dtype}{tuple(got.shape)} vs "
+          f"{want.dtype}{tuple(want.shape)}")
+    if not got.numel():
+        return 0.0
+    err = (got - want).abs().max().item()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"{name} {what}: kernel and plain differ in their bytes (max "
+          f"|diff| {err})")
+    return err
+
+
+def hybrid_work(args, kw, out):
+    """(bytes, int8 ops) of one qmatmul_hybrid call: A and B read once,
+    the epilogue's vectors (bias, w_scale, w_rowsum per column; zp and
+    scale per quantized row), the float32 output written once."""
+    a, b = args[0], args[1]
+    vecs = [t for t in list(args[2:]) + [kw.get("bias")]
+            if hasattr(t, "numel")]
+    nbytes = a.numel() + b.numel() + sum(4 * t.numel() for t in vecs) \
+        + 4 * out.numel()
+    return nbytes, 2 * out.numel() * a.shape[1]
+
+
+def hybrid_library(torch, args):
+    """The hybrid GEMM's yardstick, (label, call): torch._int_mm on the
+    int8 operands where cuBLASLt takes the shape (more than 16 rows, K
+    and N multiples of 8; B column-major), else a float32 torch.matmul
+    of them (TF32 off).  Neither has the epilogue; the port calls
+    neither."""
+    a, b = args[0], args[1]
+    m, k = a.shape
+    if m > 16 and k % 8 == 0 and b.shape[1] % 8 == 0:
+        bt = b.t().contiguous().t()
+        return "torch._int_mm", lambda: torch._int_mm(a, bt)
+    check(not torch.backends.cuda.matmul.allow_tf32, "matmul with TF32")
+    af, bf = a.float(), b.float()
+    return "torch.matmul float32", lambda: torch.matmul(af, bf)
+
+
+def hybrid_kernel_lines(torch, dev, graphs, float_goldens, smi):
+    """Every qmatmul_hybrid call of a dynamic-range MobileNetV2 request at
+    b1 and b8, captured from the model's program on the card and held
+    byte-equal to qmatmul_hybrid_plain; the b1 calls timed (a CUDA graph
+    of 20 launches), beside the plain version (eager), the bound and the
+    yardstick (hybrid_library), one ``hybrid:`` line per distinct b1
+    shape.  Returns the kernels line's numbers: sums over a b1 request's
+    calls."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops import lowerings as L
+
+    g = graphs[DYNRANGE]
+    xs = float_goldens[DYNRANGE]["xs"]
+    prog = build_program(g, range(len(g.ops)), device=dev)
+    params = params_from_jax(prog.params, dev)
+    fn = prog.make_fn()
+    worst, b1 = 0.0, []
+    with torch.inference_mode():
+        for b in (1, MAX_BATCH):
+            x = torch.from_numpy(np.concatenate(list(xs[:b]))).to(dev)
+            calls = capture_calls(L, fn, params, [x])
+            torch.cuda.synchronize()
+            kinds = {n for n, *_ in calls}
+            check(kinds == {"qmatmul_hybrid"},
+                  f"float: {DYNRANGE} b{b} ran kernels {sorted(kinds)}")
+            for name, args, kw, out in calls:
+                want = K.qmatmul_hybrid_plain(*args, **kw)
+                torch.cuda.synchronize()
+                worst = max(worst, same_float(
+                    torch, name, out, want,
+                    f"{DYNRANGE} b{b} {tuple(args[0].shape)}x"
+                    f"{tuple(args[1].shape)}"))
+            if b == 1:
+                b1 = calls
+            log(f"float: {DYNRANGE} b{b}: {len(calls)} qmatmul_hybrid calls "
+                f"byte-equal to plain (tolerance 0)")
+        s = dict(launches_b1=len(b1), ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 bytes_s=0.0, ops_s=0.0, library_ms=0.0, library={},
+                 max_abs_err=worst)
+        shapes = {}
+        for name, args, kw, out in b1:
+            ms = graph_ms(torch, lambda: K.qmatmul_hybrid(*args, **kw))
+            pms = eager_ms(torch, lambda: K.qmatmul_hybrid_plain(*args, **kw))
+            nbytes, ops = hybrid_work(args, kw, out)
+            bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+            label, lib_fn = hybrid_library(torch, args)
+            lib = graph_ms(torch, lib_fn)
+            s["ms"] += ms
+            s["plain_ms"] += pms
+            s["bytes_s"] += bt
+            s["ops_s"] += ot
+            s["bound_ms"] += max(bt, ot)
+            s["library_ms"] += lib
+            s["library"][label] = s["library"].get(label, 0) + 1
+            m, k = args[0].shape
+            key = (m, args[1].shape[1], k, kw.get("rows", 1),
+                   "asym" if args[4] is not None else "sym")
+            d = shapes.setdefault(key, dict(calls=0, ms=[], plain_ms=[],
+                                            library_ms=[], library=label,
+                                            bound_ms=max(bt, ot)))
+            d["calls"] += 1
+            d["ms"].append(ms)
+            d["plain_ms"].append(pms)
+            d["library_ms"].append(lib)
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    for (m, n, k, rows, form), d in sorted(shapes.items(),
+                                           key=lambda kv: -kv[0][0]):
+        p = K.gemm_plan(m, n, k)
+        log("hybrid: " + json.dumps({
+            "M": m, "N": n, "K": k, "rows_per_quantized_row": rows,
+            "inputs": form, "calls_b1": d["calls"],
+            "tile": f"{p.bm}x{p.bn}", "splits": p.splits,
+            "ms": mean(d["ms"]), "plain_ms": mean(d["plain_ms"]),
+            "library": d["library"], "library_ms": mean(d["library_ms"]),
+            "bound_ms": d["bound_ms"], "card": smi}))
+    log(f"float: qmatmul_hybrid per b1 request ({len(b1)} calls): "
+        f"{s['ms']:.5f} ms, plain {s['plain_ms']:.4f} ms, bound "
+        f"{s['bound_ms']:.6f} ms, library {s['library_ms']:.5f} ms "
+        f"({json.dumps(s['library'])}) ({smi})")
+    return s
+
+
+def float_phase(torch, dev, bt, K, graphs, float_goldens, smi):
+    """MobileNetV2 1.0/224 fp16 and dynamic range at full width on one GPU
+    worker (fixed_worker, max_batch 8), registered through the public
+    API: FLOAT_WARM untimed and FLOAT_SYNC timed request_sync at b1, then
+    a burst of FLOAT_BURST request_async, per model; every output meets
+    float_gate against its TFLite golden.  Then, on the engine's own executor, one
+    dynamic-range request in a window beside the same request scaled by
+    1000 and beside an all-zero request: its output within
+    ISOLATION_REL of max|output| of the request served alone.  Launch
+    counts are zeroed just before and read just after: qmatmul_hybrid
+    must launch, no int8 kernel.  Then the device time, launches and
+    busy share of a b1 request of each model (torch.profiler)."""
+    K.reset_launches()
+    eng = _engine(bt, bt.DeviceFlag.GPU, "exact")
+    rates, worst = {}, {}
+    try:
+        t0 = time.perf_counter()
+        mids = {name: eng.register_model(bt.Model.from_path(
+            os.path.join(DATA, f"{name}.tflite"))) for name in FLOAT_MODELS}
+        check(eng.wait_buckets_ready(timeout=600),
+              "float: bucket warm-up timed out")
+        log(f"float: {', '.join(FLOAT_MODELS)} registered, buckets "
+            f"2..{MAX_BATCH} warm in {time.perf_counter() - t0:.2f} s")
+        for name, mid in mids.items():
+            gd = float_goldens[name]
+            xs, n = gd["xs"], len(gd["xs"])
+            ex = eng.model_record(mid).executors[0]
+            warm = [eng.request_sync(mid, [xs[i % n]])
+                    for i in range(FLOAT_WARM)]
+            t0 = time.perf_counter()
+            outs = [eng.request_sync(mid, [xs[i % n]])
+                    for i in range(FLOAT_SYNC)]
+            b1 = FLOAT_SYNC / (time.perf_counter() - t0)
+            before = dict(ex.windows)
+            t0 = time.perf_counter()
+            ids = [eng.request_async(mid, [xs[i % n]])
+                   for i in range(FLOAT_BURST)]
+            burst_outs = [eng.wait(j) for j in ids]
+            burst = FLOAT_BURST / (time.perf_counter() - t0)
+            served = [(i % n, o) for i, o in enumerate(warm)] + [
+                (i % n, o) for i, o in enumerate(outs)] + [
+                (i % n, o) for i, o in enumerate(burst_outs)]
+            w = dict(dev=0.0, ratio=0.0)
+            for i, (gi, o) in enumerate(served):
+                check(len(o) == 1, f"float: {name}: {len(o)} outputs")
+                ok, d, limit = float_gate(o[0], gd["output"][gi],
+                                          gd["dev"][gi])
+                check(ok, f"float: {name} request {i} (golden {gi}): top-1 "
+                      f"{int(o[0].argmax())} against TFLite's "
+                      f"{int(gd['output'][gi].argmax())}, deviation {d} "
+                      f"against the limit {limit}")
+                w["dev"] = max(w["dev"], d)
+                w["ratio"] = max(w["ratio"], d / limit)
+            windows = {b: c - before.get(b, 0) for b, c in ex.windows.items()
+                       if c - before.get(b, 0)}
+            check(max(windows) > 1, f"float: {name}: the burst ran no batch "
+                  "window")
+            rates[name] = dict(b1_req_s=b1, burst_req_s=burst,
+                               burst_windows=dict(sorted(windows.items())))
+            worst[name] = w
+            log(f"float: {name}: {FLOAT_WARM + FLOAT_SYNC} sync and "
+                f"{FLOAT_BURST} burst "
+                f"outputs within the gate (top-1 equal to TFLite's; worst "
+                f"deviation {w['dev']:.3e}, {w['ratio']:.3f} of its limit); "
+                f"b1 {b1:.2f} req/s, burst {burst:.2f} req/s, windows "
+                f"{dict(sorted(windows.items()))} ({smi})")
+        # per-request quantization: a neighbour in the window moves nothing
+        ex = eng.model_record(mids[DYNRANGE]).executors[0]
+        key = ex.largest_subgraph_key()
+        xs = float_goldens[DYNRANGE]["xs"]
+        alone = ex.execute(key, [xs[0]])[0].cpu().numpy()
+        for label, other in (("x1000", xs[1] * 1000.0),
+                             ("all zero", np.zeros_like(xs[1]))):
+            (got,), _ = ex.execute_batched(key, [[xs[0]], [other]])
+            d = float(np.abs(got.cpu().numpy() - alone).max())
+            check(d <= ISOLATION_REL * float(np.abs(alone).max()),
+                  f"float: {DYNRANGE} beside a request {label}: moved by {d}")
+            log(f"float: {DYNRANGE} beside a request {label} in its window: "
+                f"max |diff| from the request alone {d:.3e} (limit "
+                f"{ISOLATION_REL} x {float(np.abs(alone).max()):.3e})")
+    finally:
+        eng.shutdown()
+    counts = K.launch_counts()
+    check(counts["qmatmul_hybrid"] > 0,
+          "float: kernel qmatmul_hybrid never launched on the main path")
+    for name in KERNELS:
+        check(counts[name] == 0,
+              f"float: int8 kernel {name} launched {counts[name]} times")
+    log(f"float: launches {json.dumps(counts)}")
+    profiles = {}
+    for name in FLOAT_MODELS:
+        p = profile_phase(torch, dev, graphs, float_goldens, True, name=name)
+        profiles[name] = p
+        log(f"float: {name} per b1 request: device {p['device_kernel_ms']} "
+            f"ms, {p['launches']} launches, busy share "
+            f"{p['device_busy_share']} ({smi})")
+    return counts, rates, worst
+
+
+# --------------------------------------------------------------------------
 # hetero phase
 # --------------------------------------------------------------------------
 
@@ -2787,14 +3087,17 @@ def main():
 
     graphs = {n: parse_tflite_file(os.path.join(DATA, f"{n}.tflite"))
               for n in FAST_MODELS + SSD_MODELS + DECODER_MODELS
-              + (SR_MODEL,)}
+              + (SR_MODEL,) + FLOAT_MODELS}
     goldens = load_goldens(graphs)
     fast_goldens = load_fast_goldens(graphs)
     hetero_goldens = load_hetero_goldens()
 
     ops_goldens = load_ops_goldens(graphs)
+    float_goldens = load_float_goldens(graphs)
     worst, stats, sr_calls = kernel_phase(torch, dev, graphs, goldens,
                                           hetero_goldens, ops_goldens)
+    hybrid_stats = hybrid_kernel_lines(torch, dev, graphs, float_goldens,
+                                       smi)
     conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
                        sm_mhz / 1e3)
     counts, rates = engine_phase(torch, bt, K, MODELS, goldens, card,
@@ -2805,6 +3108,8 @@ def main():
     mixed_phase(bt, K, goldens, fast_goldens, bt.DeviceFlag.GPU)
     sr_counts, sr_rates, mma_stats = sr_phase(torch, dev, bt, K, graphs,
                                               ops_goldens, sr_calls, smi)
+    float_counts, float_rates, float_worst = float_phase(
+        torch, dev, bt, K, graphs, float_goldens, smi)
     depth_phase(torch, dev, graphs, goldens, fast_goldens)
     profile_phase(torch, dev, graphs, goldens, exact=True)
     profile_phase(torch, dev, graphs, goldens, exact=False)
@@ -2819,6 +3124,8 @@ def main():
                                "models": fast_rates}))
     log("sr: " + json.dumps({"card": smi, "model": SR_MODEL,
                              "numerics": sr_rates}))
+    log("float: " + json.dumps({"card": smi, "models": float_rates,
+                                "worst_deviation": float_worst}))
     line = []
     for name, meta in KERNELS.items():
         s = stats[name]
@@ -2854,6 +3161,19 @@ def main():
             "mobilenet_v2_b1_launches": stats[name]["launches_b1"],
             "codispatch_launches": co_counts[name],
             "sr_launches": sr_counts[name],
+        })
+    for name, meta in HYBRID_KERNELS.items():
+        s = hybrid_stats
+        # the hybrid GEMM: its launches on its main path, the float phase;
+        # the times of a b1 dynamic-range MobileNetV2 request's calls
+        line.append({
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": float_counts[name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "bytes" if s["bytes_s"] >= s["ops_s"] else "operations",
+            "library_ms": s["library_ms"], "library": s["library"],
+            "mobilenet_v2_dynrange_b1_launches": s["launches_b1"],
         })
     log(json.dumps({"kernels": line}))
     log(f"card: {smi}")

@@ -614,3 +614,134 @@ def test_general_branch_beyond_65535_row_tiles(dev):
     assert torch.equal(got, K.qconv2d_plain(x, wk, *epi, **args))
     assert torch.equal(got_fast,
                        K.qconv2d_fast_plain(x, wk, epi[0], mult, **fast))
+
+
+# --------------------------------------------------------------------------
+# float32 and dynamic-range models: the hybrid GEMM and the TF32 rule
+# --------------------------------------------------------------------------
+
+# (M, K, N, rows): M = 1 and 8 (b1, b8 FCs; K split), 49 to 12544 (1x1
+# convs of a request's H*W rows), K 8 (one step, ragged) to 8192, N
+# ragged (27) and 1000; rows > 1 group a 1x1 conv's pixels by request
+HYBRID_SHAPES = [(1, 1280, 1000, 1), (8, 1280, 1000, 1), (1, 8192, 64, 1),
+                 (3, 8, 27, 1), (49, 960, 160, 49), (392, 320, 1280, 49),
+                 (784, 144, 24, 196), (12544, 16, 96, 12544),
+                 (17, 24, 16, 17), (33, 27, 40, 11)]
+
+
+@pytest.mark.parametrize("m,k,n,rows", HYBRID_SHAPES,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("form", ["asym", "sym"])
+def test_hybrid_gemm_matches_plain(dev, m, k, n, rows, form):
+    """qmatmul_hybrid byte-equal to qmatmul_hybrid_plain over each shape,
+    every fused activation, with and without bias, symmetric and
+    asymmetric rows (a zero row among them)."""
+    rng = np.random.default_rng(m * 7 + k + n)
+    a = _i8(rng, dev, m, k)
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(
+        np.int8)).to(dev)
+    w_scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, n).astype(
+        np.float32)).to(dev)
+    rowsum = b.to(torch.int32).sum(dim=0).to(torch.int32)
+    groups = m // rows
+    scale = torch.from_numpy(rng.uniform(1e-3, 0.1, groups).astype(
+        np.float32)).to(dev)
+    zp = None
+    if form == "asym":
+        zp = torch.from_numpy(rng.integers(-128, 128, groups).astype(
+            np.float32)).to(dev)
+        zp[0] = 0.0
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    K.reset_launches()
+    runs = 0
+    for act in ("NONE", "RELU", "RELU6"):
+        for bb in (None, bias):
+            got = K.qmatmul_hybrid(a, b, w_scale, rowsum, zp, scale, bb,
+                                   rows=rows, activation=act)
+            want = K.qmatmul_hybrid_plain(a, b, w_scale, rowsum, zp, scale,
+                                          bb, rows=rows, activation=act)
+            assert got.dtype == torch.float32 and got.shape == (m, n)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            runs += 1
+    assert K.launch_counts()["qmatmul_hybrid"] == runs
+
+
+def _float_engine(max_batch=4):
+    return bt.Engine.create(
+        bt.RuntimeConfigBuilder()
+        .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+        .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU, device_ids=(0,),
+                                  max_batch=max_batch))
+        .build())
+
+
+@pytest.fixture
+def tf32_flags():
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = saved
+
+
+def test_tf32_rule_on_the_card(dev, tf32_flags):
+    """With torch.backends.cudnn.allow_tf32 on, a float model's program for
+    the card is refused with a LoweringError naming the flag (the
+    library changes no flag); with it off the model serves; turned on
+    after the build, the run raises."""
+    from band_tpu_torch.backend.executor import ModelExecutor
+    from band_tpu_torch.errors import LoweringError
+
+    g = bt.Model.from_path(os.path.join(DATA, "fp16_cnn.tflite")).graph
+    x = np.random.default_rng(0).uniform(
+        -1.0, 1.0, g.tensor(g.inputs[0]).shape).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ex = ModelExecutor(0, g, 0, dev)
+    with pytest.raises(LoweringError, match=r"cudnn\.allow_tf32"):
+        ex.prepare_subgraph(range(len(g.ops)), [0])
+    assert torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    key = ex.prepare_subgraph(range(len(g.ops)), [0])
+    out = ex.execute(key, [x])[0].cpu().numpy()
+    cpu = ModelExecutor(1, g, 0, torch.device("cpu"))
+    ckey = cpu.prepare_subgraph(range(len(g.ops)), [0])
+    np.testing.assert_allclose(out, cpu.execute(ckey, [x])[0].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    torch.backends.cudnn.allow_tf32 = True
+    with pytest.raises(LoweringError, match=r"cudnn\.allow_tf32"):
+        ex.execute(key, [x])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with pytest.raises(LoweringError, match=r"matmul\.allow_tf32"):
+        ex.execute(key, [x])
+
+
+def test_gpu_worker_serves_the_float_goldens(dev, tf32_flags):
+    """fp16_cnn and dynrange on a GPU worker within the card's gate of
+    their goldens (tests/data/torch_float_goldens.npz), the hybrid FC on
+    qmatmul_hybrid."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    z = np.load(os.path.join(DATA, "torch_float_goldens.npz"))
+    eng = _float_engine()
+    try:
+        K.reset_launches()
+        for name in ("fp16_cnn", "dynrange"):
+            mid = eng.register_model(
+                bt.Model.from_path(os.path.join(DATA, f"{name}.tflite")))
+            g = eng.model_record(mid).model.graph
+            want, band = z[f"{name}/tflite"], z[f"{name}/dev"]
+            xs = np.random.default_rng(int(z[f"{name}/seed"])).uniform(
+                -1.0, 1.0, (len(want), *g.tensor(g.inputs[0]).shape)
+            ).astype(np.float32)
+            ids = [eng.request_async(mid, [x]) for x in xs]
+            for i, j in enumerate(ids):
+                out = eng.wait(j)[0]
+                d = float(np.abs(out.astype(np.float64) - want[i]).max())
+                assert out.argmax() == want[i].argmax()
+                assert d <= max(2 * band[i], 1e-4 * np.abs(want[i]).max())
+        assert K.launch_counts()["qmatmul_hybrid"] > 0
+        assert K.launch_counts()["qmatmul_exact"] == 0
+    finally:
+        eng.shutdown()

@@ -290,7 +290,9 @@ def test_requantizing_quantize_matches_band_tpu(in_dtype, out_dtype):
 
 
 def test_float_variants_are_refused():
-    """Float LOGISTIC and a float MUL are not ported: prepare raises."""
+    """Float LOGISTIC, TANH and DEQUANTIZE are not ported: prepare raises.
+    The float MUL and SUB are (band_tpu's float32 product and
+    difference, tests/test_torch_float.py holds them op by op)."""
     def g(opname, n_in):
         tensors = [TG.TensorDef(i, f"t{i}", (1, 4), TS.TensorType.FLOAT32)
                    for i in range(n_in + 1)]
@@ -299,10 +301,18 @@ def test_float_variants_are_refused():
                                                  {"activation": "NONE"})],
                         list(range(n_in)), [n_in])
 
-    for opname, n_in in (("LOGISTIC", 1), ("TANH", 1), ("MUL", 2),
-                         ("SUB", 2), ("DEQUANTIZE", 1)):
+    for opname, n_in in (("LOGISTIC", 1), ("TANH", 1), ("DEQUANTIZE", 1)):
         with pytest.raises(LoweringError):
             tbuild(g(opname, n_in), [0])
+    a = np.array([[-2.0, -0.5, 0.0, 3.0]], np.float32)
+    b = np.array([[1.5, -4.0, 2.0, 0.25]], np.float32)
+    for opname, want in (("MUL", a * b), ("SUB", a - b)):
+        prog = tbuild(g(opname, 2), [0])
+        ctx = LowerCtx(prog.graph, {}, prog.meta)
+        ctx.set(0, _t(a))
+        ctx.set(1, _t(b))
+        get_lowering(opname).trace(ctx, prog.graph.ops[0])
+        np.testing.assert_array_equal(ctx.arr(2).numpy(), want)
     # the float ELU is ported
     prog = tbuild(g("ELU", 1), [0])
     ctx = LowerCtx(prog.graph, {}, prog.meta)
