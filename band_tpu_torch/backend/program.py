@@ -28,7 +28,7 @@ import torch
 from ..errors import LoweringError
 from ..ir.graph import Graph
 from ..ops.host_ops import has_host_impl, run_host_op
-from ..ops.lowerings import LowerCtx, require_ieee_fp32
+from ..ops.lowerings import LowerCtx, request_free, require_ieee_fp32
 from ..ops.registry import REGISTRY, get_lowering
 
 
@@ -142,16 +142,18 @@ class SubgraphProgram:
 
     def make_fn(self):
         """Function (params, inputs) -> outputs over torch tensors.  The
-        inputs may hold a batch of requests stacked on their leading
+        inputs may hold a window of requests stacked on their leading
         axis (ops/lowerings.py); the outputs then do too."""
         graph = self.graph
         op_indices = self.op_indices
         input_ids = self.input_ids
         output_ids = self.output_ids
         meta = self.meta
+        free = request_free(graph)
 
         def fn(params, inputs):
-            ctx = LowerCtx(graph, params, meta)
+            batch = window_size(graph, input_ids, inputs, free)
+            ctx = LowerCtx(graph, params, meta, batch=batch, free=free)
             for tid, v in zip(input_ids, inputs):
                 ctx.set(tid, v)
             for oi in op_indices:
@@ -163,6 +165,22 @@ class SubgraphProgram:
             return [ctx.arr(t) for t in output_ids]
 
         return fn
+
+
+def window_size(graph: Graph, input_ids: Sequence[int],
+                inputs: Sequence[torch.Tensor], free=frozenset()) -> int:
+    """How many requests the inputs stack: a per-request input of model
+    shape [d0, ...] arrives as [B*d0, ...] (a scalar as [B])."""
+    for tid, v in zip(input_ids, inputs):
+        shape = graph.tensor(tid).shape
+        if tid in free:
+            continue
+        if not shape:
+            return max(int(v.numel()), 1)
+        if int(shape[0]) > 0 and v.dim():
+            return max(int(v.shape[0]) // int(shape[0]), 1)
+    return 1
+
 
 def _run_custom(ctx: LowerCtx, op) -> None:
     """One host op: its inputs leave torch as numpy arrays and its

@@ -126,8 +126,12 @@ class WorkerSpec:
     max_batch: int = 1
     # multi-model window fusion: a DeviceQueue worker may fuse up to
     # this many consecutive distinct-subgraph windows from its queue
-    # into ONE device dispatch.  Not ported yet: the engine refuses a
-    # value above 1.  1 = off (the reference semantics: one subgraph per
+    # into ONE device dispatch (on a card one replay of a CUDA graph that
+    # captured the mix, backend/executor.py build_combo), amortizing the
+    # per-dispatch launch cost over several models' windows.  Only
+    # pre-built (background-warmed) combinations fuse: a cold mix
+    # dispatches window by window, so fusion never stalls serving on a
+    # capture.  1 = off (the reference semantics: one subgraph per
     # invoke, backend/tfl/model_executor.cc:249-255).
     co_dispatch: int = 1
     # dispatch-thread core pinning (reference: per-worker `cpu_masks`,

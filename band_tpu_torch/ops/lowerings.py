@@ -33,12 +33,19 @@ lowering choices for the TPU, not semantics, and have no counterpart.
 
 Batches: a window of B requests runs as one call with the requests
 stacked on the leading axis, so a tensor whose model shape is
-[d0, ...] arrives as [B*d0, ...].  Lowerings keep that axis: shapes
-taken from the model are rescaled by ``_stacked_shape``, no op reduces
-over axis 0, and an op that would index, slice, split, pack, pad,
-permute or concatenate along it is refused when the program is built
-(a LoweringError naming the op), unless its operand is a shape value
-(``_is_shape_value``) and carries no requests.
+[d0, ...] is held as [B*d0, ...] (a per-request scalar as [B]);
+``LowerCtx.batch`` is B.  Kernel calls and the ops that work on the
+trailing axes take that stacked layout as it is.  An op that works along
+the model's leading axis (index, slice, split, pack, pad, permute,
+concatenate, gather, scatter, reduce, the segment and space/batch ops)
+runs per request, as band_tpu's vmap runs it: ``LowerCtx.view`` gives a
+per-request tensor as [B, *model shape] with the request axis as a
+leading batch dim, the op runs behind it, and ``LowerCtx.set_view``
+flattens the result back; a constant broadcasts, or is repeated over the
+requests (a view), and where the indices are per request the request
+axis is an explicit index.  Tensors computed from constants and SHAPE
+alone (``request_free``: the converter's shape prelude) carry no
+request axis and run once.
 
 Float32 and dynamic-range (hybrid) models: CONV_2D, DEPTHWISE_CONV_2D
 and FULLY_CONNECTED with float activations run F.conv2d and F.linear in
@@ -52,14 +59,18 @@ structural ops take float tensors as band_tpu does.
 
 The op set is that of the slices so far (MobileNetV2 int8, fp16 and
 dynamic range, the tests/data CNNs, quant_act_int8, the SSD backbones,
-tconv_int8, attention_int8, cnn_ops_int8 and FSRCNN); float and hybrid
-TRANSPOSE_CONV raise LoweringError.
+tconv_int8, attention_int8, cnn_ops_int8, FSRCNN, support_ops,
+support_ops2 and the CenterNet detectors with their top-k decode); float
+and hybrid TRANSPOSE_CONV raise LoweringError.  The support op set
+(casts, comparisons, select, reductions, integer division, index, move,
+segment, spectral and 3-D ops) runs as PyTorch ops on the tensor's
+device, TOPK_V2 on a packed key that orders ties by index.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, FrozenSet, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,11 +94,16 @@ class LowerCtx:
     """State threaded through one subgraph run."""
 
     def __init__(self, graph: Graph, params: Dict[str, torch.Tensor],
-                 meta: Dict[str, Any]):
+                 meta: Dict[str, Any], batch: int = 1,
+                 free: Optional[FrozenSet[int]] = None):
         self.graph = graph
         self.params = params
         self.meta = meta
         self.env: Dict[int, torch.Tensor] = {}
+        # requests stacked on the leading axis of every per-request tensor
+        self.batch = batch
+        # the tensors that carry no request axis (request_free)
+        self.free = request_free(graph) if free is None else free
 
     def arr(self, tid: int) -> torch.Tensor:
         if tid in self.env:
@@ -126,6 +142,42 @@ class LowerCtx:
     def smeta(self, op: OpNode, name: str):
         return self.meta[f"op{op.index}/{name}"]
 
+    def stacked(self, shape) -> Tuple[int, ...]:
+        """How a per-request tensor of model shape ``shape`` is held: the
+        requests' [d0, ...] blocks stacked on the leading axis, [B*d0,
+        ...]; a per-request scalar as [B]."""
+        shape = tuple(int(s) for s in shape)
+        if not shape:
+            return (self.batch,)
+        return (self.batch * shape[0],) + shape[1:]
+
+    def view(self, tid: int, value: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        """The request view of tensor ``tid`` (``value``, or its runtime
+        value), no copy: [B, *model shape], the request axis as a leading
+        batch dim; a tensor that carries no request axis as [1, *shape],
+        one value for every request."""
+        x = self.arr(tid) if value is None else value
+        shape = tuple(self.graph.tensor(tid).shape)
+        if tid in self.free:
+            if x.numel() == int(np.prod(shape)):
+                x = x.reshape(shape)  # a scalar constant may be held as (1,)
+            return x.unsqueeze(0)
+        if not shape:
+            return x.reshape(self.batch)
+        return x.reshape((self.batch, x.shape[0] // self.batch)
+                         + tuple(x.shape[1:]))
+
+    def set_view(self, tid: int, v: torch.Tensor) -> None:
+        """Store a request view as tensor ``tid``'s held form: stacked, or
+        the one value of a tensor that carries no request axis."""
+        if tid in self.free:
+            self.set(tid, v[0])
+        elif not self.graph.tensor(tid).shape:
+            self.set(tid, v.reshape(self.batch))
+        else:
+            self.set(tid, v.flatten(0, 1))
+
 
 # --------------------------------------------------------------------------
 # Shared helpers
@@ -157,19 +209,6 @@ def _conv_pads(opts, in_h, in_w, kh, kw) -> Tuple[Tuple[int, int], Tuple[int, in
         pw = _same_pads(in_w, kw, opts["stride_w"], opts.get("dilation_w", 1))
         return ph, pw
     return (0, 0), (0, 0)
-
-
-def _stacked_shape(x: torch.Tensor, in_td: TensorDef, shape) -> Tuple[int, ...]:
-    """Model shape ``shape`` for the stack of requests ``x`` carries:
-    x has B times the leading extent of its model shape ``in_td.shape``,
-    and so does the result.  (Requests stay contiguous blocks of equal
-    size, so a row-major reshape keeps them apart.)"""
-    shape = tuple(int(s) for s in shape)
-    base = int(in_td.shape[0]) if len(in_td.shape) else 1
-    if not shape or x.dim() == 0 or base <= 0:
-        return shape
-    b = x.shape[0] // base
-    return (b * shape[0],) + shape[1:]
 
 
 def _float_input(graph: Graph, op: OpNode) -> bool:
@@ -241,10 +280,12 @@ def tf32_on(flag: str) -> bool:
 def tf32_flag(graph: Graph, op: OpNode) -> Optional[str]:
     """The flag that must be off for ``op`` on a card, or None: float and
     hybrid convs other than the hybrid 1x1 ones (cuDNN), float
-    FULLY_CONNECTED and BATCH_MATMUL (cuBLAS).  The hybrid GEMMs run the
-    int8 kernel and take no flag."""
+    FULLY_CONNECTED and BATCH_MATMUL (cuBLAS), CONV_3D (cuDNN).  The
+    hybrid GEMMs run the int8 kernel and take no flag."""
     if op.opname == "BATCH_MATMUL":
         return TF32_MATMUL
+    if op.opname == "CONV_3D":
+        return TF32_CONV
     if op.opname not in ("CONV_2D", "DEPTHWISE_CONV_2D", "FULLY_CONNECTED") \
             or op.is_custom or not _float_input(graph, op):
         return None
@@ -662,10 +703,8 @@ def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
             _check_tf32(x2, op, TF32_MATMUL)
             out = _apply_float_activation(F.linear(
                 x2, ctx.param(op, "w"), _optional(ctx, op, "bias")), act)
-        in_td = ctx.graph.tensor(op.inputs[0])
-        ctx.set(op.outputs[0], out.reshape(
-            _stacked_shape(x_raw, in_td, out_td.shape)).to(
-                Q.torch_dtype(out_td.dtype)))
+        ctx.set(op.outputs[0], out.reshape(ctx.stacked(out_td.shape)).to(
+            Q.torch_dtype(out_td.dtype)))
         return
     x_raw = ctx.arr(op.inputs[0])
     x = _to_int8_domain(x_raw)
@@ -673,9 +712,7 @@ def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
     fast, epi, rq = _requant(ctx, op, out_td)
     out = (qmatmul_fast if fast else qmatmul_exact)(
         x.reshape(-1, x.shape[-1]), ctx.param(op, "w"), *epi, **rq)
-    in_td = ctx.graph.tensor(op.inputs[0])
-    ctx.set(op.outputs[0],
-            out.reshape(_stacked_shape(x_raw, in_td, out_td.shape)))
+    ctx.set(op.outputs[0], out.reshape(ctx.stacked(out_td.shape)))
 
 
 # --------------------------------------------------------------------------
@@ -736,13 +773,16 @@ def _operand(ctx: LowerCtx, op: OpNode, tid: int) -> torch.Tensor:
 
 
 def _binary_inputs(ctx: LowerCtx, op: OpNode):
-    return [_operand(ctx, op, tid) for tid in op.inputs[:2]]
+    """The two inputs of an elementwise op as they broadcast per request:
+    request views at the output's rank."""
+    rank = len(ctx.graph.tensor(op.outputs[0]).shape)
+    return [_lv(ctx, op, tid, rank) for tid in op.inputs[:2]]
 
 
 def _store_clamped(ctx: LowerCtx, op: OpNode, r: torch.Tensor) -> None:
     """Output = clamp(r + zpo, qmin, qmax) of float32 integers ``r``."""
     out_td = ctx.graph.tensor(op.outputs[0])
-    ctx.set(op.outputs[0], Q.clamp_rounded(
+    _put(ctx, op, Q.clamp_rounded(
         r, int(ctx.smeta(op, "zpo")), int(ctx.smeta(op, "qmin")),
         int(ctx.smeta(op, "qmax")), out_td.dtype))
 
@@ -766,7 +806,7 @@ def _addsub(ctx: LowerCtx, op: OpNode, sign: int) -> None:
             out = _apply_float_activation(
                 x1 + x2 if sign > 0 else x1 - x2,
                 op.options.get("activation", "NONE"))
-        ctx.set(op.outputs[0], out.to(Q.torch_dtype(out_td.dtype)))
+        _put(ctx, op, out)
         return
     if f"op{op.index}/f1" in ctx.meta:
         p1 = (x1.to(torch.float32) - float(ctx.smeta(op, "zp1"))) * \
@@ -788,7 +828,7 @@ def _addsub(ctx: LowerCtx, op: OpNode, sign: int) -> None:
         raw, int(ctx.smeta(op, "qmo")), int(ctx.smeta(op, "sho"))
     ).to(torch.int64) + int(ctx.smeta(op, "zpo"))
     out = out.clamp(int(ctx.smeta(op, "qmin")), int(ctx.smeta(op, "qmax")))
-    ctx.set(op.outputs[0], out.to(Q.torch_dtype(out_td.dtype)))
+    _put(ctx, op, out)
 
 
 @register("ADD", prepare=_prepare_addsub)
@@ -836,7 +876,7 @@ def _mul(ctx: LowerCtx, op: OpNode) -> None:
     if f"op{op.index}/qm" not in ctx.meta:
         store_real(ctx, op.outputs[0], _apply_float_activation(
             x1.to(torch.float32) * x2.to(torch.float32),
-            op.options.get("activation", "NONE")))
+            op.options.get("activation", "NONE")), view=True)
         return
     if f"op{op.index}/fm" in ctx.meta:
         acc = (x1.to(torch.float32) - float(ctx.smeta(op, "zp1"))) * \
@@ -850,7 +890,7 @@ def _mul(ctx: LowerCtx, op: OpNode) -> None:
         rounding="double",
     ).to(torch.int64) + int(ctx.smeta(op, "zpo"))
     out = out.clamp(int(ctx.smeta(op, "qmin")), int(ctx.smeta(op, "qmax")))
-    ctx.set(op.outputs[0], out.to(Q.torch_dtype(out_td.dtype)))
+    _put(ctx, op, out)
 
 
 # --------------------------------------------------------------------------
@@ -934,10 +974,9 @@ def _avg_pool(ctx: LowerCtx, op: OpNode) -> None:
 
 @register("RESHAPE", static_inputs=(1,))
 def _reshape(ctx: LowerCtx, op: OpNode) -> None:
-    x = ctx.arr(op.inputs[0])
-    in_td = ctx.graph.tensor(op.inputs[0])
-    out_shape = ctx.graph.tensor(op.outputs[0]).shape
-    ctx.set(op.outputs[0], x.reshape(_stacked_shape(x, in_td, out_shape)))
+    x = ctx.view(op.inputs[0])
+    out_shape = tuple(int(v) for v in ctx.graph.tensor(op.outputs[0]).shape)
+    ctx.set_view(op.outputs[0], x.reshape((x.shape[0],) + out_shape))
 
 
 # --------------------------------------------------------------------------
@@ -1123,21 +1162,17 @@ def _mean(ctx: LowerCtx, op: OpNode) -> None:
     """MBQM(sum(x) - zp_in * n) + zp_out with gemmlowp's double
     rounding, clamped (TFLite exact); the sum is int64.  Float: the float32
     mean between as_float and store_real (band_tpu/ops/lowerings.py:
-    1999-2000)."""
-    x = ctx.arr(op.inputs[0])
-    in_rank = len(ctx.graph.tensor(op.inputs[0]).shape)
-    axes = tuple(
-        sorted({int(v) % in_rank for v in np.ravel(ctx.static(op.inputs[1]))})
-    )
-    if 0 in axes:
-        raise LoweringError(
-            f"MEAN op {op.index}: a mean over the leading (request) axis"
-        )
+    1999-2000).  Per request: the model's axes behind the request axis."""
+    x = ctx.view(op.inputs[0])
+    in_rank = x.dim() - 1
+    # the model's axes behind the request axis
+    axes = tuple(sorted(
+        {int(v) % in_rank + 1 for v in np.ravel(ctx.static(op.inputs[1]))}))
     out_td = ctx.graph.tensor(op.outputs[0])
     keep_dims = len(out_td.shape) == in_rank
     if f"op{op.index}/qm" not in ctx.meta:
-        store_real(ctx, op.outputs[0], as_float(ctx, op.inputs[0]).mean(
-            dim=axes, keepdim=keep_dims))
+        store_real(ctx, op.outputs[0], real(ctx, op.inputs[0], x).mean(
+            dim=axes, keepdim=keep_dims), view=True)
         return
     acc = x.to(torch.int64).sum(dim=axes, keepdim=keep_dims)
     out = Q.multiply_by_quantized_multiplier(
@@ -1145,62 +1180,88 @@ def _mean(ctx: LowerCtx, op: OpNode) -> None:
         int(ctx.smeta(op, "sh")), rounding="double",
     ).to(torch.int64) + int(ctx.smeta(op, "zp_out"))
     qmin, qmax = Q.quantized_range(out_td.dtype)
-    ctx.set(op.outputs[0], out.clamp(qmin, qmax).to(Q.torch_dtype(out_td.dtype)))
+    ctx.set_view(op.outputs[0],
+                 out.clamp(qmin, qmax).to(Q.torch_dtype(out_td.dtype)))
 
 
 # --------------------------------------------------------------------------
 # Float fallback: dequantize -> float32 -> quantize
 # --------------------------------------------------------------------------
 
-def as_float(ctx: LowerCtx, tid: int) -> torch.Tensor:
-    """Runtime value of tensor ``tid`` as float32, dequantized if it is
-    quantized (band_tpu/ops/lowerings.py:140)."""
-    x = ctx.arr(tid)
+def real(ctx: LowerCtx, tid: int, x: torch.Tensor) -> torch.Tensor:
+    """``x``, a value of tensor ``tid`` (in any layout), as float32,
+    dequantized if the tensor is quantized."""
     if ctx.is_quantized(tid):
         s, zp = _scalar_qp(ctx.qp(tid))
         return Q.dequantize(x, s, zp)
     return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
-def store_real(ctx: LowerCtx, tid: int, val: torch.Tensor) -> None:
+def as_float(ctx: LowerCtx, tid: int) -> torch.Tensor:
+    """Runtime value of tensor ``tid`` as float32, dequantized if it is
+    quantized (band_tpu/ops/lowerings.py:140)."""
+    return real(ctx, tid, ctx.arr(tid))
+
+
+def store_real(ctx: LowerCtx, tid: int, val: torch.Tensor,
+               view: bool = False) -> None:
     """Store a float32 result, quantized if the tensor is quantized
-    (band_tpu/ops/lowerings.py:148)."""
+    (band_tpu/ops/lowerings.py:148); ``view``: ``val`` is a request
+    view."""
     td = ctx.graph.tensor(tid)
     if ctx.is_quantized(tid):
         s, zp = _scalar_qp(td.quant)
-        ctx.set(tid, Q.quantize(val, s, zp, td.dtype))
+        val = Q.quantize(val, s, zp, td.dtype)
     else:
-        ctx.set(tid, val.to(Q.torch_dtype(td.dtype)))
+        val = val.to(Q.torch_dtype(td.dtype))
+    if view:
+        ctx.set_view(tid, val)
+    else:
+        ctx.set(tid, val)
 
 
 # --------------------------------------------------------------------------
-# The request axis: which tensors carry it, and refusals
+# The request axis: which tensors carry it, and how an op reaches it
 # --------------------------------------------------------------------------
 
-def _is_shape_value(graph: Graph, tid: int) -> bool:
-    """Whether tensor ``tid`` is computed from SHAPE outputs and constants
-    alone (the converter's output-shape prelude of a TRANSPOSE_CONV): a
-    per-model value with no request axis, which a window does not stack.
-    Every other non-constant tensor is per-request data."""
-    td = graph.tensor(tid)
-    if td.is_constant:
-        return True
-    prod = next((o for o in graph.ops if tid in o.outputs), None)
-    if prod is None:
-        return False
-    if prod.opname == "SHAPE":
-        return True
-    return all(_is_shape_value(graph, t) for t in prod.inputs if t >= 0)
-
-
-def _refuse_request_axis(op: OpNode, what: str) -> LoweringError:
-    return LoweringError(
-        f"{op.opname} op {op.index}: {what} along the leading (request) axis, "
-        "where a window stacks its requests")
+def request_free(graph: Graph) -> FrozenSet[int]:
+    """The tensors that carry no request axis: constants, SHAPE outputs
+    and whatever is computed from those alone (the converter's
+    output-shape prelude of a TRANSPOSE_CONV): per-model values, which a
+    window does not stack.  Every other tensor is per-request data."""
+    free = {td.index for td in graph.tensors if td.is_constant}
+    for op in graph.ops:
+        if op.opname == "SHAPE" or all(t in free for t in op.inputs
+                                       if t >= 0):
+            free.update(op.outputs)
+    return frozenset(free)
 
 
 def _norm_axis(axis: int, rank: int) -> int:
     return axis + rank if axis < 0 else axis
+
+
+def _lv(ctx: LowerCtx, op: OpNode, tid: int, rank: Optional[int] = None,
+        expand: bool = False) -> torch.Tensor:
+    """Input ``tid`` of ``op`` in its request view (its prepared constant
+    or its runtime value), with singleton dims after the request axis up
+    to ``rank`` model dims, so that inputs of different ranks broadcast
+    per request; with ``expand`` one that carries no request axis
+    repeated over the requests (a view, no copy)."""
+    v = ctx.view(tid, _operand(ctx, op, tid))
+    if rank is not None and v.dim() - 1 < rank:
+        v = v.reshape((v.shape[0],) + (1,) * (rank + 1 - v.dim())
+                      + tuple(v.shape[1:]))
+    if expand:
+        v = v.expand((ctx.batch,) + tuple(v.shape[1:]))
+    return v
+
+
+def _put(ctx: LowerCtx, op: OpNode, v: torch.Tensor, index: int = 0) -> None:
+    """Store the request view ``v`` as output ``index`` of ``op``, as the
+    output's dtype."""
+    tid = op.outputs[index]
+    ctx.set_view(tid, v.to(Q.torch_dtype(ctx.graph.tensor(tid).dtype)))
 
 
 # --------------------------------------------------------------------------
@@ -1221,10 +1282,16 @@ def _shape(ctx: LowerCtx, op: OpNode) -> None:
     ctx.set(op.outputs[0], ctx.param(op, "value"))
 
 
+def _index_op(ctx: LowerCtx, op: OpNode) -> None:
+    """STRIDED_SLICE and SLICE: the prepared model index behind the
+    request axis (band_tpu's under vmap)."""
+    out = _lv(ctx, op, op.inputs[0])[(slice(None),) + ctx.smeta(op, "index")]
+    ctx.set_view(op.outputs[0], out.contiguous())
+
+
 def _prepare_strided_slice(graph: Graph, op: OpNode,
                            exact: bool) -> Dict[str, Any]:
-    """The index as slices and ints (band_tpu/ops/lowerings.py:1516).
-    Per-request data keeps its whole leading axis or is refused."""
+    """The index as slices and ints (band_tpu/ops/lowerings.py:1516)."""
     o = op.options
     begin = graph.tensor(op.inputs[1]).data.astype(np.int64)
     end = graph.tensor(op.inputs[2]).data.astype(np.int64)
@@ -1235,40 +1302,23 @@ def _prepare_strided_slice(graph: Graph, op: OpNode,
             f"STRIDED_SLICE op {op.index}: ellipsis and new-axis masks and "
             "negative strides are not ported to PyTorch yet")
     shape = graph.tensor(op.inputs[0]).shape
-    data = not _is_shape_value(graph, op.inputs[0])
     index = []
     for d in range(len(begin)):
+        if (o.get("shrink_axis_mask", 0) >> d) & 1:
+            index.append(range(shape[d])[int(begin[d])])
+            continue
         b = None if (o.get("begin_mask", 0) >> d) & 1 else int(begin[d])
         e = None if (o.get("end_mask", 0) >> d) & 1 else int(end[d])
         s = int(strides[d])
-        shrink = (o.get("shrink_axis_mask", 0) >> d) & 1
-        if shrink:
-            sel = range(shape[d])[int(begin[d])]
-            if d == 0 and data:
-                raise _refuse_request_axis(op, "an index")
-            index.append(sel)
-            continue
         r = range(*slice(b, e, s).indices(int(shape[d])))
-        if d == 0 and data:
-            if r != range(int(shape[0])):
-                raise _refuse_request_axis(op, "a slice")
-            index.append(slice(None))
-        else:
-            index.append(slice(r.start, r.start + len(r) * s, s))
+        index.append(slice(r.start, r.start + len(r) * s, s))
     out = {"index": tuple(index)}
     out.update(_constant_inputs(graph, op))
     return out
 
 
-@register("STRIDED_SLICE", prepare=_prepare_strided_slice,
-          static_inputs=(1, 2, 3))
-def _strided_slice(ctx: LowerCtx, op: OpNode) -> None:
-    x = _operand(ctx, op, op.inputs[0])
-    out = x[ctx.smeta(op, "index")]
-    in_td = ctx.graph.tensor(op.inputs[0])
-    out_shape = ctx.graph.tensor(op.outputs[0]).shape
-    ctx.set(op.outputs[0],
-            out.reshape(_stacked_shape(x, in_td, out_shape)).contiguous())
+register("STRIDED_SLICE", prepare=_prepare_strided_slice,
+         static_inputs=(1, 2, 3))(_index_op)
 
 
 def _prepare_slice(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
@@ -1278,34 +1328,22 @@ def _prepare_slice(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
             f"SLICE op {op.index}: a runtime begin or size (the TensorArray "
             "write of WHILE loops) is not ported to PyTorch yet")
     shape = graph.tensor(op.inputs[0]).shape
-    data = not _is_shape_value(graph, op.inputs[0])
     index = []
     for d, (b, s) in enumerate(zip(b_td.data, s_td.data)):
         b, s = int(b), int(s)
-        e = int(shape[d]) if s == -1 else b + s
-        if d == 0 and data:
-            if (b, e) != (0, int(shape[0])):
-                raise _refuse_request_axis(op, "a slice")
-            index.append(slice(None))
-        else:
-            index.append(slice(b, e))
+        index.append(slice(b, int(shape[d]) if s == -1 else b + s))
     out = {"index": tuple(index)}
     out.update(_constant_inputs(graph, op))
     return out
 
 
-@register("SLICE", prepare=_prepare_slice, static_inputs=(1, 2))
-def _slice(ctx: LowerCtx, op: OpNode) -> None:
-    x = _operand(ctx, op, op.inputs[0])
-    ctx.set(op.outputs[0], x[ctx.smeta(op, "index")].contiguous())
+register("SLICE", prepare=_prepare_slice, static_inputs=(1, 2))(_index_op)
 
 
 def _prepare_pack(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     rank = len(graph.tensor(op.inputs[0]).shape)
-    axis = _norm_axis(op.options.get("axis", 0), rank + 1)
-    if axis == 0 and not all(_is_shape_value(graph, t) for t in op.inputs):
-        raise _refuse_request_axis(op, "a pack")
-    out: Dict[str, Any] = {"axis": axis}
+    out: Dict[str, Any] = {"axis": _norm_axis(op.options.get("axis", 0),
+                                              rank + 1)}
     for tid in op.inputs:
         td = graph.tensor(tid)
         if td.is_constant:
@@ -1317,26 +1355,27 @@ def _prepare_pack(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 @register("PACK", prepare=_prepare_pack)
 def _pack(ctx: LowerCtx, op: OpNode) -> None:
-    vals = [_operand(ctx, op, t) for t in op.inputs]
-    ctx.set(op.outputs[0], torch.stack(vals, dim=ctx.smeta(op, "axis")))
+    """Per request, a constant input repeated over the requests."""
+    vals = [_lv(ctx, op, t, expand=True) for t in op.inputs]
+    ctx.set_view(op.outputs[0],
+                 torch.stack(vals, dim=ctx.smeta(op, "axis") + 1))
 
 
 def _prepare_transpose(graph: Graph, op: OpNode,
                        exact: bool) -> Dict[str, Any]:
-    perm = [int(v) for v in graph.tensor(op.inputs[1]).data]
-    if perm and perm[0] != 0 and not _is_shape_value(graph, op.inputs[0]):
-        raise _refuse_request_axis(op, "a permutation that moves axis 0")
-    out: Dict[str, Any] = {"perm": tuple(perm)}
+    out: Dict[str, Any] = {"perm": tuple(
+        int(v) for v in graph.tensor(op.inputs[1]).data)}
     out.update(_constant_inputs(graph, op))
     return out
 
 
 @register("TRANSPOSE", prepare=_prepare_transpose, static_inputs=(1,))
 def _transpose(ctx: LowerCtx, op: OpNode) -> None:
-    """A permute that keeps the request axis in front, materialized (the
+    """The model permutation behind the request axis, materialized (the
     kernels take contiguous operands)."""
-    x = _operand(ctx, op, op.inputs[0])
-    ctx.set(op.outputs[0], x.permute(ctx.smeta(op, "perm")).contiguous())
+    v = _lv(ctx, op, op.inputs[0]).permute(
+        (0,) + tuple(p + 1 for p in ctx.smeta(op, "perm")))
+    ctx.set_view(op.outputs[0], v.contiguous())
 
 
 # --------------------------------------------------------------------------
@@ -1349,10 +1388,8 @@ def _prepare_concat(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     float32 rescale (band_tpu/ops/lowerings.py:1436-1445): scale =
     float32(s_i) * float32(1 / s_o), bias = -zp_i * scale."""
     out_td = graph.tensor(op.outputs[0])
-    axis = _norm_axis(op.options.get("axis", 0), len(out_td.shape))
-    if axis == 0 and not all(_is_shape_value(graph, t) for t in op.inputs):
-        raise _refuse_request_axis(op, "a concatenation")
-    out: Dict[str, Any] = {"axis": axis}
+    out: Dict[str, Any] = {"axis": _norm_axis(op.options.get("axis", 0),
+                                              len(out_td.shape))}
     oq = out_td.quant
     for tid in op.inputs:
         td = graph.tensor(tid)
@@ -1373,11 +1410,12 @@ def _prepare_concat(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 def _concat(ctx: LowerCtx, op: OpNode) -> None:
     """Inputs requantized to the output's parameters where they differ
     (round half away from zero of the float32 rescale, clamped), then
-    concatenated."""
+    concatenated, per request (a constant input repeated over the
+    requests)."""
     out_td = ctx.graph.tensor(op.outputs[0])
     parts = []
     for tid in op.inputs:
-        v = _operand(ctx, op, tid)
+        v = _lv(ctx, op, tid, expand=True)
         if f"op{op.index}/scale{tid}" in ctx.meta:
             val = Q.round_ties_away(
                 v.to(torch.float32) * ctx.smeta(op, f"scale{tid}")
@@ -1386,19 +1424,18 @@ def _concat(ctx: LowerCtx, op: OpNode) -> None:
             qmin, qmax = Q.quantized_range(out_td.dtype)
             v = Q.clamp_rounded(val, zp_o, qmin, qmax, out_td.dtype)
         parts.append(v)
-    ctx.set(op.outputs[0], torch.cat(parts, dim=ctx.smeta(op, "axis")))
+    ctx.set_view(op.outputs[0],
+                 torch.cat(parts, dim=ctx.smeta(op, "axis") + 1))
 
 
 def _pad_amounts(graph: Graph, op: OpNode):
-    pads = [tuple(int(v) for v in row) for row in graph.tensor(op.inputs[1]).data]
-    if pads and pads[0] != (0, 0) and not _is_shape_value(graph, op.inputs[0]):
-        raise _refuse_request_axis(op, "padding")
-    return pads
+    return [tuple(int(v) for v in row)
+            for row in graph.tensor(op.inputs[1]).data]
 
 
 def _prepare_pad(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
-    """F.pad amounts (last axis first) and the fill: the input's zero
-    point (PAD), or the constant of PADV2."""
+    """F.pad amounts (last axis first, the model's axes only) and the
+    fill: the input's zero point (PAD), or the constant of PADV2."""
     pads = _pad_amounts(graph, op)
     td = graph.tensor(op.inputs[0])
     if op.opname == "PADV2":
@@ -1413,9 +1450,9 @@ def _prepare_pad(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 
 def _pad(ctx: LowerCtx, op: OpNode) -> None:
-    x = _operand(ctx, op, op.inputs[0])
-    ctx.set(op.outputs[0], F.pad(x, ctx.smeta(op, "pads"),
-                                 value=ctx.smeta(op, "fill")))
+    x = _lv(ctx, op, op.inputs[0])
+    ctx.set_view(op.outputs[0], F.pad(x, ctx.smeta(op, "pads"),
+                                      value=ctx.smeta(op, "fill")))
 
 
 register("PAD", prepare=_prepare_pad, static_inputs=(1,))(_pad)
@@ -1440,12 +1477,12 @@ def _prepare_mirror_pad(graph: Graph, op: OpNode,
 
 @register("MIRROR_PAD", prepare=_prepare_mirror_pad, static_inputs=(1,))
 def _mirror_pad(ctx: LowerCtx, op: OpNode) -> None:
-    x = _operand(ctx, op, op.inputs[0])
-    for axis in range(x.dim()):
+    x = _lv(ctx, op, op.inputs[0])
+    for axis in range(x.dim() - 1):
         key = f"op{op.index}/idx{axis}"
         if key in ctx.params:
-            x = x.index_select(axis, ctx.params[key])
-    ctx.set(op.outputs[0], x)
+            x = x.index_select(axis + 1, ctx.params[key])
+    ctx.set_view(op.outputs[0], x)
 
 
 def _prepare_split(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
@@ -1458,8 +1495,6 @@ def _prepare_split(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     shape = graph.tensor(x_tid).shape
     axis = _norm_axis(int(np.asarray(graph.tensor(axis_tid).data).reshape(())),
                       len(shape))
-    if axis == 0 and not _is_shape_value(graph, x_tid):
-        raise _refuse_request_axis(op, "a split")
     dim = int(shape[axis])
     if op.opname == "SPLIT":
         sizes = [dim // len(op.outputs)] * len(op.outputs)
@@ -1473,11 +1508,11 @@ def _prepare_split(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 
 def _split(ctx: LowerCtx, op: OpNode) -> None:
-    x = _operand(ctx, op, ctx.smeta(op, "x"))
-    parts = torch.split(x, list(ctx.smeta(op, "sizes")),
-                        dim=ctx.smeta(op, "axis"))
+    parts = torch.split(_lv(ctx, op, ctx.smeta(op, "x")),
+                        list(ctx.smeta(op, "sizes")),
+                        dim=ctx.smeta(op, "axis") + 1)
     for tid, part in zip(op.outputs, parts):
-        ctx.set(tid, part.contiguous())
+        ctx.set_view(tid, part.contiguous())
 
 
 register("SPLIT", prepare=_prepare_split, static_inputs=(0,))(_split)
@@ -1617,17 +1652,20 @@ def _alpha_table(x_td: TensorDef, out_td: TensorDef, alpha_q: np.ndarray,
     q1, sh1 = Q.quantize_multiplier(float(f32(s_i) / f32(s_o)))
     q2, sh2 = Q.quantize_multiplier(
         float(f32(f32(s_i) * f32(alpha_scale)) / f32(s_o)))
-    info = np.iinfo(x_td.dtype)
-    byte = np.arange(256)
-    vals = np.where(byte > info.max, byte - 256, byte) if info.min < 0 \
-        else byte  # the value whose byte is ``byte``
-    xi = torch.from_numpy((vals - zp_i).astype(np.int64))
+    xi = torch.from_numpy(_byte_values(x_td.dtype) - zp_i)
     a = torch.from_numpy(alpha_q.astype(np.int64).reshape(-1, 1))
     pos = Q.multiply_by_quantized_multiplier(xi, q1, sh1, "double")
     neg = Q.multiply_by_quantized_multiplier(xi * a, q2, sh2, "double")
     out = torch.where(xi >= 0, pos, neg).to(torch.int64) + zp_o
     qmin, qmax = Q.quantized_range(out_td.dtype)
     return out.clamp(qmin, qmax).numpy().astype(out_td.dtype)
+
+
+def _byte_values(dtype) -> np.ndarray:
+    """[256] int64: the 8-bit value of ``dtype`` whose byte is the index
+    (a table over the input byte, Q.apply_lut)."""
+    byte = np.arange(256, dtype=np.int64)
+    return np.where(byte > np.iinfo(dtype).max, byte - 256, byte)
 
 
 def _int8_activation(graph: Graph, op: OpNode) -> bool:
@@ -1753,21 +1791,26 @@ for _name, _fn in _FLOAT_UNARY.items():
     register(_name)(_float_unary(_fn))
 
 
+def _real_inputs(ctx: LowerCtx, op: OpNode):
+    """``_binary_inputs`` as float32, dequantized where quantized."""
+    return [real(ctx, t, v)
+            for t, v in zip(op.inputs[:2], _binary_inputs(ctx, op))]
+
+
 @register("SQUARED_DIFFERENCE")
 def _squared_difference(ctx: LowerCtx, op: OpNode) -> None:
-    a = as_float(ctx, op.inputs[0])
-    b = as_float(ctx, op.inputs[1])
-    store_real(ctx, op.outputs[0], torch.square(a - b))
+    a, b = _real_inputs(ctx, op)
+    store_real(ctx, op.outputs[0], torch.square(a - b), view=True)
 
 
 @register("BATCH_MATMUL")
 def _batch_matmul(ctx: LowerCtx, op: OpNode) -> None:
     """matmul in float32 between as_float and store_real, as band_tpu
-    computes it (outside any Pallas kernel), under the TF32 rule."""
-    a = as_float(ctx, op.inputs[0])
-    b = as_float(ctx, op.inputs[1])
+    computes it (outside any Pallas kernel), under the TF32 rule; per
+    request, the request axis a batch dim of the product."""
+    a, b = _real_inputs(ctx, op)
     _check_tf32(a, op, TF32_MATMUL)
-    store_real(ctx, op.outputs[0], torch.matmul(a, b))
+    store_real(ctx, op.outputs[0], torch.matmul(a, b), view=True)
 
 
 # --------------------------------------------------------------------------
@@ -1964,3 +2007,602 @@ def _transpose_conv(ctx: LowerCtx, op: OpNode) -> None:
     if (t_h * sh, t_w * sw) != (out_h, out_w):
         out = out[:, :out_h, :out_w].contiguous()
     ctx.set(op.outputs[0], out)
+
+
+# --------------------------------------------------------------------------
+# The support op set: casts, comparisons and logic, select, reductions,
+# integer division, index and move ops, segment ops, spectral and 3-D ops
+# (band_tpu/ops/lowerings.py:1641, :1955, :2364-2607, :2881-3075).  Each
+# runs on request views, the model's axes behind the request axis
+# (band_tpu vmaps them).  Numerics follow TFLite 2.21's kernels where they
+# fix an order or a rounding that band_tpu leaves to XLA.
+# --------------------------------------------------------------------------
+
+def _out_dtype(ctx: LowerCtx, op: OpNode, index: int = 0) -> torch.dtype:
+    return Q.torch_dtype(ctx.graph.tensor(op.outputs[index]).dtype)
+
+
+def _unary(fn):
+    def lower(ctx: LowerCtx, op: OpNode) -> None:
+        _put(ctx, op, fn(_lv(ctx, op, op.inputs[0])))
+
+    return lower
+
+
+def _binary(fn):
+    def lower(ctx: LowerCtx, op: OpNode) -> None:
+        _put(ctx, op, fn(*_binary_inputs(ctx, op)))
+
+    return lower
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """TFLite's (0 < x) - (x < 0): +0 for both zeros."""
+    return (x > 0).to(x.dtype) - (x < 0).to(x.dtype)
+
+
+def _right_shift(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """TFLite's arithmetic right shift, the amount clamped to [0, bits-1]."""
+    bits = torch.iinfo(x.dtype).bits
+    return torch.bitwise_right_shift(x, y.clamp(0, bits - 1).to(x.dtype))
+
+
+register("CAST")(_unary(lambda x: x))  # _put converts to the output type
+register("LOGICAL_NOT")(_unary(torch.logical_not))
+register("SIGN")(_unary(_sign))
+register("COMPLEX_ABS")(_unary(torch.abs))
+register("REAL")(_unary(lambda x: torch.real(x).contiguous()))
+register("IMAG")(_unary(lambda x: torch.imag(x).contiguous()))
+register("ATAN2")(_binary(torch.atan2))
+register("BITWISE_XOR")(_binary(torch.bitwise_xor))
+register("RIGHT_SHIFT")(_binary(_right_shift))
+register("LOGICAL_AND")(_binary(torch.logical_and))
+register("LOGICAL_OR")(_binary(torch.logical_or))
+
+
+def _prepare_minmax(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """band_tpu's rule (band_tpu/ops/lowerings.py:1930-1952): the raw
+    values when both inputs share the output's scale (and the first its
+    zero point) or the output is not quantized, else the float form."""
+    t1, t2 = graph.tensor(op.inputs[0]), graph.tensor(op.inputs[1])
+    out_td = graph.tensor(op.outputs[0])
+    raw = out_td.quant is None or (
+        t1.quant is not None and t2.quant is not None
+        and float(t1.quant.scale[0]) == float(out_td.quant.scale[0])
+        and int(t1.quant.zero_point[0]) == int(out_td.quant.zero_point[0])
+        and float(t2.quant.scale[0]) == float(out_td.quant.scale[0]))
+    d = {"raw": raw}
+    d.update(_constant_inputs(graph, op))
+    return d
+
+
+def _minmax(fn):
+    def lower(ctx: LowerCtx, op: OpNode) -> None:
+        if ctx.smeta(op, "raw"):
+            _put(ctx, op, fn(*_binary_inputs(ctx, op)))
+        else:
+            store_real(ctx, op.outputs[0], fn(*_real_inputs(ctx, op)),
+                       view=True)
+
+    return lower
+
+
+register("MINIMUM", prepare=_prepare_minmax)(_minmax(torch.minimum))
+register("MAXIMUM", prepare=_prepare_minmax)(_minmax(torch.maximum))
+
+
+def _compare_table(td: TensorDef) -> np.ndarray:
+    """TFLite's ComparisonQuantized rescale of an 8-bit input
+    (comparisons.cc): (x - zp) << 8, then MBQM by the input's own scale
+    (QuantizeMultiplierSmallerThanOneExp, double rounding); as a
+    256-entry int32 table over the input byte (Q.apply_lut)."""
+    s, zp = _scalar_qp(td.quant)
+    qm, sh = Q.quantize_multiplier(s)
+    v = torch.from_numpy(_byte_values(td.dtype) - zp) << 8
+    return Q.multiply_by_quantized_multiplier(v, qm, sh, "double").numpy()
+
+
+def _prepare_compare(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """Quantized 8-bit inputs, exact numerics: TFLite's
+    ComparisonQuantized, each input rescaled by its own table
+    (``_compare_table``) and the integers compared (fault C8 in
+    ROADMAP.md: band_tpu compares the dequantized float32 values, which
+    differs where 256 * scale < 1 maps two codes to one integer).  Fast
+    numerics keep band_tpu's float form."""
+    d = _constant_inputs(graph, op)
+    tds = [graph.tensor(t) for t in op.inputs[:2]]
+    if exact and all(td.quant is not None and td.dtype in (np.int8, np.uint8)
+                     and float(td.quant.scale[0]) < 1.0 for td in tds):
+        for i, td in enumerate(tds):
+            d[f"cq{i}"] = _compare_table(td)
+    return d
+
+
+def _comparison(fn):
+    def lower(ctx: LowerCtx, op: OpNode) -> None:
+        a, b = _binary_inputs(ctx, op)
+        if f"op{op.index}/cq0" in ctx.params:
+            a, b = (Q.apply_lut(v, ctx.param(op, f"cq{i}"))
+                    for i, v in enumerate((a, b)))
+        elif ctx.is_quantized(op.inputs[0]) or ctx.is_quantized(op.inputs[1]):
+            a, b = _real_inputs(ctx, op)
+        _put(ctx, op, fn(a, b))
+
+    return lower
+
+
+for _name, _fn in {
+    "EQUAL": torch.eq,
+    "NOT_EQUAL": torch.ne,
+    "GREATER": torch.gt,
+    "GREATER_EQUAL": torch.ge,
+    "LESS": torch.lt,
+    "LESS_EQUAL": torch.le,
+}.items():
+    register(_name, prepare=_prepare_compare)(_comparison(_fn))
+
+
+def _prepare_select(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """TFLite's SELECT copies the chosen input's bytes (select.cc reads no
+    quantization); band_tpu dequantizes and requantizes, which is the
+    same bytes when both inputs share the output's parameters.  Where
+    they do not, band_tpu's float form."""
+    out_td = graph.tensor(op.outputs[0])
+    tds = [graph.tensor(t) for t in op.inputs[1:3]]
+    raw = all(
+        (td.quant is None) == (out_td.quant is None) and td.dtype ==
+        out_td.dtype and (td.quant is None or (
+            float(td.quant.scale[0]), int(td.quant.zero_point[0])) == (
+            float(out_td.quant.scale[0]), int(out_td.quant.zero_point[0])))
+        for td in tds)
+    d = {"raw": raw}
+    d.update(_constant_inputs(graph, op))
+    return d
+
+
+def _select(ctx: LowerCtx, op: OpNode) -> None:
+    """where(cond, x, y); a rank-1 condition of SELECT picks rows."""
+    rank = len(ctx.graph.tensor(op.outputs[0]).shape)
+    cond_tid, t1, t2 = op.inputs[:3]
+    cond_rank = len(ctx.graph.tensor(cond_tid).shape)
+    cond = _lv(ctx, op, cond_tid, None if cond_rank == 1 else rank)
+    if op.opname == "SELECT" and cond_rank == 1 and rank > 1:
+        cond = cond.reshape(tuple(cond.shape) + (1,) * (rank - 1))
+    a, b = _lv(ctx, op, t1, rank), _lv(ctx, op, t2, rank)
+    if ctx.smeta(op, "raw"):
+        _put(ctx, op, torch.where(cond, a, b))
+        return
+    store_real(ctx, op.outputs[0], torch.where(
+        cond, real(ctx, t1, a), real(ctx, t2, b)), view=True)
+
+
+register("SELECT", prepare=_prepare_select)(_select)
+register("SELECT_V2", prepare=_prepare_select)(_select)
+
+
+# FLOOR_DIV and FLOOR_MOD (TFLite floor_div.cc, floor_mod.cc): integers
+# floor toward -inf and the remainder takes the divisor's sign; floats as
+# TFLite computes them, floor(a / b) and fmod(a, b) moved into the
+# divisor's sign (band_tpu's jnp forms round differently on some floats)
+def _floor_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype.is_floating_point:
+        return torch.floor(a / b)
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if not a.dtype.is_floating_point:
+        return torch.remainder(a, b)
+    r = torch.fmod(a, b)
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
+register("FLOOR_DIV", prepare=lambda g, op, e: _constant_inputs(g, op))(
+    _binary(_floor_div))
+register("FLOOR_MOD", prepare=lambda g, op, e: _constant_inputs(g, op))(
+    _binary(_floor_mod))
+
+
+def _axes(ctx: LowerCtx, op: OpNode, tid: int, rank: int) -> Tuple[int, ...]:
+    """A static axis input's model axes, behind the request axis."""
+    return tuple(sorted({int(v) % rank + 1
+                         for v in np.ravel(ctx.static(tid))}))
+
+
+def _reduce(fn):
+    """REDUCE_MIN, REDUCE_ANY, REDUCE_ALL: on the raw values (min commutes
+    with the monotonic affine quantization)."""
+    def lower(ctx: LowerCtx, op: OpNode) -> None:
+        x = ctx.view(op.inputs[0])
+        axes = _axes(ctx, op, op.inputs[1], x.dim() - 1)
+        ctx.set_view(op.outputs[0], fn(
+            x, axes, op.options.get("keep_dims", False)).to(
+                _out_dtype(ctx, op)))
+
+    return lower
+
+
+def _amin(x, axes, keep):
+    return torch.amin(x, dim=axes, keepdim=keep)
+
+
+def _all(x, axes, keep):
+    return torch.all(x, dim=axes, keepdim=keep)
+
+
+def _any(x, axes, keep):
+    return torch.any(x, dim=axes, keepdim=keep)
+
+
+register("REDUCE_MIN", static_inputs=(1,))(_reduce(_amin))
+register("REDUCE_ANY", static_inputs=(1,))(_reduce(_any))
+register("REDUCE_ALL", static_inputs=(1,))(_reduce(_all))
+
+
+@register("REDUCE_PROD", static_inputs=(1,))
+def _reduce_prod(ctx: LowerCtx, op: OpNode) -> None:
+    """TFLite's order: one product per output, left to right over the
+    reduced elements in row-major order (reduce.cc); quantized inputs as
+    band_tpu's float form."""
+    x = real(ctx, op.inputs[0], ctx.view(op.inputs[0])) \
+        if ctx.is_quantized(op.inputs[0]) else ctx.view(op.inputs[0])
+    axes = _axes(ctx, op, op.inputs[1], x.dim() - 1)
+    keep = op.options.get("keep_dims", False)
+    rest = [a for a in range(x.dim()) if a not in axes]
+    flat = x.permute(rest + list(axes)).flatten(len(rest))
+    acc = flat[..., 0]
+    for i in range(1, flat.shape[-1]):
+        acc = acc * flat[..., i]
+    if keep:
+        for a in axes:
+            acc = acc.unsqueeze(a)
+    if ctx.is_quantized(op.inputs[0]):
+        store_real(ctx, op.outputs[0], acc, view=True)
+    else:
+        ctx.set_view(op.outputs[0], acc.to(_out_dtype(ctx, op)))
+
+
+@register("ARG_MIN", static_inputs=(1,))
+def _arg_min(ctx: LowerCtx, op: OpNode) -> None:
+    """The first index of the smallest value (TFLite arg_min_max.cc)."""
+    x = ctx.view(op.inputs[0])
+    (axis,) = _axes(ctx, op, op.inputs[1], x.dim() - 1)
+    ctx.set_view(op.outputs[0],
+                 torch.argmin(x, dim=axis).to(_out_dtype(ctx, op)))
+
+
+@register("REVERSE_V2", static_inputs=(1,))
+def _reverse_v2(ctx: LowerCtx, op: OpNode) -> None:
+    x = ctx.view(op.inputs[0])
+    ctx.set_view(op.outputs[0], torch.flip(
+        x, _axes(ctx, op, op.inputs[1], x.dim() - 1)))
+
+
+@register("TILE", static_inputs=(1,))
+def _tile(ctx: LowerCtx, op: OpNode) -> None:
+    reps = tuple(int(v) for v in np.ravel(ctx.static(op.inputs[1])))
+    ctx.set_view(op.outputs[0], ctx.view(op.inputs[0]).repeat((1,) + reps))
+
+
+@register("CUMSUM", static_inputs=(1,))
+def _cumsum(ctx: LowerCtx, op: OpNode) -> None:
+    """TFLite's cumsum.cc: the running sum along the axis, reversed with
+    ``reverse``; with ``exclusive`` each output the sum of the elements
+    before it (0 first).  band_tpu subtracts x from the inclusive sum
+    instead, which rounds differently on floats."""
+    x = ctx.view(op.inputs[0])
+    (axis,) = _axes(ctx, op, op.inputs[1], x.dim() - 1)
+    if op.options.get("reverse", False):
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, dim=axis).to(x.dtype)
+    if op.options.get("exclusive", False):
+        first = torch.zeros_like(x.narrow(axis, 0, 1))
+        out = torch.cat([first, out.narrow(axis, 0, x.shape[axis] - 1)],
+                        dim=axis)
+    if op.options.get("reverse", False):
+        out = torch.flip(out, (axis,))
+    ctx.set_view(op.outputs[0], out)
+
+
+def _prepare_one_hot(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    d = {"depth": int(np.asarray(graph.tensor(op.inputs[1]).data).reshape(()))}
+    d.update(_constant_inputs(graph, op))
+    return d
+
+
+@register("ONE_HOT", prepare=_prepare_one_hot, static_inputs=(1,))
+def _one_hot(ctx: LowerCtx, op: OpNode) -> None:
+    """where(index == iota, on, off) along ``axis`` (band_tpu/ops/
+    lowerings.py:2559); on and off are scalars."""
+    idx = _lv(ctx, op, op.inputs[0])
+    depth = ctx.smeta(op, "depth")
+    axis = _norm_axis(op.options.get("axis", -1), idx.dim()) + 1
+    on = _operand(ctx, op, op.inputs[2]).reshape(())
+    off = _operand(ctx, op, op.inputs[3]).reshape(())
+    shape = [1] * (idx.dim() + 1)
+    shape[axis] = depth
+    iota = torch.arange(depth, device=idx.device).reshape(shape)
+    hot = idx.to(torch.int64).unsqueeze(axis) == iota
+    ctx.set_view(op.outputs[0],
+                 torch.where(hot, on, off).to(_out_dtype(ctx, op)))
+
+
+@register("LOCAL_RESPONSE_NORMALIZATION")
+def _lrn(ctx: LowerCtx, op: OpNode) -> None:
+    """TFLite's LRN (local_response_norm.cc): x * (bias + alpha *
+    sum_{c-r..c+r} x^2) ^ -beta over channels, alpha not divided by the
+    window, the window summed left to right from 0 (band_tpu differences
+    prefix sums, which rounds differently)."""
+    x = as_float(ctx, op.inputs[0])
+    r = int(op.options.get("radius", 5))
+    c = x.shape[-1]
+    sq = F.pad(x * x, (r, r))
+    acc = torch.zeros_like(x)
+    for j in range(2 * r + 1):
+        acc = acc + sq[..., j:j + c]
+    base = float(op.options.get("bias", 1.0)) + \
+        float(op.options.get("alpha", 1.0)) * acc
+    store_real(ctx, op.outputs[0],
+               x * torch.pow(base, -float(op.options.get("beta", 0.5))))
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """An int64 key in the order of x's values, equal values equal: the
+    value for integers; for floats the bits, negatives mirrored, and -0
+    as +0."""
+    if not x.dtype.is_floating_point:
+        return x.to(torch.int64)
+    b = x.to(torch.float32).view(torch.int32).to(torch.int64)
+    return torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+
+_LOW32 = (1 << 32) - 1
+
+
+@register("TOPK_V2", static_inputs=(1,))
+def _topk_v2(ctx: LowerCtx, op: OpNode) -> None:
+    """The k largest values along the last axis, largest first, and among
+    equal values the lower index first (TFLite's TopContainer, lax.top_k).
+    torch.topk promises no order for ties, so it runs on a key that
+    packs the value's order above the inverted index: every key distinct,
+    one topk, no sort and no host sync.  int64 values take a stable
+    descending sort."""
+    x = ctx.view(op.inputs[0])
+    k = int(np.asarray(ctx.static(op.inputs[1])).reshape(()))
+    if x.dtype == torch.int64:
+        _, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        idx = idx[..., :k]
+    else:
+        pos = torch.arange(x.shape[-1], device=x.device, dtype=torch.int64)
+        key = _order_key(x) * (1 << 32) + (_LOW32 - pos)
+        idx = _LOW32 - (torch.topk(key, k, dim=-1).values & _LOW32)
+    ctx.set_view(op.outputs[0], torch.gather(x, -1, idx))
+    ctx.set_view(op.outputs[1], idx.to(_out_dtype(ctx, op, 1)))
+
+
+def _nd_index(ctx: LowerCtx, op: OpNode, idx_tid: int):
+    """The advanced index of GATHER_ND and SCATTER_ND into a request view
+    [B, ...]: an explicit request index, then the index rows' columns (a
+    constant's broadcast over the requests)."""
+    cols = tuple(_lv(ctx, op, idx_tid).to(torch.int64).unbind(-1))
+    req = torch.arange(ctx.batch, device=cols[0].device).reshape(
+        (ctx.batch,) + (1,) * (cols[0].dim() - 1))
+    return (req,) + cols
+
+
+@register("GATHER_ND", prepare=lambda g, op, e: _constant_inputs(g, op))
+def _gather_nd(ctx: LowerCtx, op: OpNode) -> None:
+    """x[idx[..., 0], ..., idx[..., n-1]] per request: each request reads
+    its own x, also where an index's first column is 0 (the model's
+    batch axis)."""
+    x = _lv(ctx, op, op.inputs[0], expand=True)
+    ctx.set_view(op.outputs[0], x[_nd_index(ctx, op, op.inputs[1])])
+
+
+def _prepare_scatter_nd(graph: Graph, op: OpNode,
+                        exact: bool) -> Dict[str, Any]:
+    d = {"shape": tuple(int(v) for v in graph.tensor(op.inputs[2]).data)}
+    d.update(_constant_inputs(graph, op))
+    return d
+
+
+@register("SCATTER_ND", prepare=_prepare_scatter_nd, static_inputs=(2,))
+def _scatter_nd(ctx: LowerCtx, op: OpNode) -> None:
+    """zeros(shape) with the updates added at the indices, per request
+    (duplicate indices add, as TF's op)."""
+    idx_tid, upd_tid = op.inputs[:2]
+    upd = _lv(ctx, op, upd_tid, expand=True)
+    out = torch.zeros((ctx.batch,) + ctx.smeta(op, "shape"), dtype=upd.dtype,
+                      device=upd.device)
+    ctx.set_view(op.outputs[0], out.index_put_(
+        _nd_index(ctx, op, idx_tid), upd, accumulate=True))
+
+
+def _block_params(ctx: LowerCtx, op: OpNode):
+    block = [int(v) for v in np.ravel(ctx.static(op.inputs[1]))]
+    pads = np.asarray(ctx.static(op.inputs[2])).reshape(-1, 2)
+    return block, [tuple(int(v) for v in row) for row in pads]
+
+
+@register("SPACE_TO_BATCH_ND", static_inputs=(1, 2))
+def _space_to_batch_nd(ctx: LowerCtx, op: OpNode) -> None:
+    """band_tpu/ops/lowerings.py:2508 per request: the spatial dims padded
+    (with the zero point) and split by their blocks, the blocks moved in
+    front of the model's batch axis."""
+    x = ctx.view(op.inputs[0])
+    block, pads = _block_params(ctx, op)
+    qp = ctx.qp(op.inputs[0])
+    fill = int(qp.zero_point[0]) if qp is not None else 0
+    m = len(block)
+    rest = list(x.shape[2 + m:])
+    flat = [v for row in reversed(pads) for v in row]
+    x = F.pad(x, [0, 0] * len(rest) + flat, value=fill)
+    b, n = x.shape[:2]
+    split = [b, n]
+    for i in range(m):
+        split += [x.shape[2 + i] // block[i], block[i]]
+    x = x.reshape(split + rest)
+    perm = [0] + [2 * i + 3 for i in range(m)] + [1]
+    perm += [2 * i + 2 for i in range(m)]
+    perm += list(range(2 + 2 * m, x.dim()))
+    out = x.permute(perm).reshape(
+        [b, n * int(np.prod(block))] + [split[2 + 2 * i] for i in range(m)]
+        + rest)
+    ctx.set_view(op.outputs[0], out.contiguous())
+
+
+@register("BATCH_TO_SPACE_ND", static_inputs=(1, 2))
+def _batch_to_space_nd(ctx: LowerCtx, op: OpNode) -> None:
+    """band_tpu/ops/lowerings.py:2536 per request: the block factors of
+    the model's batch axis moved back into the spatial dims, then
+    cropped."""
+    x = ctx.view(op.inputs[0])
+    block, crops = _block_params(ctx, op)
+    m = len(block)
+    b = x.shape[0]
+    n = x.shape[1] // int(np.prod(block))
+    rest = list(x.shape[2 + m:])
+    spatial = [x.shape[2 + i] for i in range(m)]
+    x = x.reshape([b] + block + [n] + spatial + rest)
+    perm = [0, m + 1]
+    for i in range(m):
+        perm += [m + 2 + i, 1 + i]
+    perm += list(range(2 + 2 * m, x.dim()))
+    x = x.permute(perm).reshape(
+        [b, n] + [spatial[i] * block[i] for i in range(m)] + rest)
+    index = [slice(None), slice(None)]
+    for i, (c0, c1) in enumerate(crops):
+        index.append(slice(c0, x.shape[2 + i] - c1))
+    ctx.set_view(op.outputs[0], x[tuple(index)].contiguous())
+
+
+def _prepare_segment(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """The segment count: max(ids) + 1 for SEGMENT_SUM's constant ids (its
+    output shape is data-dependent), else the output's static leading
+    dim; the num_segments input of the UNSORTED_SEGMENT ops."""
+    ids = graph.tensor(op.inputs[1])
+    if op.opname != "SEGMENT_SUM":
+        n = int(np.ravel(graph.tensor(op.inputs[2]).data)[0])
+    elif ids.is_constant:
+        n = int(np.max(ids.data)) + 1
+    else:
+        n = int(graph.tensor(op.outputs[0]).shape[0])
+        if n <= 0:
+            raise LoweringError(
+                f"SEGMENT_SUM op {op.index}: non-constant segment ids need a "
+                f"static positive output dim 0, got {n}")
+    d = {"segments": n}
+    d.update(_constant_inputs(graph, op))
+    return d
+
+
+_SEGMENT = {
+    "SEGMENT_SUM": (torch.add, "zero"),
+    "UNSORTED_SEGMENT_SUM": (torch.add, "zero"),
+    "UNSORTED_SEGMENT_PROD": (torch.mul, "one"),
+    "UNSORTED_SEGMENT_MAX": (torch.maximum, "lowest"),
+    "UNSORTED_SEGMENT_MIN": (torch.minimum, "highest"),
+}
+
+
+def _segment(ctx: LowerCtx, op: OpNode) -> None:
+    """Per request, each segment's rows combined in row order, from the
+    identity (TFLite's segment_sum.cc and unsorted_segment.cc); an empty
+    segment of MAX or MIN holds the dtype's lowest or highest value, as
+    TF's op and band_tpu fill it.  One masked step per data row: no
+    atomics, so float sums keep their order on the card too."""
+    fn, init = _SEGMENT[op.opname]
+    data = _lv(ctx, op, op.inputs[0], expand=True)
+    ids = _lv(ctx, op, op.inputs[1], expand=True).to(torch.int64)
+    n = ctx.smeta(op, "segments")
+    info = (torch.finfo if data.dtype.is_floating_point else torch.iinfo)(
+        data.dtype)
+    fill = {"zero": 0, "one": 1, "lowest": info.min,
+            "highest": info.max}[init]
+    out = torch.full((data.shape[0], n) + tuple(data.shape[2:]), fill,
+                     dtype=data.dtype, device=data.device)
+    seg = torch.arange(n, device=data.device)
+    tail = (1,) * (data.dim() - 2)
+    for i in range(data.shape[1]):
+        hit = (ids[:, i:i + 1] == seg).reshape((data.shape[0], n) + tail)
+        out = torch.where(hit, fn(out, data[:, i:i + 1]), out)
+    ctx.set_view(op.outputs[0], out)
+
+
+for _name in _SEGMENT:
+    register(_name, prepare=_prepare_segment,
+             static_inputs=(() if _name == "SEGMENT_SUM" else (2,)))(_segment)
+
+
+@register("REVERSE_SEQUENCE",
+          prepare=lambda g, op, e: _constant_inputs(g, op))
+def _reverse_sequence(ctx: LowerCtx, op: OpNode) -> None:
+    """Along seq_dim, the first lens[b] elements of each batch_dim row b
+    reversed (band_tpu/ops/lowerings.py:2966), per request."""
+    x = _lv(ctx, op, op.inputs[0], expand=True)
+    lens = _lv(ctx, op, op.inputs[1], expand=True).to(torch.int64)
+    s = int(op.options.get("seq_dim", 0)) + 1
+    b = int(op.options.get("batch_dim", 0)) + 1
+    pos_shape = [1] * x.dim()
+    pos_shape[s] = x.shape[s]
+    pos = torch.arange(x.shape[s], device=x.device).reshape(pos_shape)
+    len_shape = [1] * x.dim()
+    len_shape[0], len_shape[b] = x.shape[0], x.shape[b]
+    ln = lens.reshape(len_shape)
+    idx = torch.where(pos < ln, ln - 1 - pos, pos).expand(x.shape)
+    ctx.set_view(op.outputs[0], torch.gather(x, s, idx))
+
+
+@register("MATRIX_DIAG")
+def _matrix_diag(ctx: LowerCtx, op: OpNode) -> None:
+    x = ctx.view(op.inputs[0])
+    eye = torch.eye(x.shape[-1], dtype=torch.bool, device=x.device)
+    ctx.set_view(op.outputs[0], torch.where(
+        eye, x.unsqueeze(-1), torch.zeros((), dtype=x.dtype,
+                                          device=x.device)))
+
+
+@register("MATRIX_SET_DIAG")
+def _matrix_set_diag(ctx: LowerCtx, op: OpNode) -> None:
+    x = _lv(ctx, op, op.inputs[0], expand=True)
+    d = _lv(ctx, op, op.inputs[1], expand=True).to(x.dtype)
+    ctx.set_view(op.outputs[0], torch.diagonal_scatter(x, d, 0, -2, -1))
+
+
+@register("CONV_3D")
+def _conv3d(ctx: LowerCtx, op: OpNode) -> None:
+    """Float 3-D convolution, NDHWC input and DHWIO weights
+    (band_tpu/ops/lowerings.py:3025), as F.conv3d in IEEE float32 under
+    the TF32 rule; an asymmetric SAME pad is padded first."""
+    x = ctx.arr(op.inputs[0])
+    w = ctx.arr(op.inputs[1])
+    opts = op.options
+    st = (opts["stride_d"], opts["stride_h"], opts["stride_w"])
+    dil = (opts.get("dilation_d", 1), opts.get("dilation_h", 1),
+           opts.get("dilation_w", 1))
+    pads = [(0, 0)] * 3
+    if opts["padding"] == "SAME":
+        pads = [_same_pads(x.shape[1 + i], w.shape[i], st[i], dil[i])
+                for i in range(3)]
+    _check_tf32(x, op, TF32_CONV)
+    xc = x.permute(0, 4, 1, 2, 3)
+    if any(a != b for a, b in pads):
+        xc = F.pad(xc, [v for p in reversed(pads) for v in p])
+        pads = [(0, 0)] * 3
+    bias = ctx.arr(op.inputs[2]) if len(op.inputs) > 2 and \
+        op.inputs[2] >= 0 else None
+    y = F.conv3d(xc, w.permute(4, 3, 0, 1, 2), bias, st,
+                 tuple(p[0] for p in pads), dil)
+    out = _apply_float_activation(y.permute(0, 2, 3, 4, 1).contiguous(),
+                                  opts.get("activation", "NONE"))
+    ctx.set(op.outputs[0], out.to(_out_dtype(ctx, op)))
+
+
+@register("RFFT2D", static_inputs=(1,))
+def _rfft2d(ctx: LowerCtx, op: OpNode) -> None:
+    """The real 2-D FFT over the last two axes at fft_length (cropped or
+    zero-padded), complex64 (band_tpu's jnp.fft.rfftn; no Pallas)."""
+    fft_len = [int(v) for v in np.ravel(ctx.static(op.inputs[1]))]
+    out = torch.fft.rfftn(ctx.view(op.inputs[0]).to(torch.float32),
+                          s=fft_len, dim=(-2, -1))
+    ctx.set_view(op.outputs[0], out.to(torch.complex64))

@@ -110,6 +110,7 @@ _TORCH_DTYPES = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
     np.dtype(np.bool_): torch.bool,
+    np.dtype(np.complex64): torch.complex64,
 }
 
 

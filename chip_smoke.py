@@ -206,8 +206,34 @@ Phases:
              timed beside plain, the bound and torch._int_mm (or a
              float32 torch.matmul where _int_mm refuses the shape): one
              ``hybrid:`` line per distinct shape.
+15. detect  (run after float) CenterNet MobileNetV2 FPN 512x512 int8
+             with its top-k decode in the graph
+             (tests/data/centernet_mnv2_fpn_int8.tflite) at full width on
+             one GPU worker (fixed_worker, max_batch 8), registered twice,
+             exact and register_model(numerics="fast"): every golden
+             request at b1, 16 timed request_sync and a burst of 32
+             request_async in each numerics, boxes, scores and classes
+             byte-equal to TFLite's (exact) and band_tpu's fast outputs
+             (tests/data/torch_detect_goldens.npz); on an executor of the
+             model the 8 golden requests as one b8 window and reversed,
+             equal request by request (each request's GATHER_ND reads its
+             own maps).  Launch counts zeroed just before and read just
+             after: B1, B2 (direct and mma), B3 and their fast instances
+             must launch, not the softmax or the hybrid GEMM.  TOPK_V2 on
+             the card: an all-tied 1,474,560-value row gives indices
+             0..99 in order, tied windows and a three-valued row the CPU's
+             indices.  Printed: req/s at b1 and in the burst; device
+             time, launches and busy share of a b1 request; one
+             ``detect_kernels:`` line per numerics (each kernel's b1 calls
+             timed, beside plain and the bound); one ``detect_decode:``
+             line per numerics (the decode's ops, max pool to boxes, each
+             run alone under torch.profiler: device time and launches by
+             op type, beside the smallest backbone kernel call).  In the
+             kernel phase every kernel call of the model at b1 and b8,
+             exact and fast, is held byte-equal to plain, and the outputs
+             there to the goldens.
 Then it prints the kernels line (each kernel's launches in the engine
-phase of its numerics, in the sr phase and in the codispatch phase; B2's
+phase of its numerics, in the sr, codispatch and detect phases; B2's
 general branch, the mma kernel of csrc/qconv_mma.cuh, in two entries of
 its own, exact and fast, with its launches and a b1 FSRCNN request's
 times from the sr phase; qmatmul_hybrid with its launches in the float
@@ -331,6 +357,12 @@ HYBRID_KERNELS = {
         source="band_tpu_torch/ops/kernels/csrc/qmatmul.cu",
         replaces="band_tpu/ops/lowerings.py:971"),
 }
+# detect: CenterNet MobileNetV2 FPN 512x512, full-int8, its top-k decode
+# in the graph (tests/gen_torch_centernet_model.py)
+DETECT_GOLDENS = os.path.join(DATA, "torch_detect_goldens.npz")
+DETECT_MODEL = "centernet_mnv2_fpn_int8"
+DETECT_SYNC = 16
+DETECT_BURST = 32
 MMA_KERNELS = {
     "qconv2d_exact_mma": dict(
         wrapper="qconv2d_exact",
@@ -1319,7 +1351,8 @@ def decoder_calls(torch, dev, graphs, ops_goldens, plain, worst):
     return sr_calls
 
 
-def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
+def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens,
+                 detect_goldens):
     from band_tpu_torch.backend.program import build_program, params_from_jax
     from band_tpu_torch.ops import kernels as K
     from band_tpu_torch.ops import lowerings as L
@@ -1402,6 +1435,8 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
         codispatch_bucket_calls(torch, dev, graphs, goldens, plain, worst,
                                 MODELS)
         sr_calls = decoder_calls(torch, dev, graphs, ops_goldens, plain,
+                                 worst)
+        detect_b1 = detect_calls(torch, dev, graphs, detect_goldens, plain,
                                  worst)
 
         # (lut_softmax's b1 call is the same in both numerics: timed once)
@@ -1495,7 +1530,7 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens):
         floor = graph_ms(torch, lambda: z.add_(1))
         log(f"launch floor: one trivial PyTorch kernel {floor:.6f} ms in the "
             f"same CUDA-graph harness; x35 = {35 * floor:.6f} ms")
-    return worst, stats, sr_calls
+    return worst, stats, sr_calls, detect_b1
 
 
 def model_calls(torch, dev, graphs, xs, names, exact, batch):
@@ -2259,6 +2294,326 @@ def float_phase(torch, dev, bt, K, graphs, float_goldens, smi):
             f"ms, {p['launches']} launches, busy share "
             f"{p['device_busy_share']} ({smi})")
     return counts, rates, worst
+
+
+# --------------------------------------------------------------------------
+# detect phase: CenterNet MobileNetV2 FPN 512x512 int8 and its decode
+# --------------------------------------------------------------------------
+
+def load_detect_goldens(graphs):
+    """Goldens of DETECT_MODEL (tests/gen_torch_centernet_model.py): xs
+    (regenerated from the seed and checked against the stored digest);
+    per output, TFLite's exact and band_tpu's fast outputs."""
+    z = np.load(DETECT_GOLDENS)
+    g = graphs[DETECT_MODEL]
+    n_out = len(g.outputs)
+    exact = [z[f"{DETECT_MODEL}/exact{j}"] for j in range(n_out)]
+    fast = [z[f"{DETECT_MODEL}/fast{j}"] for j in range(n_out)]
+    return dict(xs=_inputs(z, DETECT_MODEL, g, len(exact[0])), exact=exact,
+                fast=fast)
+
+
+def _same_detections(outs, want, i, what):
+    """One request's boxes, scores and classes against golden request i."""
+    check(len(outs) == len(want), f"{what}: {len(outs)} outputs")
+    for j, (o, w) in enumerate(zip(outs, want)):
+        o = o.cpu().numpy() if hasattr(o, "cpu") else np.asarray(o)
+        check(o.dtype == w.dtype and o.shape == w[i].shape
+              and np.array_equal(o, w[i]),
+              f"{what} request {i} output {j}: differs from the golden")
+
+
+def detect_calls(torch, dev, graphs, dg, plain, worst):
+    """Every kernel call of the full-width CenterNet at b1 and in a b8
+    window, exact and fast, held byte-equal to plain, and the outputs
+    there equal to the goldens.  Returns the b1 calls by numerics."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import lowerings as L
+
+    g = graphs[DETECT_MODEL]
+    pos = None
+    b1_calls = {}
+    for kind in ("exact", "fast"):
+        exact = kind == "exact"
+        prog = build_program(g, range(len(g.ops)), exact=exact, device=dev)
+        params = params_from_jax(prog.params, dev)
+        fn = prog.make_fn()
+        pos = [prog.output_ids.index(t) for t in g.outputs]
+        for b in (1, MAX_BATCH):
+            x = torch.from_numpy(np.concatenate(list(dg["xs"][:b]))).to(dev)
+            calls = capture_calls(L, fn, params, [x])
+            torch.cuda.synchronize()
+            for kname, args, kw, out in calls:
+                want = plain[kname](*args, **kw)
+                torch.cuda.synchronize()
+                held(torch, worst, kname, args, kw, out, want,
+                     f"{DETECT_MODEL} {kind} b{b} {tuple(args[0].shape)}")
+            check(not any(n in (FAST if exact else EXACT_ONLY)
+                          for n, *_ in calls),
+                  f"{DETECT_MODEL} {kind}: a kernel of the other numerics")
+            outs = fn(params, [x])
+            for i in range(b):
+                _same_detections([outs[p][i:i + 1] for p in pos], dg[kind],
+                                 i, f"kernels: {DETECT_MODEL} {kind} b{b}")
+            if b == 1:
+                b1_calls[kind] = calls
+            used = collections.Counter(n for n, *_ in calls)
+            log(f"kernels: {DETECT_MODEL} {kind} b{b}: {len(calls)} calls "
+                f"{dict(used)} byte-equal to plain (tolerance 0); the "
+                "outputs equal to the goldens")
+            del calls, outs
+            torch.cuda.empty_cache()
+    return b1_calls
+
+
+def detect_kernel_lines(torch, b1_calls, smi):
+    """One ``detect_kernels:`` line per numerics: each kernel's b1 calls
+    of a CenterNet request (B2's mma branch apart), their summed time (a
+    CUDA graph of 20 launches, replayed), the plain versions' (eager)
+    and the bound."""
+    from band_tpu_torch.ops import kernels as K
+
+    plain = {"qmatmul_exact": K.qmatmul_plain,
+             "qconv2d_exact": K.qconv2d_plain,
+             "qdwconv2d_exact": K.qdwconv2d_plain,
+             "qmatmul_fast": K.qmatmul_fast_plain,
+             "qconv2d_fast": K.qconv2d_fast_plain,
+             "qdwconv2d_fast": K.qdwconv2d_fast_plain}
+    smallest = None
+    for kind, calls in b1_calls.items():
+        rows = {}
+        for name, args, kw, out in calls:
+            label = name
+            if (name in ("qconv2d_exact", "qconv2d_fast")
+                    and b2_plan(args, kw, out).branch == "mma"):
+                label = name + "_mma"
+            ms = graph_ms(torch, lambda: getattr(K, name)(*args, **kw))
+            r = rows.setdefault(label, dict(calls=0, ms=0.0, plain_ms=0.0,
+                                            bound_ms=0.0, min_call_ms=None))
+            r["calls"] += 1
+            r["ms"] += ms
+            r["plain_ms"] += eager_ms(torch, lambda: plain[name](*args, **kw),
+                                      iters=2)
+            r["bound_ms"] += bound_ms(name, args, kw, out)
+            r["min_call_ms"] = ms if r["min_call_ms"] is None else min(
+                r["min_call_ms"], ms)
+            if kind == "exact":
+                smallest = ms if smallest is None else min(smallest, ms)
+        log("detect_kernels: " + json.dumps({
+            "model": DETECT_MODEL, "numerics": kind, "batch": 1,
+            "kernels": rows, "total_ms": sum(r["ms"] for r in rows.values()),
+            "card": smi}))
+    return smallest
+
+
+def _decode_ops(g):
+    """The decode's ops: from the heatmap's max pool on, but the heads'
+    convs (the converter interleaves them)."""
+    start = next(op.index for op in g.ops if op.opname == "MAX_POOL_2D")
+    return [op.index for op in g.ops[start:]
+            if op.opname not in ("CONV_2D", "DEPTHWISE_CONV_2D")]
+
+
+def detect_decode_lines(torch, dev, graphs, dg, smi, smallest_ms):
+    """The decode's device time apart from the backbone and heads: the
+    network up to the heads runs once on a golden request, then each
+    decode op alone, 20 times under torch.profiler: its kernels' device
+    time and launches, summed by op type.  The decode as one program
+    must give the goldens."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops.lowerings import LowerCtx
+    from band_tpu_torch.ops.registry import get_lowering
+
+    g = graphs[DETECT_MODEL]
+    decode = _decode_ops(g)
+    net = [i for i in range(len(g.ops)) if i not in set(decode)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    result = {}
+    for kind in ("exact", "fast"):
+        exact = kind == "exact"
+        head = build_program(g, net, exact=exact, device=dev)
+        tail = build_program(g, decode, exact=exact, device=dev)
+        x = torch.from_numpy(dg["xs"][0]).to(dev)
+        hv = dict(zip(head.output_ids, head.make_fn()(
+            params_from_jax(head.params, dev), [x])))
+        tparams = params_from_jax(tail.params, dev)
+        outs = tail.make_fn()(tparams, [hv[t] for t in tail.input_ids])
+        pos = [tail.output_ids.index(t) for t in g.outputs]
+        _same_detections([outs[p] for p in pos], dg[kind], 0,
+                         f"detect: decode {kind}")
+        ctx = LowerCtx(g, tparams, tail.meta)
+        for t in tail.input_ids:
+            ctx.set(t, hv[t])
+        by_type = {}
+        reps = 20
+        for oi in decode:
+            op = g.ops[oi]
+            low = get_lowering(op.opname)
+            low.trace(ctx, op)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(reps):
+                    low.trace(ctx, op)
+                torch.cuda.synchronize()
+            ms, n = 0.0, 0
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    ms += e.self_device_time_total / 1e3 / reps
+                    n += e.count
+            r = by_type.setdefault(op.opname, dict(ops=0, ms=0.0,
+                                                   launches=0))
+            r["ops"] += 1
+            r["ms"] += ms
+            r["launches"] += round(n / reps)
+        total = sum(r["ms"] for r in by_type.values())
+        result[kind] = dict(ms=total, launches=sum(
+            r["launches"] for r in by_type.values()))
+        log("detect_decode: " + json.dumps({
+            "model": DETECT_MODEL, "numerics": kind, "batch": 1,
+            "decode_ops": len(decode), "device_ms": total,
+            "launches": result[kind]["launches"],
+            "by_op": dict(sorted(by_type.items(), key=lambda kv: -kv[1]["ms"])),
+            "smallest_backbone_kernel_ms": smallest_ms, "card": smi}))
+    return result
+
+
+def detect_ties(torch, dev, graphs, smi):
+    """TOPK_V2 of the full-width decode on the card: an all-tied heatmap
+    row (1,474,560 int8 values) gives indices 0..99 in order; a window of
+    two tied rows at other values the same per request; a row of three
+    distinct values the CPU's indices (lower index first among equals)."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+
+    g = graphs[DETECT_MODEL]
+    op = next(o for o in g.ops if o.opname == "TOPK_V2")
+    n = int(g.tensor(op.inputs[0]).shape[-1])
+    k = int(np.asarray(g.tensor(op.inputs[1]).data).reshape(()))
+    prog = build_program(g, [op.index], device=dev)
+    fn = prog.make_fn()
+    params = {d: params_from_jax(prog.params, d) for d in (dev, "cpu")}
+    rows = {"tied": np.full((1, n), 3, np.int8),
+            "window": np.stack([np.full(n, -128, np.int8),
+                                np.full(n, 127, np.int8)]),
+            "three values": np.random.default_rng(9).integers(
+                -1, 2, (1, n)).astype(np.int8)}
+    for what, row in rows.items():
+        vals, idx = fn(params[dev], [torch.from_numpy(row).to(dev)])
+        cvals, cidx = fn(params["cpu"], [torch.from_numpy(row)])
+        idx = idx.cpu().numpy()
+        check(np.array_equal(idx, cidx.numpy())
+              and np.array_equal(vals.cpu().numpy(), cvals.numpy()),
+              f"detect: TOPK_V2 {what} on the card differs from the CPU")
+        for b in range(row.shape[0]):
+            order = np.lexsort((np.arange(n), -row[b].astype(np.int64)))[:k]
+            check(np.array_equal(idx[b], order),
+                  f"detect: TOPK_V2 {what} row {b}: indices not in index "
+                  "order among ties")
+    check(np.array_equal(fn(params[dev], [torch.from_numpy(
+        rows["tied"]).to(dev)])[1].cpu().numpy()[0], np.arange(k)),
+        "detect: an all-tied row's top-k is not 0..k-1")
+    log(f"detect: TOPK_V2 on the card ({n} values, k = {k}): an all-tied "
+        f"row gives indices 0..{k - 1} in order, a window of two tied rows "
+        "and a row of three values the CPU's indices, lower index first "
+        f"among equals ({smi})")
+
+
+def detect_phase(torch, dev, bt, K, graphs, dg, smi):
+    """The full-width CenterNet on one GPU worker (fixed_worker, max_batch
+    8), registered twice, exact and register_model(numerics="fast"):
+    every golden request at b1 (request_sync), DETECT_SYNC timed b1
+    requests after them, and a burst of DETECT_BURST request_async, in
+    each numerics, every output byte-equal to its golden (TFLite's exact,
+    band_tpu's fast).  On an executor of the model, the 8 golden requests
+    as one b8 window, and the same window in reversed order, equal to the
+    goldens request by request (each request's GATHER_ND reads its own
+    maps).  Launch counts are zeroed just before and read just after:
+    B1, B2 (direct and mma), B3 and their fast instances must launch, not
+    the softmax or the hybrid GEMM.  Then TOPK_V2's ties on the card, the
+    device time, launches and busy share of a b1 request (torch.profiler),
+    the kernels' b1 times and the decode's device time."""
+    from band_tpu_torch.backend.executor import ModelExecutor
+
+    K.reset_launches()
+    eng = _engine(bt, bt.DeviceFlag.GPU, "exact")
+    xs, n = dg["xs"], len(dg["xs"])
+    rates = {}
+    try:
+        path = os.path.join(DATA, f"{DETECT_MODEL}.tflite")
+        t0 = time.perf_counter()
+        mids = {"exact": eng.register_model(bt.Model.from_path(path)),
+                "fast": eng.register_model(bt.Model.from_path(path),
+                                           numerics="fast")}
+        check(eng.wait_buckets_ready(timeout=600),
+              "detect: bucket warm-up timed out")
+        log(f"detect: {DETECT_MODEL} registered exact and fast, buckets "
+            f"2..{MAX_BATCH} warm in {time.perf_counter() - t0:.2f} s")
+        for kind, mid in mids.items():
+            want = dg[kind]
+            ex = eng.model_record(mid).executors[0]
+            check(ex.exact == (kind == "exact"), f"detect: {kind} numerics")
+            for i in range(n):
+                _same_detections(eng.request_sync(mid, [xs[i]]), want, i,
+                                 f"detect: {kind} b1")
+            t0 = time.perf_counter()
+            outs = [eng.request_sync(mid, [xs[i % n]])
+                    for i in range(DETECT_SYNC)]
+            b1 = DETECT_SYNC / (time.perf_counter() - t0)
+            before = dict(ex.windows)
+            t0 = time.perf_counter()
+            ids = [eng.request_async(mid, [xs[i % n]])
+                   for i in range(DETECT_BURST)]
+            burst_outs = [eng.wait(j) for j in ids]
+            burst = DETECT_BURST / (time.perf_counter() - t0)
+            for i, o in enumerate(outs):
+                _same_detections(o, want, i % n, f"detect: {kind} sync")
+            for i, o in enumerate(burst_outs):
+                _same_detections(o, want, i % n, f"detect: {kind} burst")
+            windows = {b: c - before.get(b, 0) for b, c in ex.windows.items()
+                       if c - before.get(b, 0)}
+            check(max(windows) > 1, f"detect {kind}: the burst ran no batch "
+                  "window")
+            rates[kind] = dict(b1_req_s=b1, burst_req_s=burst,
+                               burst_windows=dict(sorted(windows.items())))
+            log(f"detect: {kind}: {n} golden b1 requests, {DETECT_SYNC} sync "
+                f"and {DETECT_BURST} burst byte-equal to the goldens (boxes, "
+                f"scores, classes); b1 {b1:.2f} req/s, burst {burst:.2f} "
+                f"req/s, windows {dict(sorted(windows.items()))} ({smi})")
+        for kind in ("exact", "fast"):
+            wex = ModelExecutor(-4, graphs[DETECT_MODEL], 0, dev,
+                                exact=kind == "exact")
+            key = wex.prepare_subgraph(range(len(graphs[DETECT_MODEL].ops)),
+                                       [0])
+            pos = [wex.output_ids(key).index(t)
+                   for t in graphs[DETECT_MODEL].outputs]
+            for order in (list(range(n)), list(reversed(range(n)))):
+                outs = wex.execute_batched(key, [[xs[i]] for i in order])
+                for i, o in zip(order, outs):
+                    _same_detections([o[p] for p in pos], dg[kind], i,
+                                     f"detect: {kind} b{n} window {order}")
+            log(f"detect: {kind}: the {n} golden requests as one b{n} "
+                "window, and reversed, equal to the goldens request by "
+                "request")
+    finally:
+        eng.shutdown()
+    counts = K.launch_counts()
+    ran = EXACT_ONLY + FAST + tuple(MMA_KERNELS)
+    for name in K.LAUNCHES:
+        check((counts[name] > 0) == (name in ran),
+              f"detect: kernel {name} launched {counts[name]} times")
+    log(f"detect: launches {json.dumps(counts)}")
+    detect_ties(torch, dev, graphs, smi)
+    profiles = {}
+    for kind in ("exact", "fast"):
+        p = profile_phase(torch, dev, graphs, {DETECT_MODEL: dg},
+                          kind == "exact", name=DETECT_MODEL)
+        profiles[kind] = {k: p[k] for k in ("executor_wall_ms",
+                                            "device_kernel_ms",
+                                            "device_busy_share", "launches")}
+        log(f"detect: {kind} per b1 request: device {p['device_kernel_ms']} "
+            f"ms, {p['launches']} launches, busy share "
+            f"{p['device_busy_share']} ({smi})")
+    return counts, rates, profiles
 
 
 # --------------------------------------------------------------------------
@@ -3087,15 +3442,17 @@ def main():
 
     graphs = {n: parse_tflite_file(os.path.join(DATA, f"{n}.tflite"))
               for n in FAST_MODELS + SSD_MODELS + DECODER_MODELS
-              + (SR_MODEL,) + FLOAT_MODELS}
+              + (SR_MODEL,) + FLOAT_MODELS + (DETECT_MODEL,)}
     goldens = load_goldens(graphs)
     fast_goldens = load_fast_goldens(graphs)
     hetero_goldens = load_hetero_goldens()
 
     ops_goldens = load_ops_goldens(graphs)
     float_goldens = load_float_goldens(graphs)
-    worst, stats, sr_calls = kernel_phase(torch, dev, graphs, goldens,
-                                          hetero_goldens, ops_goldens)
+    detect_goldens = load_detect_goldens(graphs)
+    worst, stats, sr_calls, detect_b1 = kernel_phase(
+        torch, dev, graphs, goldens, hetero_goldens, ops_goldens,
+        detect_goldens)
     hybrid_stats = hybrid_kernel_lines(torch, dev, graphs, float_goldens,
                                        smi)
     conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
@@ -3110,6 +3467,11 @@ def main():
                                               ops_goldens, sr_calls, smi)
     float_counts, float_rates, float_worst = float_phase(
         torch, dev, bt, K, graphs, float_goldens, smi)
+    detect_counts, detect_rates, detect_profiles = detect_phase(
+        torch, dev, bt, K, graphs, detect_goldens, smi)
+    smallest = detect_kernel_lines(torch, detect_b1, smi)
+    decode = detect_decode_lines(torch, dev, graphs, detect_goldens, smi,
+                                 smallest)
     depth_phase(torch, dev, graphs, goldens, fast_goldens)
     profile_phase(torch, dev, graphs, goldens, exact=True)
     profile_phase(torch, dev, graphs, goldens, exact=False)
@@ -3126,6 +3488,10 @@ def main():
                              "numerics": sr_rates}))
     log("float: " + json.dumps({"card": smi, "models": float_rates,
                                 "worst_deviation": float_worst}))
+    log("detect: " + json.dumps({"card": smi, "model": DETECT_MODEL,
+                                 "numerics": detect_rates,
+                                 "b1_request": detect_profiles,
+                                 "decode": decode}))
     line = []
     for name, meta in KERNELS.items():
         s = stats[name]
@@ -3145,6 +3511,8 @@ def main():
             "codispatch_launches": co_counts[name],
             # the sr phase's FSRCNN x2 requests, exact and fast
             "sr_launches": sr_counts[name],
+            # the detect phase's CenterNet requests, exact and fast
+            "detect_launches": detect_counts[name],
         })
     for name, meta in MMA_KERNELS.items():
         s = mma_stats[name]
@@ -3161,6 +3529,7 @@ def main():
             "mobilenet_v2_b1_launches": stats[name]["launches_b1"],
             "codispatch_launches": co_counts[name],
             "sr_launches": sr_counts[name],
+            "detect_launches": detect_counts[name],
         })
     for name, meta in HYBRID_KERNELS.items():
         s = hybrid_stats

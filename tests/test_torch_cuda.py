@@ -745,3 +745,98 @@ def test_gpu_worker_serves_the_float_goldens(dev, tf32_flags):
         assert K.launch_counts()["qmatmul_exact"] == 0
     finally:
         eng.shutdown()
+
+
+# --------------------------------------------------------------------------
+# the support op set and the request axis on the card (CenterNet)
+# --------------------------------------------------------------------------
+
+def _detect_goldens(name, side):
+    """centernet goldens (tests/gen_torch_centernet_model.py): the
+    regenerated int8 inputs (uniform over [-128, 127] from the stored
+    seed) and, per numerics, the outputs by request."""
+    import hashlib
+
+    z = np.load(os.path.join(DATA, "torch_detect_goldens.npz"))
+    rng = np.random.default_rng(int(z[f"{name}/seed"]))
+    xs = rng.integers(-128, 128, size=(8, 1, side, side, 3),
+                      dtype=np.int64).astype(np.int8)
+    assert hashlib.sha256(xs.tobytes()).hexdigest() == str(
+        z[f"{name}/input_sha"])
+    return xs, {kind: [z[f"{name}/{kind}{j}"] for j in range(3)]
+                for kind in ("exact", "fast")}
+
+
+@pytest.mark.parametrize("name,n", [("centernet_small_int8", 2048),
+                                    ("centernet_mnv2_fpn_int8", 1474560)])
+def test_topk_ties_on_the_card(dev, name, n):
+    """TOPK_V2 of the detector's decode on the card: an all-tied heatmap
+    row gives indices 0..k-1 in order; a window of rows tied at other
+    values, and rows of three distinct values, give the CPU's indices
+    (lower index first among equal values) and values."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.tflite.parser import parse_tflite_file
+
+    g = parse_tflite_file(os.path.join(DATA, f"{name}.tflite"))
+    op = next(o for o in g.ops if o.opname == "TOPK_V2")
+    assert g.tensor(op.inputs[0]).shape == (1, n)
+    k = int(np.asarray(g.tensor(op.inputs[1]).data).reshape(()))
+    prog = build_program(g, [op.index], device=dev)
+    fn = prog.make_fn()
+    rng = np.random.default_rng(13)
+    rows = [np.full((1, n), 0, np.int8),
+            np.stack([np.full(n, v, np.int8) for v in (-128, 9, 127)]),
+            rng.integers(-1, 2, (4, n)).astype(np.int8)]
+    for row in rows:
+        vals, idx = fn(params_from_jax(prog.params, dev),
+                       [torch.from_numpy(row).to(dev)])
+        cvals, cidx = fn(params_from_jax(prog.params),
+                         [torch.from_numpy(row)])
+        np.testing.assert_array_equal(idx.cpu().numpy(), cidx.numpy())
+        np.testing.assert_array_equal(vals.cpu().numpy(), cvals.numpy())
+        for b in range(row.shape[0]):
+            order = np.lexsort((np.arange(n), -row[b].astype(np.int64)))
+            np.testing.assert_array_equal(idx[b].cpu().numpy(), order[:k])
+    tied = fn(params_from_jax(prog.params, dev),
+              [torch.zeros((1, n), dtype=torch.int8, device=dev)])[1]
+    np.testing.assert_array_equal(tied.cpu().numpy()[0], np.arange(k))
+
+
+def test_gpu_worker_serves_the_small_detector(dev):
+    """centernet_small_int8 on a GPU worker, exact and fast side by side:
+    every golden request at b1 and all eight in a burst, byte-equal to
+    TFLite's and band_tpu's fast outputs; a b8 window in reversed order
+    on the worker's executor equal to the goldens request by request."""
+    name = "centernet_small_int8"
+    xs, want = _detect_goldens(name, 64)
+    cfg = (bt.RuntimeConfigBuilder()
+           .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0,), max_batch=8))
+           .build())
+    eng = bt.Engine.create(cfg)
+    try:
+        path = os.path.join(DATA, f"{name}.tflite")
+        mids = {"exact": eng.register_model(bt.Model.from_path(path)),
+                "fast": eng.register_model(bt.Model.from_path(path),
+                                           numerics="fast")}
+        assert eng.wait_buckets_ready(timeout=300)
+        for kind, mid in mids.items():
+            sync = [eng.request_sync(mid, [x]) for x in xs]
+            ids = [eng.request_async(mid, [x]) for x in xs]
+            for i, outs in enumerate(sync + [eng.wait(j) for j in ids]):
+                for j, o in enumerate(outs):
+                    np.testing.assert_array_equal(
+                        np.asarray(o), want[kind][j][i % len(xs)])
+            ex = eng.model_record(mid).executors[0]
+            key = ex.largest_subgraph_key()
+            pos = [ex.output_ids(key).index(t)
+                   for t in eng.model_record(mid).model.graph.outputs]
+            order = list(reversed(range(len(xs))))
+            outs = ex.execute_batched(key, [[xs[i]] for i in order])
+            for i, o in zip(order, outs):
+                for j, p in enumerate(pos):
+                    np.testing.assert_array_equal(o[p].cpu().numpy(),
+                                                  want[kind][j][i])
+    finally:
+        eng.shutdown()

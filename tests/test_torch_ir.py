@@ -24,7 +24,9 @@ MODELS = sorted(os.path.basename(p)[:-7]
 # the op set of the port's slices covers these models whole
 SLICE_MODELS = ["effnetlite_int8", "fc_int8", "mobilenet_v2_int8",
                 "resnetish_int8", "tconv_int8", "attention_int8",
-                "cnn_ops_int8", "fsrcnn_x2_small_int8", "fsrcnn_x2_int8"]
+                "cnn_ops_int8", "fsrcnn_x2_small_int8", "fsrcnn_x2_int8",
+                "support_ops", "support_ops2", "centernet_small_int8",
+                "centernet_mnv2_fpn_int8", "compare_int8"]
 
 
 def _path(name):

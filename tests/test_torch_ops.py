@@ -184,38 +184,93 @@ def _one_op(name, opname):
     return g, next(op for op in g.ops if op.opname == opname)
 
 
+def _reshape(tid, shape):
+    """Give tensor ``tid`` the model shape ``shape`` (a leading extent
+    above 1, which the ops along axis 0 need)."""
+    def edit(g, op):
+        g.tensor(tid).shape = tuple(shape)
+    return edit
+
+
+def _const(pos, value):
+    def edit(g, op):
+        g.tensor(op.inputs[pos]).data = np.asarray(value, np.int32)
+    return edit
+
+
+def _chain(*edits):
+    def edit(g, op):
+        for e in edits:
+            e(g, op)
+    return edit
+
+
+def _inputs_to(tids):
+    def edit(g, op):
+        op.inputs[:] = list(tids)
+    return edit
+
+
 @pytest.mark.parametrize("opname,edit", [
-    ("CONCATENATION", lambda g, op: op.options.update(axis=0)),
-    ("CONCATENATION", lambda g, op: op.options.update(axis=-4)),
-    ("PACK", lambda g, op: None),
-    ("SPLIT", lambda g, op: setattr(g.tensor(op.inputs[0]), "data",
-                                    np.array(0, np.int32))),
-    ("SPLIT_V", lambda g, op: setattr(g.tensor(op.inputs[2]), "data",
-                                      np.array(0, np.int32))),
-    ("TRANSPOSE", lambda g, op: setattr(g.tensor(op.inputs[1]), "data",
-                                        np.array([1, 0, 2, 3], np.int32))),
-    ("PAD", lambda g, op: setattr(g.tensor(op.inputs[1]), "data",
-                                  np.array([[1, 0], [0, 0], [0, 0], [0, 0]],
-                                           np.int32))),
-    ("SLICE", lambda g, op: setattr(g.tensor(op.inputs[2]), "data",
-                                    np.array([0, 6, 8, 8], np.int32))),
-    ("STRIDED_SLICE", lambda g, op: op.options.update(shrink_axis_mask=1)),
+    ("CONCATENATION", _chain(_inputs_to([69, 38]),
+                             lambda g, op: op.options.update(axis=0))),
+    ("CONCATENATION", _chain(_inputs_to([69, 38]),
+                             lambda g, op: op.options.update(axis=-4))),
+    ("PACK", None),
+    ("SPLIT", _chain(_reshape(32, (2, 12, 6, 8)), _const(0, 0))),
+    ("SPLIT_V", _chain(_reshape(38, (8, 12, 12, 1)), _const(2, 0))),
+    ("TRANSPOSE", _const(1, [1, 0, 2, 3])),
+    ("PAD", _const(1, [[1, 0], [0, 0], [0, 0], [0, 0]])),
+    ("SLICE", _chain(_reshape(32, (2, 12, 6, 8)), _const(1, [1, 0, 0, 0]),
+                     _const(2, [1, 6, 4, 8]))),
+    ("STRIDED_SLICE", _chain(
+        lambda g, op: op.options.update(shrink_axis_mask=1),
+        lambda g, op: setattr(g.tensor(op.outputs[0]), "shape", (5, 4, 5)))),
 ], ids=["concat0", "concat-4", "pack", "split", "split_v", "transpose",
         "pad", "slice", "strided_slice"])
 def test_request_axis_is_refused(opname, edit):
-    """An op that would index, split, pack, pad, permute or concatenate
-    along the leading (request) axis of per-request data is refused when
-    the program is built, with a LoweringError naming the op."""
+    """Ops that index, split, pack, pad, permute or concatenate along the
+    leading axis of per-request data were refused when a program was
+    built; now each runs per request.  Edited one-op programs (axis 0,
+    leading extents above 1) run a window of four seeded requests: equal
+    to the requests run one at a time, and to band_tpu's program vmapped
+    over them (tolerance 0)."""
     name = "attention_int8" if opname == "TRANSPOSE" else "cnn_ops_int8"
     if opname == "PACK":
-        # PACK of the prelude's values is allowed; of data at axis 0 not
+        # two copies of a TRANSPOSE_CONV's data, packed on axis 0
         g, op = _one_op("tconv_int8", "PACK")
-        op.inputs[0] = g.ops[3].inputs[2]  # the TRANSPOSE_CONV's data
+        op.inputs[:] = [g.ops[3].inputs[2]] * 2
+        op.options.update(axis=0)
     else:
         g, op = _one_op(name, opname)
         edit(g, op)
-    with pytest.raises(LoweringError, match=f"{opname} op {op.index}"):
-        tbuild(g, [op.index])
+    jg = copy.deepcopy(g)
+    tprog = tbuild(g, [op.index])
+    fn, params = tprog.make_fn(), params_from_jax(tprog.params)
+    rng = np.random.default_rng(op.index)
+    reqs = [[_random(rng, g.tensor(t)) for t in tprog.input_ids]
+            for _ in range(4)]
+    window = fn(params, [torch.from_numpy(np.concatenate(col))
+                         for col in zip(*reqs)])
+    solo = [fn(params, [torch.from_numpy(x) for x in r]) for r in reqs]
+    jprog = jbuild(jg, [op.index], exact=True, conv_mode="f32_split")
+    vmapped = jax.vmap(jprog.make_fn(), in_axes=(None, 0))(
+        jprog.params, [np.stack(col) for col in zip(*reqs)])
+    assert tprog.output_ids == jprog.output_ids
+    for j, w in enumerate(window):
+        parts = w.numpy().reshape((4, -1) + tuple(w.shape[1:]))
+        for b in range(4):
+            np.testing.assert_array_equal(parts[b], solo[b][j].numpy())
+            np.testing.assert_array_equal(
+                solo[b][j].numpy(), np.asarray(vmapped[j][b]))
+
+
+def _random(rng, td):
+    if td.dtype.kind == "f":
+        return rng.standard_normal(td.shape).astype(td.dtype)
+    info = np.iinfo(td.dtype)
+    return rng.integers(info.min, info.max + 1, size=td.shape,
+                        dtype=np.int64).astype(td.dtype)
 
 
 def test_shape_prelude_is_not_per_request():
@@ -228,8 +283,8 @@ def test_shape_prelude_is_not_per_request():
     outs = prog.make_fn()(params_from_jax(prog.params), [x])
     pack = prog.output_ids.index(tg.ops[2].outputs[0])
     np.testing.assert_array_equal(outs[pack].numpy(), [1, 11, 11, 16])
-    assert L._is_shape_value(tg, tg.ops[2].outputs[0])
-    assert not L._is_shape_value(tg, tg.ops[3].outputs[0])
+    assert tg.ops[2].outputs[0] in L.request_free(tg)
+    assert tg.ops[3].outputs[0] not in L.request_free(tg)
 
 
 def test_batch_matmul_refuses_tf32(monkeypatch):
