@@ -82,6 +82,7 @@ class ModelExecutor:
         self._programs: Dict[SubgraphKey, SubgraphProgram] = {}
         self._fns: Dict[SubgraphKey, object] = {}
         self._params: Dict[SubgraphKey, Dict[str, torch.Tensor]] = {}
+        self._free: Dict[SubgraphKey, Tuple[bool, ...]] = {}
         # (key, bucket) pairs that have completed at least once; the
         # first run of a bucket builds the CUDA kernels if nothing has
         # yet, and the engine's bucket warm-up reads these
@@ -120,6 +121,7 @@ class ModelExecutor:
                 self._programs[key] = prog
                 self._fns[key] = prog.make_fn()
                 self._params[key] = params
+                self._free[key] = prog.output_free
         finally:
             with self._lock:
                 ev = self._preparing.pop(key, None)
@@ -212,13 +214,16 @@ class ModelExecutor:
         for pos in range(len(padded[0])):
             col = [ins[pos] for ins in padded]
             if all(isinstance(v, np.ndarray) for v in col):
-                # one host-side stack, one copy to the device
-                args.append(to_device(np.concatenate(col, axis=0),
-                                      self.device))
+                # one host-side stack, one copy to the device (a scalar
+                # input stacks as [B])
+                args.append(to_device(np.concatenate(
+                    [np.atleast_1d(v) for v in col], axis=0), self.device))
             else:
                 args.append(torch.cat(
-                    [to_device(v, self.device) for v in col], dim=0))
-        return _split(self._run(key, args), bucket, len(inputs_batch))
+                    [torch.atleast_1d(to_device(v, self.device))
+                     for v in col], dim=0))
+        return _split(self._run(key, args), bucket, len(inputs_batch),
+                      self._free[key])
 
 
 def _pad(inputs_batch: Sequence[Sequence], bucket: int) -> List[Sequence]:
@@ -228,10 +233,13 @@ def _pad(inputs_batch: Sequence[Sequence], bucket: int) -> List[Sequence]:
     return list(inputs_batch) + [inputs_batch[0]] * (bucket - len(inputs_batch))
 
 
-def _split(outs: Sequence[torch.Tensor], bucket: int,
-           n: int) -> List[List[torch.Tensor]]:
-    """The first ``n`` requests' outputs of a window stacked to ``bucket``."""
-    split = [torch.split(o, o.shape[0] // bucket, dim=0) for o in outs]
+def _split(outs: Sequence[torch.Tensor], bucket: int, n: int,
+           free: Sequence[bool]) -> List[List[torch.Tensor]]:
+    """The first ``n`` requests' outputs of a window stacked to ``bucket``;
+    an output that carries no request axis (``free``) is every request's."""
+    split = [[o] * bucket if f else torch.split(o, o.shape[0] // bucket,
+                                                dim=0)
+             for o, f in zip(outs, free)]
     return [[parts[b] for parts in split] for b in range(n)]
 
 
@@ -263,7 +271,9 @@ def build_combo(members: Sequence[Tuple[SubgraphKey, int]],
                 executors: Sequence[ModelExecutor]) -> ComboProgram:
     """The combined program of ``members`` ((key, bucket) in canonical
     order, ``executors`` aligned with them).  Every member must be a
-    prepared program without host ops, and all on one device.  On a card
+    prepared program without host ops that is ``capturable`` (a WHILE or
+    an IF reads the host: refused by the flag, never by a failed
+    capture), and all on one device.  On a card
     every member must have run eagerly at its bucket before: a capture
     may not build or load a kernel, and nothing in it may wait on the
     host."""
@@ -277,6 +287,10 @@ def build_combo(members: Sequence[Tuple[SubgraphKey, int]],
             raise ExecutionError(f"subgraph {key} not prepared")
         if ex._programs[key].has_custom:
             raise ExecutionError(f"subgraph {key} holds a host op")
+        if not ex._programs[key].capturable:
+            raise ExecutionError(
+                f"subgraph {key} reads a value on the host (WHILE or IF): "
+                "it cannot be captured into a combined program")
         if bucket < 1 or bucket & (bucket - 1):
             raise ExecutionError(f"bucket {bucket} is not a power of two")
     combo = ComboProgram(members, executors, devices.pop())
@@ -365,6 +379,6 @@ def run_combo(combo: ComboProgram,
     with torch.inference_mode():
         outs = [[o.clone() for o in group] for group in combo.static_outputs]
     K.add_launches(combo.launch_tally)
-    return [_split(group, bucket, len(ins))
-            for (_, bucket), group, ins in zip(
-                combo.members, outs, inputs_groups)]
+    return [_split(group, bucket, len(ins), ex._free[key])
+            for (key, bucket), ex, group, ins in zip(
+                combo.members, combo.executors, outs, inputs_groups)]

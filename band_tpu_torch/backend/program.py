@@ -6,6 +6,10 @@ zero-point corrections, fixed-point multipliers), and produces a
 function ``fn(params, inputs) -> outputs`` over torch tensors that runs
 the ops in order, eagerly.
 
+A program with a WHILE or an IF reads a value on the host while it
+runs (ops/lowerings.py): it is not ``capturable``, and no CUDA graph
+holds it (backend/executor.py ``build_combo``).
+
 A program prepared for a host (CPU) worker may also hold custom ops
 with a host implementation (ops/host_ops.py, e.g. SSD's detection
 post-process): they run as numpy functions between the PyTorch ops,
@@ -28,7 +32,8 @@ import torch
 from ..errors import LoweringError
 from ..ir.graph import Graph
 from ..ops.host_ops import has_host_impl, run_host_op
-from ..ops.lowerings import LowerCtx, request_free, require_ieee_fp32
+from ..ops.lowerings import (CONTROL_FLOW, LowerCtx, request_free,
+                             require_ieee_fp32)
 from ..ops.registry import REGISTRY, get_lowering
 
 
@@ -125,6 +130,9 @@ class SubgraphProgram:
     meta: Dict[str, Any]
     # holds a host op: runs on a host worker, one request at a time
     has_custom: bool = False
+    # may be captured into a CUDA graph: False where an op reads a value
+    # on the host (a WHILE's condition, an IF's predicate)
+    capturable: bool = True
 
     @property
     def input_specs(self):
@@ -165,6 +173,13 @@ class SubgraphProgram:
             return [ctx.arr(t) for t in output_ids]
 
         return fn
+
+    @property
+    def output_free(self) -> Tuple[bool, ...]:
+        """Per output, whether it carries no request axis (a SHAPE or RANK
+        value): one value for every request of a window."""
+        free = request_free(self.graph)
+        return tuple(t in free for t in self.output_ids)
 
 
 def window_size(graph: Graph, input_ids: Sequence[int],
@@ -238,4 +253,6 @@ def build_program(
         params=params,
         meta=meta,
         has_custom=bool(custom),
+        capturable=not any(graph.ops[oi].opname in CONTROL_FLOW
+                           for oi in op_indices),
     )

@@ -57,18 +57,24 @@ convs on kernel qmatmul_hybrid, the other convs as float32 convs of the
 residuals.  ADD, SUB, MUL, the pools, MEAN, SOFTMAX, RELU, RELU6 and the
 structural ops take float tensors as band_tpu does.
 
-The op set is that of the slices so far (MobileNetV2 int8, fp16 and
-dynamic range, the tests/data CNNs, quant_act_int8, the SSD backbones,
-tconv_int8, attention_int8, cnn_ops_int8, FSRCNN, support_ops,
-support_ops2 and the CenterNet detectors with their top-k decode); float
-and hybrid TRANSPOSE_CONV raise LoweringError.  The support op set
-(casts, comparisons, select, reductions, integer division, index, move,
+The op set is band_tpu's whole registry (119 op types); float and
+hybrid TRANSPOSE_CONV raise LoweringError.  The support op set (casts,
+comparisons, select, reductions, integer division, index, move,
 segment, spectral and 3-D ops) runs as PyTorch ops on the tensor's
 device, TOPK_V2 on a packed key that orders ties by index.
+
+Sequences and control flow: the fused UNIDIRECTIONAL_SEQUENCE_LSTM runs
+its stacked gates as one input GEMM and a torch.addmm per step (plain
+float32 products, as band_tpu's lax.scan, no Pallas).  WHILE and IF run
+their subgraphs as child programs prepared with the parent; a WHILE
+reads its condition on the host every iteration, so a program holding
+one is not capturable into a CUDA graph.  The Keras 3 TensorArray write,
+concat(buf[:i], v, buf[i+1:]), is one scatter at a device-side index.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, FrozenSet, Optional, Tuple
 
@@ -281,8 +287,9 @@ def tf32_flag(graph: Graph, op: OpNode) -> Optional[str]:
     """The flag that must be off for ``op`` on a card, or None: float and
     hybrid convs other than the hybrid 1x1 ones (cuDNN), float
     FULLY_CONNECTED and BATCH_MATMUL (cuBLAS), CONV_3D (cuDNN).  The
-    hybrid GEMMs run the int8 kernel and take no flag."""
-    if op.opname == "BATCH_MATMUL":
+    hybrid GEMMs run the int8 kernel and take no flag; the sequence LSTM
+    (cuBLAS, also the float simulation of the int8 one)."""
+    if op.opname in ("BATCH_MATMUL", "UNIDIRECTIONAL_SEQUENCE_LSTM"):
         return TF32_MATMUL
     if op.opname == "CONV_3D":
         return TF32_CONV
@@ -301,8 +308,13 @@ def tf32_flag(graph: Graph, op: OpNode) -> Optional[str]:
 def require_ieee_fp32(graph: Graph, op_indices) -> None:
     """The port's TF32 rule, applied when a program is built for a card:
     a float32 contraction is refused while the flag that would run it in
-    TF32 is on, rather than the flag being changed behind the caller."""
+    TF32 is on, rather than the flag being changed behind the caller.
+    The subgraphs of WHILE and IF are searched too (a loop body's FC)."""
     for oi in op_indices:
+        if graph.ops[oi].opname in CONTROL_FLOW:
+            for child in child_graphs(graph, graph.ops[oi]):
+                require_ieee_fp32(child, range(len(child.ops)))
+            continue
         flag = tf32_flag(graph, graph.ops[oi])
         if flag is not None and tf32_on(flag):
             op = graph.ops[oi]
@@ -634,17 +646,27 @@ def _dwconv2d(ctx: LowerCtx, op: OpNode) -> None:
 # FULLY_CONNECTED
 # --------------------------------------------------------------------------
 
+def _runtime_fc_operands(graph: Graph, op: OpNode) -> bool:
+    """Whether an FC's weights or bias are runtime values."""
+    return graph.tensor(op.inputs[1]).data is None or (
+        len(op.inputs) > 2 and op.inputs[2] >= 0
+        and not graph.tensor(op.inputs[2]).is_constant)
+
+
 def _prepare_fc(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     """Quantized: B1/B4's operands.  Float and hybrid: band_tpu's keys
     (band_tpu/ops/lowerings.py:998-1026): ``w`` [out, in] float32, or the
     hybrid ``w_q`` [in, out] int8 (B4's layout), ``w_scale`` [out] and
     ``w_rowsum`` [out] (int32 sums over in); ``bias`` float32."""
     w_td = graph.tensor(op.inputs[1])
-    if w_td.data is None:
-        raise LoweringError(
-            f"FULLY_CONNECTED op {op.index}: runtime weights (a control-flow "
-            "subgraph's input) are not ported to PyTorch yet"
-        )
+    if _runtime_fc_operands(graph, op):
+        if w_td.dtype.kind != "f" or not _float_input(graph, op):
+            raise LoweringError(
+                f"FULLY_CONNECTED op {op.index}: runtime int8 weights (a "
+                "control-flow subgraph's input) are not ported to PyTorch")
+        # runtime float weights or bias (a loop body's or an IF branch's
+        # input): read at run time
+        return _constant_inputs(graph, op)
     w = w_td.data  # [out, in]
     if _float_input(graph, op):
         if _hybrid_weights(graph, op):
@@ -659,11 +681,8 @@ def _prepare_fc(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
             d = {"w": np.ascontiguousarray(w, np.float32)}
         if len(op.inputs) > 2 and op.inputs[2] >= 0:
             b_td = graph.tensor(op.inputs[2])
-            if not b_td.is_constant:
-                raise LoweringError(
-                    f"FULLY_CONNECTED op {op.index}: a runtime bias is not "
-                    "ported to PyTorch yet")
-            d["bias"] = b_td.data.astype(np.float32)
+            if b_td.is_constant:
+                d["bias"] = b_td.data.astype(np.float32)
         return d
     return _prepare_conv_common(
         graph, op, w_td, np.transpose(w, (1, 0)), sum_axes=(0,),
@@ -687,11 +706,35 @@ def _hybrid_fc(ctx: LowerCtx, op: OpNode, x2: torch.Tensor,
                         _optional(ctx, op, "bias"), 1, act)
 
 
+def _runtime_fc(ctx: LowerCtx, op: OpNode, act: str) -> None:
+    """A float FC whose weights (or bias) are runtime values, per request:
+    F.linear where the weights carry no request axis, a batched product
+    where each request has its own; the bias after the product, as
+    band_tpu adds it (band_tpu/ops/lowerings.py:1039-1054)."""
+    xv = _lv(ctx, op, op.inputs[0])
+    xv = xv.reshape(xv.shape[0], -1, xv.shape[-1]).to(torch.float32)
+    wv = _lv(ctx, op, op.inputs[1]).to(torch.float32)
+    _check_tf32(xv, op, TF32_MATMUL)
+    if wv.shape[0] == 1:
+        acc = F.linear(xv, wv[0])
+    else:
+        acc = torch.matmul(xv, wv.transpose(1, 2))
+    if len(op.inputs) > 2 and op.inputs[2] >= 0:
+        acc = acc + _lv(ctx, op, op.inputs[2]).to(torch.float32).unsqueeze(1)
+    out_shape = tuple(ctx.graph.tensor(op.outputs[0]).shape)
+    out = _apply_float_activation(acc, act)
+    _put(ctx, op, out.reshape((out.shape[0],) + out_shape))
+
+
 @register("FULLY_CONNECTED", prepare=_prepare_fc)
 def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
     """Every int8 FC runs kernel B1 (B4 with fast numerics) on the
     input's rows.  Float: x . w^T + bias in float32 (F.linear; cuBLAS with
-    TF32 refused), then the fused activation.  Hybrid: ``_hybrid_fc``."""
+    TF32 refused), then the fused activation; runtime weights:
+    ``_runtime_fc``.  Hybrid: ``_hybrid_fc``."""
+    if _runtime_fc_operands(ctx.graph, op):
+        _runtime_fc(ctx, op, op.options.get("activation", "NONE"))
+        return
     if _float_input(ctx.graph, op):
         x_raw = ctx.arr(op.inputs[0])
         x2 = x_raw.reshape(-1, x_raw.shape[-1])
@@ -1092,7 +1135,7 @@ _LUT_TRANSFORMS = {
 def _prepare_unary_lut(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     in_td = graph.tensor(op.inputs[0])
     out_td = graph.tensor(op.outputs[0])
-    if op.opname == "ELU" and in_td.quant is None and out_td.quant is None \
+    if in_td.quant is None and out_td.quant is None \
             and in_td.dtype == np.float32:
         return {}
     if (
@@ -1101,10 +1144,8 @@ def _prepare_unary_lut(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
         or out_td.quant is None or out_td.dtype.itemsize != 1
     ):
         raise LoweringError(
-            f"{op.opname} op {op.index}: only the 8-bit quantized form"
-            + (" and the float32 ELU" if op.opname == "ELU" else "")
-            + " are ported to PyTorch yet"
-        )
+            f"{op.opname} op {op.index}: only the 8-bit quantized and the "
+            "float32 forms are ported to PyTorch")
     xs, xzp = _scalar_qp(in_td.quant)
     os_, ozp = _scalar_qp(out_td.quant)
     return {"lut": Q.activation_lut(_LUT_TRANSFORMS[op.opname], xs, xzp,
@@ -1112,14 +1153,20 @@ def _prepare_unary_lut(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 
 def _unary_lut(ctx: LowerCtx, op: OpNode) -> None:
-    """table[uint8(x)].  The float32 ELU is where(x > 0, x, expm1(x)) with
-    expm1 taken in float64 and rounded once to float32: the correctly
-    rounded value, the same on the CPU and the card (float32 expm1
-    differs by an ulp between libraries; XLA's, in band_tpu, on 11 of
-    quant_act_int8's 256 ELU inputs, none of which moves its QUANTIZE)."""
+    """table[uint8(x)].  The float32 LOGISTIC and TANH are torch.sigmoid
+    and torch.tanh (band_tpu's jax.nn.sigmoid and jnp.tanh).  The float32
+    ELU is where(x > 0, x, expm1(x)) with expm1 taken in float64 and
+    rounded once to float32: the correctly rounded value, the same on the
+    CPU and the card (float32 expm1 differs by an ulp between libraries;
+    XLA's, in band_tpu, on 11 of quant_act_int8's 256 ELU inputs, none of
+    which moves its QUANTIZE)."""
     x = ctx.arr(op.inputs[0])
     if f"op{op.index}/lut" in ctx.params:
         ctx.set(op.outputs[0], Q.apply_lut(x, ctx.param(op, "lut")))
+        return
+    if op.opname != "ELU":
+        fn = torch.sigmoid if op.opname == "LOGISTIC" else torch.tanh
+        ctx.set(op.outputs[0], fn(x))
         return
     neg = torch.expm1(torch.clamp(x, max=0.0).to(torch.float64))
     ctx.set(op.outputs[0], torch.where(x > 0, x, neg.to(torch.float32)))
@@ -1224,15 +1271,22 @@ def store_real(ctx: LowerCtx, tid: int, val: torch.Tensor,
 # The request axis: which tensors carry it, and how an op reaches it
 # --------------------------------------------------------------------------
 
-def request_free(graph: Graph) -> FrozenSet[int]:
-    """The tensors that carry no request axis: constants, SHAPE outputs
-    and whatever is computed from those alone (the converter's
-    output-shape prelude of a TRANSPOSE_CONV): per-model values, which a
-    window does not stack.  Every other tensor is per-request data."""
+def request_free(graph: Graph, inputs=()) -> FrozenSet[int]:
+    """The tensors that carry no request axis: constants, SHAPE and RANK
+    outputs and whatever is computed from those alone (the converter's
+    output-shape prelude of a TRANSPOSE_CONV, a loop counter): per-model
+    values, which a window does not stack.  ``inputs``: a subgraph's
+    inputs that carry none (a WHILE's or IF's operands).  The outputs of
+    WHILE and IF follow their subgraphs (``control_free``).  Every other
+    tensor is per-request data."""
     free = {td.index for td in graph.tensors if td.is_constant}
+    free.update(inputs)
     for op in graph.ops:
-        if op.opname == "SHAPE" or all(t in free for t in op.inputs
-                                       if t >= 0):
+        if op.opname in CONTROL_FLOW:
+            flags, _ = control_free(graph, op, free)
+            free.update(t for t, f in zip(op.outputs, flags) if f)
+        elif op.opname in ("SHAPE", "RANK") or all(
+                t in free for t in op.inputs if t >= 0):
             free.update(op.outputs)
     return frozenset(free)
 
@@ -1322,11 +1376,16 @@ register("STRIDED_SLICE", prepare=_prepare_strided_slice,
 
 
 def _prepare_slice(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """A static slice: its index.  A runtime begin with a static size
+    (none -1): the ``sizes``.  Any other runtime begin or size: nothing
+    (the lowering parks a ``_DynSlice``)."""
     b_td, s_td = graph.tensor(op.inputs[1]), graph.tensor(op.inputs[2])
     if not (b_td.is_constant and s_td.is_constant):
-        raise LoweringError(
-            f"SLICE op {op.index}: a runtime begin or size (the TensorArray "
-            "write of WHILE loops) is not ported to PyTorch yet")
+        out: Dict[str, Any] = {"dynamic": True}
+        if s_td.is_constant and -1 not in [int(v) for v in s_td.data]:
+            out["sizes"] = tuple(int(v) for v in s_td.data)
+        out.update(_constant_inputs(graph, op))
+        return out
     shape = graph.tensor(op.inputs[0]).shape
     index = []
     for d, (b, s) in enumerate(zip(b_td.data, s_td.data)):
@@ -1337,7 +1396,66 @@ def _prepare_slice(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     return out
 
 
-register("SLICE", prepare=_prepare_slice, static_inputs=(1, 2))(_index_op)
+class _DynSlice:
+    """A SLICE whose size is a runtime value (band_tpu/ops/lowerings.py:
+    1387): the only place TFLite makes one is the TensorArray write of a
+    Keras 3 loop body, concat(buf[:i], v, buf[i+1:]), which CONCATENATION
+    rewrites into one scatter at a device-side index.  Any other use
+    raises band_tpu's error."""
+
+    def __init__(self, src_tid, src, begin_tid, begin, sizes_tid, sizes):
+        self.src_tid, self.src = src_tid, src
+        self.begin_tid, self.begin = begin_tid, begin
+        self.sizes_tid, self.sizes = sizes_tid, sizes
+
+    def fail(self):
+        raise LoweringError(
+            "SLICE: dynamic sizes are not expressible outside the "
+            "TensorArray-write pattern (concat(buf[:i], v, buf[i+1:])); "
+            "convert growing-loop models through the fused kernel path "
+            "(e.g. UNIDIRECTIONAL_SEQUENCE_LSTM)")
+
+    def __getattr__(self, name):
+        self.fail()
+
+
+@register("SLICE", prepare=_prepare_slice, static_inputs=(1, 2))
+def _slice(ctx: LowerCtx, op: OpNode) -> None:
+    """A static slice: ``_index_op``.  A runtime begin with a static size:
+    per model axis that the slice cuts, the begin clamped into range (as
+    lax.dynamic_slice clamps it) and the rows taken with index_select,
+    or, where each request has its own begin, gather; no host sync.  A
+    runtime size: a ``_DynSlice`` for CONCATENATION."""
+    if f"op{op.index}/dynamic" not in ctx.meta:
+        _index_op(ctx, op)
+        return
+    x_tid, b_tid, s_tid = op.inputs[:3]
+    sizes = ctx.meta.get(f"op{op.index}/sizes")
+    if sizes is None:
+        ctx.set(op.outputs[0], _DynSlice(
+            x_tid, _operand(ctx, op, x_tid), b_tid, _operand(ctx, op, b_tid),
+            s_tid, _operand(ctx, op, s_tid)))
+        return
+    shape = ctx.graph.tensor(x_tid).shape
+    x = _lv(ctx, op, x_tid)
+    begin = _lv(ctx, op, b_tid).to(torch.int64)
+    if begin.shape[0] > x.shape[0]:
+        x = x.expand((begin.shape[0],) + tuple(x.shape[1:]))
+    for d, size in enumerate(sizes):
+        if size == int(shape[d]):
+            continue
+        pos = torch.arange(size, device=x.device)
+        start = begin[:, d].clamp(0, int(shape[d]) - size)
+        if begin.shape[0] == 1:
+            x = x.index_select(d + 1, start + pos)
+            continue
+        idx_shape = [1] * x.dim()
+        idx_shape[0], idx_shape[d + 1] = x.shape[0], size
+        idx = (start.unsqueeze(1) + pos).reshape(idx_shape)
+        out_shape = list(x.shape)
+        out_shape[d + 1] = size
+        x = torch.gather(x, d + 1, idx.expand(out_shape))
+    ctx.set_view(op.outputs[0], x.contiguous())
 
 
 def _prepare_pack(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
@@ -1413,6 +1531,9 @@ def _concat(ctx: LowerCtx, op: OpNode) -> None:
     concatenated, per request (a constant input repeated over the
     requests)."""
     out_td = ctx.graph.tensor(op.outputs[0])
+    if any(isinstance(ctx.env.get(t), _DynSlice) for t in op.inputs):
+        _tensorarray_write(ctx, op)
+        return
     parts = []
     for tid in op.inputs:
         v = _lv(ctx, op, tid, expand=True)
@@ -1426,6 +1547,48 @@ def _concat(ctx: LowerCtx, op: OpNode) -> None:
         parts.append(v)
     ctx.set_view(op.outputs[0],
                  torch.cat(parts, dim=ctx.smeta(op, "axis") + 1))
+
+
+def _tensorarray_write(ctx: LowerCtx, op: OpNode) -> None:
+    """concat(buf[:i], v, buf[i+1:]) as buf with v scattered in at i
+    (band_tpu's lax.dynamic_update_slice, band_tpu/ops/lowerings.py:
+    1448-1484): i is the prefix slice's size along the axis, or the
+    suffix slice's begin less v's extent; clamped into range as XLA
+    clamps it; a device-side index, no host sync.  Each request writes
+    at its own index where the index is per request."""
+    raw = [ctx.env.get(t) for t in op.inputs]
+    markers = [v for v in raw if isinstance(v, _DynSlice)]
+    dense = [t for t, v in zip(op.inputs, raw) if not isinstance(v, _DynSlice)]
+    if len(dense) != 1 or len(markers) not in (1, 2) or any(
+            m.src_tid != markers[0].src_tid for m in markers):
+        markers[0].fail()
+    axis = ctx.smeta(op, "axis")
+    src_tid = markers[0].src_tid
+    dim = int(ctx.graph.tensor(src_tid).shape[axis])
+    extent = int(ctx.graph.tensor(dense[0]).shape[axis])
+    prefix = next((m for m in markers
+                   if ctx.graph.tensor(m.begin_tid).is_constant and not np.any(
+                       ctx.graph.tensor(m.begin_tid).data)), None)
+    if prefix is not None:
+        pos = ctx.view(prefix.sizes_tid, prefix.sizes)[:, axis]
+    else:
+        pos = ctx.view(markers[0].begin_tid, markers[0].begin)[:, axis] \
+            - extent
+    pos = pos.to(torch.int64).clamp(0, dim - extent)
+    src = ctx.view(src_tid, markers[0].src)
+    upd = _lv(ctx, op, dense[0]).to(src.dtype)
+    n = max(src.shape[0], upd.shape[0], pos.shape[0])
+    src = src.expand((n,) + tuple(src.shape[1:]))
+    upd = upd.expand((n,) + tuple(upd.shape[1:]))
+    idx_shape = [1] * upd.dim()
+    idx_shape[0] = pos.shape[0]
+    idx = pos.reshape(idx_shape)
+    if extent > 1:
+        step = [1] * upd.dim()
+        step[axis + 1] = extent
+        idx = idx + torch.arange(extent, device=pos.device).reshape(step)
+    ctx.set_view(op.outputs[0],
+                 torch.scatter(src, axis + 1, idx.expand(upd.shape), upd))
 
 
 def _pad_amounts(graph: Graph, op: OpNode):
@@ -2606,3 +2769,582 @@ def _rfft2d(ctx: LowerCtx, op: OpNode) -> None:
     out = torch.fft.rfftn(ctx.view(op.inputs[0]).to(torch.float32),
                           s=fft_len, dim=(-2, -1))
     ctx.set_view(op.outputs[0], out.to(torch.complex64))
+
+
+# --------------------------------------------------------------------------
+# Sequences: GATHER and the fused UNIDIRECTIONAL_SEQUENCE_LSTM
+# (band_tpu/ops/lowerings.py:1623, :2636-2768)
+# --------------------------------------------------------------------------
+
+def _take_fill(dtype: torch.dtype):
+    """jnp.take's fill for an index out of range: NaN for floats, the
+    lowest value of a signed integer type, the highest of an unsigned
+    one, True for bools."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+@register("GATHER", prepare=lambda g, op, e: _constant_inputs(g, op))
+def _gather(ctx: LowerCtx, op: OpNode) -> None:
+    """jnp.take(x, indices, axis) per request, for float, int32 and int8
+    codes alike (codes are not requantized): an index in [-n, n) counts
+    from the end where negative, any other reads jnp.take's fill.  A table
+    without a request axis (an Embedding's) is read at every request's
+    indices in one index_select; a per-request table at indices without
+    one (a loop body reading its TensorArray at the counter) likewise
+    along its own axis; per-request tables at per-request indices each
+    at their own."""
+    x_tid, i_tid = op.inputs[:2]
+    x = _lv(ctx, op, x_tid)
+    idx = _lv(ctx, op, i_tid).to(torch.int64)
+    rank = x.dim() - 1
+    axis = _norm_axis(int(op.options.get("axis", 0)), rank) + 1
+    n = x.shape[axis]
+    ishape = tuple(idx.shape[1:])
+    valid = (idx >= -n) & (idx < n)
+    safe = torch.remainder(idx, n)
+    if x.shape[0] == 1 or idx.shape[0] == 1:
+        # one table or one index set: a single index_select
+        out = x.index_select(axis, safe.reshape(-1))
+        lead, tail = tuple(x.shape[1:axis]), tuple(x.shape[axis + 1:])
+        if x.shape[0] == 1:
+            # [1, lead, B'*ishape, tail] -> [B', lead, ishape, tail]
+            out = out.reshape((1,) + lead + (idx.shape[0],) + ishape + tail)
+            out = out.movedim(axis, 0).squeeze(1)
+        else:
+            out = out.reshape((x.shape[0],) + lead + ishape + tail)
+    else:
+        req = torch.arange(x.shape[0], device=x.device).reshape(
+            (x.shape[0],) + (1,) * len(ishape))
+        out = x.movedim(axis, 1)[req, safe]  # [B, ishape, lead, tail]
+        k, n_lead = len(ishape), axis - 1
+        perm = [0] + [1 + k + j for j in range(n_lead)] + \
+            [1 + j for j in range(k)] + list(range(1 + k + n_lead,
+                                                   out.dim()))
+        out = out.permute(perm)
+    vmask = valid.reshape(
+        (valid.shape[0],) + (1,) * (axis - 1) + ishape
+        + (1,) * (rank - axis))
+    out = torch.where(vmask, out, torch.full((), _take_fill(out.dtype),
+                                             dtype=out.dtype,
+                                             device=out.device))
+    ctx.set_view(op.outputs[0], out.contiguous())
+
+
+def _prepare_lstm(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """The LSTM's operands in float32 (the int8 ones dequantized, band_tpu's
+    float simulation of the 8x8_16 kernel), its gates stacked (i, f, o, c;
+    CIFG drops i) into one [G*n_cell, I] input matrix ``w`` and one
+    transposed recurrent matrix ``r_t`` [n_out, G*n_cell]; the bias
+    ``b`` folded into the input projection unless a per-gate layer norm
+    comes between; peepholes ``p_i``, ``p_f``, ``p_o``; layer-norm
+    coefficients ``ln`` [G, n_cell]; projection ``proj_w_t`` [n_cell,
+    n_out] and ``proj_b``; for the int8 form the scales and zero points
+    of the input, the states and the output."""
+    x_td = graph.tensor(op.inputs[0])
+    quantized = x_td.dtype.kind in "iu"
+    if quantized and (x_td.dtype != np.int8 or x_td.quant is None):
+        raise LoweringError(
+            "UNIDIRECTIONAL_SEQUENCE_LSTM: unsupported input type "
+            f"{x_td.dtype} (float32 and full-int8 are implemented)")
+
+    def real(i):
+        tid = op.inputs[i] if i < len(op.inputs) else -1
+        if tid < 0:
+            return None
+        td = graph.tensor(tid)
+        if td.data is None:
+            raise LoweringError(
+                f"UNIDIRECTIONAL_SEQUENCE_LSTM op {op.index}: runtime "
+                f"operand {i} is not ported to PyTorch")
+        if td.data.size == 0:
+            return None
+        v = td.data.astype(np.float32)
+        if quantized and td.quant is not None:
+            v = (v - np.float32(td.quant.zero_point[0])) * \
+                np.float32(td.quant.scale[0])
+        return v
+
+    w = {g: real(i) for g, i in zip("ifco", (1, 2, 3, 4))}
+    r = {g: real(i) for g, i in zip("ifco", (5, 6, 7, 8))}
+    p = {g: real(i) for g, i in zip("ifo", (9, 10, 11))}
+    b = {g: real(i) for g, i in zip("ifco", (12, 13, 14, 15))}
+    ln = {g: real(i) for g, i in zip("ifco", (20, 21, 22, 23))}
+    proj_w, proj_b = real(16), real(17)
+    cifg = w["i"] is None
+    gates = "foc" if cifg else "ifoc"
+    n_cell, n_out = w["f"].shape[0], r["f"].shape[1]
+    bias = np.concatenate([b[g] if b[g] is not None
+                           else np.zeros(n_cell, np.float32) for g in gates])
+    has_ln = ln["f"] is not None
+    d: Dict[str, Any] = {
+        "w": np.ascontiguousarray(np.concatenate([w[g] for g in gates])),
+        "r_t": np.ascontiguousarray(np.concatenate([r[g] for g in gates]).T),
+        "b": bias, "gates": gates, "n_cell": n_cell, "n_out": n_out,
+        "has_ln": has_ln, "peephole": p["f"] is not None,
+        "time_major": bool(op.options.get("time_major", False)),
+        "cell_clip": float(op.options.get("cell_clip", 0.0)),
+        "proj_clip": float(op.options.get("proj_clip", 0.0)),
+        "act": op.options.get("activation", "TANH"),
+    }
+    for g in "ifo":
+        if p[g] is not None:
+            d[f"p_{g}"] = p[g]
+    if has_ln:
+        d["ln"] = np.stack([ln[g] for g in gates])
+    if proj_w is not None:
+        d["proj_w_t"] = np.ascontiguousarray(proj_w.T)
+        if proj_b is not None:
+            d["proj_b"] = proj_b
+    if quantized:
+        h_td, c_td = graph.tensor(op.inputs[18]), graph.tensor(op.inputs[19])
+        out_td = graph.tensor(op.outputs[0])
+        d.update(x_q=_scalar_qp(x_td.quant), h_q=_scalar_qp(h_td.quant),
+                 c_scale=float(c_td.quant.scale[0]),
+                 out_q=_scalar_qp(out_td.quant))
+    return d
+
+
+# the profiler ranges of the recurrences (LSTM steps, WHILE iterations)
+LSTM_STEPS = "band:lstm_steps"
+WHILE_ITERATIONS = "band:while_iterations"
+
+
+@register("UNIDIRECTIONAL_SEQUENCE_LSTM", prepare=_prepare_lstm)
+def _useq_lstm(ctx: LowerCtx, op: OpNode) -> None:
+    """band_tpu's semantics (CIFG, peepholes, the output gate's reading
+    the updated cell, projection and its clip, per-gate layer norm with
+    eps 1e-8 and the bias after the norm, the cell clip, time_major, the
+    activation; h0 and c0 zero; the int8 form dequantized, h and c
+    fake-quantized with ties away from zero every step, the output
+    quantized at the end), on stacked gates: the input projection of
+    every step in one GEMM, then per step one recurrent GEMM
+    (torch.addmm onto that step's projection) and the pointwise ops on
+    the [B * model batch, .] state.  A window's requests are rows of the
+    LSTM's batch."""
+    m = lambda k: ctx.smeta(op, k)  # noqa: E731
+    n, n_out, gates = m("n_cell"), m("n_out"), m("gates")
+    cifg, has_ln, peep = gates[0] != "i", m("has_ln"), m("peephole")
+    act = functools.partial(_apply_float_activation, activation=m("act"))
+    xv = ctx.view(op.inputs[0])
+    if f"op{op.index}/x_q" in ctx.meta:
+        s, zp = m("x_q")
+        xv = (xv.to(torch.float32) - float(zp)) * s
+    if m("time_major"):  # [B, T, b, I] -> [B, b, T, I]
+        xv = xv.permute(0, 2, 1, 3)
+    lead, t_len = xv.shape[:2], xv.shape[2]
+    x = xv.reshape(-1, t_len, xv.shape[-1])
+    rows = x.shape[0]
+    _check_tf32(x, op, TF32_MATMUL)
+    w, r_t, b = ctx.param(op, "w"), ctx.param(op, "r_t"), ctx.param(op, "b")
+    xp = F.linear(x.reshape(rows * t_len, -1), w, None if has_ln else b)
+    xp = xp.reshape(rows, t_len, -1).transpose(0, 1).contiguous()
+    quant = f"op{op.index}/h_q" in ctx.meta
+    if quant:
+        hs_, hzp = m("h_q")
+        cs_ = m("c_scale")
+    g0 = gates.index("o")  # the sigmoid gates before o: f, or i and f
+    p = {g: _optional(ctx, op, f"p_{g}") for g in "ifo"}
+    ln = _optional(ctx, op, "ln")
+    proj_w, proj_b = _optional(ctx, op, "proj_w_t"), _optional(ctx, op,
+                                                                "proj_b")
+    clip, pclip = m("cell_clip"), m("proj_clip")
+
+    def norm(z, j):
+        # TFLite's MeanStddevNormalization, the gate's coefficient, the bias
+        mu = z.mean(dim=-1, keepdim=True)
+        var = ((z - mu) ** 2).mean(dim=-1, keepdim=True)
+        z = (z - mu) * torch.rsqrt(var + 1e-8) * ln[j]
+        return z + b[j * n:(j + 1) * n]
+
+    h = torch.zeros((rows, n_out), dtype=torch.float32, device=x.device)
+    c = torch.zeros((rows, n), dtype=torch.float32, device=x.device)
+    outs = []
+    # one profiler range over the recurrence (its share of a request's
+    # device time; nearly free when no profiler runs)
+    with torch.profiler.record_function(LSTM_STEPS):
+        for t in range(t_len):
+            z = torch.addmm(xp[t], h, r_t)
+            if not (peep or has_ln):
+                sig = torch.sigmoid(z[:, :(g0 + 1) * n])
+                f = sig[:, (g0 - 1) * n:g0 * n]
+                i = 1.0 - f if cifg else sig[:, :n]
+                o = sig[:, g0 * n:]
+                gc = act(z[:, (g0 + 1) * n:])
+            else:
+                zs = [z[:, j * n:(j + 1) * n] for j in range(len(gates))]
+                for j, g in enumerate(gates):
+                    if g in "if" and p[g] is not None:
+                        zs[j] = zs[j] + c * p[g]  # the cell before
+                    if has_ln and g != "o":
+                        zs[j] = norm(zs[j], j)
+                f = torch.sigmoid(zs[g0 - 1])
+                i = 1.0 - f if cifg else torch.sigmoid(zs[0])
+                gc = act(zs[g0 + 1])
+            c = f * c + i * gc
+            if clip > 0.0:
+                c = torch.clamp(c, -clip, clip)
+            if quant:
+                c = torch.clamp(Q.round_ties_away(c / cs_), -32768,
+                                32767) * cs_
+            if peep or has_ln:
+                zo = zs[g0]
+                if p["o"] is not None:
+                    zo = zo + c * p["o"]  # the updated cell
+                if has_ln:
+                    zo = norm(zo, g0)
+                o = torch.sigmoid(zo)
+            h = o * act(c)
+            if proj_w is not None:
+                h = h @ proj_w
+                if proj_b is not None:
+                    h = h + proj_b
+                if pclip > 0.0:
+                    h = torch.clamp(h, -pclip, pclip)
+            if quant:
+                qh = torch.clamp(Q.round_ties_away(h / hs_) + hzp, -128, 127)
+                h = (qh - hzp) * hs_
+            outs.append(h)
+    y = torch.stack(outs, dim=1)  # [rows, T, n_out]
+    if quant:
+        s, zp = m("out_q")
+        y = torch.clamp(Q.round_ties_away(y / s) + zp, -128, 127).to(
+            torch.int8)
+    y = y.reshape(tuple(lead) + (t_len, n_out))
+    if m("time_major"):
+        y = y.permute(0, 2, 1, 3)
+    ctx.set_view(op.outputs[0], y.contiguous())
+
+
+# --------------------------------------------------------------------------
+# Control flow: WHILE and IF over the model's other subgraphs
+# (band_tpu/ops/lowerings.py:2771-2877)
+# --------------------------------------------------------------------------
+
+CONTROL_FLOW = ("WHILE", "IF")
+
+
+def child_graphs(graph: Graph, op: OpNode):
+    """The subgraphs a WHILE (cond, body) or an IF (then, else) runs."""
+    keys = (("cond_subgraph_index", "body_subgraph_index")
+            if op.opname == "WHILE"
+            else ("then_subgraph_index", "else_subgraph_index"))
+    if not graph.subgraphs:
+        raise LoweringError(f"{op.opname} op {op.index}: the model has no "
+                            "subgraph table")
+    return [graph.subgraphs[int(op.options.get(k, 0))] for k in keys]
+
+
+def _free_inputs(g: Graph, flags) -> FrozenSet[int]:
+    return request_free(g, [t for t, f in zip(g.inputs, flags) if f])
+
+
+def control_free(graph: Graph, op: OpNode, free) -> Tuple[Tuple[bool, ...],
+                                                         bool]:
+    """(which outputs carry no request axis, whether the condition or
+    predicate carries none) of a WHILE or IF whose inputs in ``free``
+    carry none.  WHILE: a carry is free if it is free on entry and the
+    body keeps it free, a fixed point; a per-request condition ends each
+    request at its own iteration, so then no carry is free.  IF: a
+    per-request predicate makes every output per request; a free one, an
+    output free in both branches."""
+    if op.opname == "WHILE":
+        cond_g, body_g = child_graphs(graph, op)
+        carry = tuple(t in free for t in op.inputs)
+        while True:
+            bfree = _free_inputs(body_g, carry)
+            new = tuple(f and t in bfree
+                        for f, t in zip(carry, body_g.outputs))
+            if new == carry:
+                break
+            carry = new
+        cond_free = cond_g.outputs[0] in _free_inputs(cond_g, carry)
+        return (carry if cond_free else (False,) * len(carry)), cond_free
+    if op.inputs[0] not in free:
+        return (False,) * len(op.outputs), False
+    flags = [t in free for t in op.inputs[1:]]
+    outs = [[t in _free_inputs(g, flags) for t in g.outputs]
+            for g in child_graphs(graph, op)]
+    return tuple(a and b for a, b in zip(*outs)), True
+
+
+class _Child:
+    """A subgraph that a WHILE or IF runs: its ops prepared once with the
+    parent's program, their params stored in the parent's under
+    ``prefix`` (and so moved to the device with them, once), run eagerly
+    on each call with the parent's window."""
+
+    def __init__(self, graph: Graph, exact: bool, prefix: str):
+        from ..backend.program import prepare_params
+
+        self.graph = graph
+        self.prefix = prefix
+        if any(op.is_custom for op in graph.ops):
+            raise LoweringError("a control-flow subgraph holds a custom op")
+        self.np_params, self.meta = prepare_params(
+            graph, range(len(graph.ops)), exact)
+        self._free: Dict[Tuple[bool, ...], FrozenSet[int]] = {}
+
+    def params(self, parent: Dict[str, torch.Tensor]):
+        k = len(self.prefix)
+        return {name[k:]: v for name, v in parent.items()
+                if name.startswith(self.prefix)}
+
+    def __call__(self, params, values, flags, batch: int):
+        """The subgraph's outputs, and which carry no request axis, for
+        inputs ``values`` held as the flags say (free, or stacked)."""
+        from .registry import get_lowering
+
+        key = tuple(flags)
+        if key not in self._free:
+            self._free[key] = _free_inputs(self.graph, key)
+        free = self._free[key]
+        ctx = LowerCtx(self.graph, params, self.meta, batch=batch, free=free)
+        for tid, v in zip(self.graph.inputs, values):
+            ctx.set(tid, v)
+        for op in self.graph.ops:
+            get_lowering(op.opname).trace(ctx, op)
+        return ([ctx.arr(t) for t in self.graph.outputs],
+                [t in free for t in self.graph.outputs])
+
+
+def _prepare_control_flow(graph: Graph, op: OpNode,
+                          exact: bool) -> Dict[str, Any]:
+    d: Dict[str, Any] = {}
+    names = ("cond", "body") if op.opname == "WHILE" else ("then", "else")
+    for name, g in zip(names, child_graphs(graph, op)):
+        child = _Child(g, exact, f"op{op.index}/{name}/")
+        d[name] = child
+        d.update({f"{name}/{k}": v for k, v in child.np_params.items()})
+    d.update(_constant_inputs(graph, op))
+    return d
+
+
+def _held(v: torch.Tensor, shape, was_free: bool, free: bool,
+          batch: int) -> torch.Tensor:
+    """A value of model shape ``shape`` moved from the held form
+    ``was_free`` says to the one ``free`` says: a free value repeated over
+    the requests and stacked; otherwise as it is (a per-request value
+    never becomes free)."""
+    if free or not was_free:
+        return v
+    shape = tuple(int(s) for s in shape)
+    if v.numel() == int(np.prod(shape)):
+        v = v.reshape(shape)
+    v = v.unsqueeze(0).expand((batch,) + tuple(v.shape))
+    return v.reshape((batch * shape[0],) + shape[1:] if shape else (batch,))
+
+
+def _cf_inputs(ctx: LowerCtx, op: OpNode, tids, flags):
+    """The operands ``tids`` held as ``flags`` (free or not) say."""
+    return [_held(_operand(ctx, op, t), ctx.graph.tensor(t).shape,
+                  t in ctx.free, f, ctx.batch) for t, f in zip(tids, flags)]
+
+
+def _where_requests(active: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """Per request, a where ``active`` [B] holds, else b (stacked forms)."""
+    batch = active.shape[0]
+    return torch.where(active.reshape(batch, 1), a.reshape(batch, -1),
+                       b.reshape(batch, -1)).reshape(b.shape)
+
+
+@register("WHILE", prepare=_prepare_control_flow)
+def _while(ctx: LowerCtx, op: OpNode) -> None:
+    """Run body while cond holds, as lax.while_loop.  The condition is
+    read on the host, one sync an iteration: where it carries no request
+    axis (the Keras loops' counters) one bool serves the window; else the
+    loop runs while any request is active and each finished request's
+    carries are frozen with torch.where, as jax's batched while_loop
+    selects.  Carries keep their types; a carry that is free on entry
+    but per request in the loop is repeated over the requests first."""
+    cond, body = ctx.smeta(op, "cond"), ctx.smeta(op, "body")
+    flags, cond_free = control_free(ctx.graph, op, ctx.free)
+    carry = _cf_inputs(ctx, op, op.inputs, flags)
+    dtypes = [v.dtype for v in carry]
+    with torch.profiler.record_function(WHILE_ITERATIONS):
+        carry = _loop(ctx, cond, body, flags, cond_free, carry, dtypes)
+    for tid, v in zip(op.outputs, carry):
+        ctx.set(tid, v)
+
+
+def _loop(ctx: LowerCtx, cond: "_Child", body: "_Child", flags, cond_free,
+          carry, dtypes):
+    cparams, bparams = cond.params(ctx.params), body.params(ctx.params)
+    while True:
+        (c,), _ = cond(cparams, carry, flags, ctx.batch)
+        if cond_free:
+            if not bool(c.reshape(-1)[0]):
+                break
+        else:
+            active = c.reshape(ctx.batch).to(torch.bool)
+            if not bool(active.any()):
+                break
+        outs, out_free = body(bparams, carry, flags, ctx.batch)
+        if len(outs) != len(carry):
+            raise LoweringError(
+                f"WHILE: body arity {len(outs)} != carry {len(carry)}")
+        new = [_held(v, body.graph.tensor(t).shape, of, f, ctx.batch).to(dt)
+               for v, t, of, f, dt in zip(outs, body.graph.outputs, out_free,
+                                          flags, dtypes)]
+        carry = new if cond_free else [
+            _where_requests(active, a, b) for a, b in zip(new, carry)]
+    return carry
+
+
+@register("IF", prepare=_prepare_control_flow)
+def _if(ctx: LowerCtx, op: OpNode) -> None:
+    """A predicate without a request axis is read on the host and runs one
+    branch; a per-request one runs both branches on the window and
+    selects per request, as vmap(lax.cond) does."""
+    then_c, else_c = ctx.smeta(op, "then"), ctx.smeta(op, "else")
+    flags = [t in ctx.free for t in op.inputs[1:]]
+    args = _cf_inputs(ctx, op, op.inputs[1:], flags)
+    pred_tid = op.inputs[0]
+    pred = _operand(ctx, op, pred_tid)
+    out_flags = [t in ctx.free for t in op.outputs]
+
+    def run(child):
+        outs, free = child(child.params(ctx.params), args, flags, ctx.batch)
+        return [_held(v, child.graph.tensor(t).shape, f, of, ctx.batch).to(
+                    _out_dtype(ctx, op, k))
+                for k, (v, t, f, of) in enumerate(zip(
+                    outs, child.graph.outputs, free, out_flags))]
+
+    if pred_tid in ctx.free:
+        outs = run(then_c if bool(pred.reshape(-1)[0]) else else_c)
+    else:
+        active = pred.reshape(ctx.batch).to(torch.bool)
+        outs = [_where_requests(active, a, b)
+                for a, b in zip(run(then_c), run(else_c))]
+    for tid, v in zip(op.outputs, outs):
+        ctx.set(tid, v)
+
+
+# --------------------------------------------------------------------------
+# The last op types of band_tpu's registry, per request (band_tpu/ops/
+# lowerings.py:1282, :1368, :1374, :1614, :1647, :1903-1927, :2001-2015,
+# :2327-2351, :2460, :2625-2633)
+# --------------------------------------------------------------------------
+
+@register("ADD_N", prepare=lambda g, op, e: _constant_inputs(g, op))
+def _add_n(ctx: LowerCtx, op: OpNode) -> None:
+    """The inputs summed left to right."""
+    rank = len(ctx.graph.tensor(op.outputs[0]).shape)
+    acc = _lv(ctx, op, op.inputs[0], rank)
+    for tid in op.inputs[1:]:
+        acc = acc + _lv(ctx, op, tid, rank)
+    _put(ctx, op, acc)
+
+
+@register("ARG_MAX", static_inputs=(1,))
+def _arg_max(ctx: LowerCtx, op: OpNode) -> None:
+    """The first index of the largest value."""
+    x = ctx.view(op.inputs[0])
+    (axis,) = _axes(ctx, op, op.inputs[1], x.dim() - 1)
+    ctx.set_view(op.outputs[0],
+                 torch.argmax(x, dim=axis).to(_out_dtype(ctx, op)))
+
+
+@register("BROADCAST_TO", static_inputs=(1,))
+def _broadcast_to(ctx: LowerCtx, op: OpNode) -> None:
+    shape = tuple(int(v) for v in np.ravel(ctx.static(op.inputs[1])))
+    x = _lv(ctx, op, op.inputs[0], len(shape))
+    ctx.set_view(op.outputs[0], x.expand((x.shape[0],) + shape))
+
+
+@register("DIV", prepare=lambda g, op, e: _constant_inputs(g, op))
+def _div(ctx: LowerCtx, op: OpNode) -> None:
+    """a / b in float32 with the fused activation, between as_float and
+    store_real (integer outputs truncated, as band_tpu's astype)."""
+    a, b = _real_inputs(ctx, op)
+    store_real(ctx, op.outputs[0], _apply_float_activation(
+        a / b, op.options.get("activation", "NONE")), view=True)
+
+
+@register("POW", prepare=lambda g, op, e: _constant_inputs(g, op))
+def _pow(ctx: LowerCtx, op: OpNode) -> None:
+    a, b = _real_inputs(ctx, op)
+    store_real(ctx, op.outputs[0], torch.pow(a, b), view=True)
+
+
+def _to_model_shape(ctx: LowerCtx, op: OpNode) -> None:
+    """RESHAPE's rule for SQUEEZE and EXPAND_DIMS: the output's model
+    shape behind the request axis."""
+    x = ctx.view(op.inputs[0])
+    out_shape = tuple(int(v) for v in ctx.graph.tensor(op.outputs[0]).shape)
+    ctx.set_view(op.outputs[0], x.reshape((x.shape[0],) + out_shape))
+
+
+register("SQUEEZE")(_to_model_shape)
+register("EXPAND_DIMS", static_inputs=(1,))(_to_model_shape)
+
+
+@register("FILL", prepare=lambda g, op, e: _constant_inputs(g, op),
+          static_inputs=(0,))
+def _fill(ctx: LowerCtx, op: OpNode) -> None:
+    """The value (per request where it is) at every position of the
+    static dims."""
+    dims = tuple(int(v) for v in np.ravel(ctx.static(op.inputs[0])))
+    v = _lv(ctx, op, op.inputs[1])
+    v = v.reshape((v.shape[0],) + (1,) * len(dims))
+    ctx.set_view(op.outputs[0], v.expand((v.shape[0],) + dims))
+
+
+@register("L2_NORMALIZATION")
+def _l2_norm(ctx: LowerCtx, op: OpNode) -> None:
+    """x * rsqrt(sum(x^2) + 1e-6) over the last axis, in float32."""
+    x = real(ctx, op.inputs[0], ctx.view(op.inputs[0]))
+    norm = torch.rsqrt(torch.sum(torch.square(x), dim=-1, keepdim=True)
+                       + 1e-6)
+    store_real(ctx, op.outputs[0], x * norm, view=True)
+
+
+@register("LOG_SOFTMAX")
+def _log_softmax(ctx: LowerCtx, op: OpNode) -> None:
+    x = real(ctx, op.inputs[0], ctx.view(op.inputs[0]))
+    store_real(ctx, op.outputs[0], torch.log_softmax(x, dim=-1), view=True)
+
+
+def _prepare_rank(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    return {"value": np.asarray(len(graph.tensor(op.inputs[0]).shape),
+                                np.int32)}
+
+
+@register("RANK", prepare=_prepare_rank)
+def _rank(ctx: LowerCtx, op: OpNode) -> None:
+    """The input's model rank, prepared once (a request-free value)."""
+    ctx.set(op.outputs[0], ctx.param(op, "value"))
+
+
+def _amax(x, axes, keep):
+    return torch.amax(x, dim=axes, keepdim=keep)
+
+
+register("REDUCE_MAX", static_inputs=(1,))(_reduce(_amax))
+
+
+@register("SUM", static_inputs=(1,))
+def _sum(ctx: LowerCtx, op: OpNode) -> None:
+    """The float32 sum between as_float and store_real, per request."""
+    x = real(ctx, op.inputs[0], ctx.view(op.inputs[0]))
+    axes = _axes(ctx, op, op.inputs[1], x.dim() - 1)
+    store_real(ctx, op.outputs[0], torch.sum(
+        x, dim=axes, keepdim=op.options.get("keep_dims", False)), view=True)
+
+
+@register("UNPACK")
+def _unpack(ctx: LowerCtx, op: OpNode) -> None:
+    x = ctx.view(op.inputs[0])
+    axis = _norm_axis(int(op.options.get("axis", 0)), x.dim() - 1) + 1
+    for tid, part in zip(op.outputs, torch.unbind(x, dim=axis)):
+        ctx.set_view(tid, part.contiguous())
+
+
+@register("ZEROS_LIKE")
+def _zeros_like(ctx: LowerCtx, op: OpNode) -> None:
+    ctx.set(op.outputs[0], torch.zeros_like(ctx.arr(op.inputs[0])))

@@ -768,15 +768,28 @@ class Engine(EngineBase):
     # ------------------------------------------------------------------
     def _combo_entry_eligible(self, key: SubgraphKey) -> bool:
         """A (key, bucket) may join a combined program only when its
-        program has no host op (band_tpu excludes its eager subgraphs);
-        every worker of the port is a single device."""
+        program has no host op (band_tpu excludes its eager subgraphs)
+        and is capturable (no WHILE or IF); every worker of the port is a
+        single device."""
         rec = self._models.get(key.model_id)
         if rec is None or key.model_id in self._unregistering:
             return False
         ex = rec.executors.get(key.worker_id)
         if ex is None:
             return False
-        return not ex.program(key).has_custom
+        prog = ex.program(key)
+        return not prog.has_custom and prog.capturable
+
+    def co_dispatch_capturable(self, sig: tuple) -> bool:
+        """Whether every member of a mix may be captured: False when one
+        reads a value on the host (a WHILE or IF model), whose windows
+        are then served unfused."""
+        for key, _ in sig:
+            rec = self._models.get(key.model_id)
+            ex = rec.executors.get(key.worker_id) if rec else None
+            if ex is not None and not ex.program(key).capturable:
+                return False
+        return True
 
     def co_dispatch_ready(self, sig: tuple) -> bool:
         st = self._combo_state.get(sig)

@@ -138,6 +138,11 @@ class EngineBase(abc.ABC):
         Default: fusion unavailable."""
         return False
 
+    def co_dispatch_capturable(self, sig: tuple) -> bool:
+        """False when a member of the mix cannot be captured (it reads a
+        value on the host: WHILE, IF).  Default: every member can."""
+        return True
+
     def invoke_multi(
         self, sig: tuple, inputs_groups: List[List[List[np.ndarray]]]
     ) -> List[List[List]]:

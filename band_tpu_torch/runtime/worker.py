@@ -772,6 +772,9 @@ class DeviceQueueWorker(Worker):
     def __init__(self, engine: EngineBase, worker_id: int, spec: WorkerSpec):
         super().__init__(engine, worker_id, spec)
         self._queue: Deque[Job] = collections.deque()
+        # windows served unfused because their mix held a model that
+        # cannot be captured (WHILE, IF)
+        self.uncapturable_windows = 0
         self._current: Optional[Job] = None
 
     def enqueue_job(self, job: Job) -> bool:
@@ -867,6 +870,10 @@ class DeviceQueueWorker(Worker):
         ]
         cand.sort(key=lambda kb: subgraph_sort_key(kb[0]))
         if not self.engine.co_dispatch_ready(tuple(cand)):
+            if not self.engine.co_dispatch_capturable(tuple(cand)):
+                # a WHILE or IF model in the mix: never captured, its
+                # windows are served one by one
+                self.uncapturable_windows += 1
             return [first]
         groups = [first]
         for _key, n in runs:

@@ -232,6 +232,31 @@ Phases:
              kernel phase every kernel call of the model at b1 and b8,
              exact and fast, is held byte-equal to plain, and the outputs
              there to the goldens.
+16. seq    (run after detect) the Keras example "Bidirectional LSTM on
+             IMDB" at full width (max_features 20,000, maxlen 200,
+             Embedding 128, two Bidirectional(LSTM(64)), Dense(1,
+             sigmoid); random weights; outputs the sigmoid and the first
+             BiLSTM's sequence [1, 200, 128]) in both conversions
+             (tests/data/imdb_bilstm.tar.xz: the fused LSTM ops, and
+             Keras 3's WHILE loops), and lstm_seq_int8 exact and fast, on
+             one GPU worker (fixed_worker, max_batch 8): per IMDB model
+             the 8 golden reviews at b1 and a burst of 16 request_async,
+             every output under the float gate (the sigmoid's decision
+             TFLite's; each output's largest deviation at most max(2 x
+             band_tpu's, 1e-4 x max|golden|): tests/data/
+             torch_seq_goldens.npz), the two conversions within that
+             bound of each other, the 8 reviews as one b8 window in order
+             and reversed within it of each review alone; lstm_seq_int8
+             within 1 LSB of TFLite at b1 and in a burst.  Launch counts
+             zeroed just before and read just after: B1, B4 and
+             lut_softmax must launch, no other kernel.  A co_dispatch
+             worker serving both IMDB models interleaved must refuse to
+             capture the mix and count the windows it serves unfused.
+             Printed: req/s at b1 and in the burst, and per b1 request
+             device time, launches, host syncs, busy share and the
+             recurrences' share of the device time.  In the kernel phase
+             every kernel call of lstm_seq_int8 at b1 and b8, exact and
+             fast, is held byte-equal to plain.
 Then it prints the kernels line (each kernel's launches in the engine
 phase of its numerics, in the sr, codispatch and detect phases; B2's
 general branch, the mma kernel of csrc/qconv_mma.cuh, in two entries of
@@ -363,6 +388,14 @@ DETECT_GOLDENS = os.path.join(DATA, "torch_detect_goldens.npz")
 DETECT_MODEL = "centernet_mnv2_fpn_int8"
 DETECT_SYNC = 16
 DETECT_BURST = 32
+# seq: the Keras IMDB bidirectional LSTM at full width, fused and as WHILE
+# loops (tests/gen_torch_seq_models.py), and lstm_seq_int8
+SEQ_GOLDENS = os.path.join(DATA, "torch_seq_goldens.npz")
+SEQ_ARCHIVE = os.path.join(DATA, "imdb_bilstm.tar.xz")
+SEQ_MODELS = ("imdb_bilstm", "imdb_bilstm_while")
+SEQ_INT8 = "lstm_seq_int8"
+SEQ_BURST = 16
+SEQ_RAN = ("qmatmul_exact", "qmatmul_fast", "lut_softmax")
 MMA_KERNELS = {
     "qconv2d_exact_mma": dict(
         wrapper="qconv2d_exact",
@@ -1352,7 +1385,7 @@ def decoder_calls(torch, dev, graphs, ops_goldens, plain, worst):
 
 
 def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens,
-                 detect_goldens):
+                 detect_goldens, seq_goldens):
     from band_tpu_torch.backend.program import build_program, params_from_jax
     from band_tpu_torch.ops import kernels as K
     from band_tpu_torch.ops import lowerings as L
@@ -1438,6 +1471,7 @@ def kernel_phase(torch, dev, graphs, goldens, hetero_goldens, ops_goldens,
                                  worst)
         detect_b1 = detect_calls(torch, dev, graphs, detect_goldens, plain,
                                  worst)
+        seq_calls(torch, dev, graphs, seq_goldens, plain, worst)
 
         # (lut_softmax's b1 call is the same in both numerics: timed once)
         stats = {n: dict(launches_b1=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
@@ -2617,6 +2651,334 @@ def detect_phase(torch, dev, bt, K, graphs, dg, smi):
 
 
 # --------------------------------------------------------------------------
+# seq phase: the Keras IMDB bidirectional LSTM, fused and as WHILE loops
+# --------------------------------------------------------------------------
+
+def seq_paths():
+    """The full-width IMDB models, unpacked from tests/data/
+    imdb_bilstm.tar.xz (both files share one embedding table) into
+    band_tpu_torch/_build/data once; their paths by name."""
+    import tarfile
+
+    dest = os.path.join(ROOT, "band_tpu_torch", "_build", "data")
+    os.makedirs(dest, exist_ok=True)
+    paths = {n: os.path.join(dest, f"{n}.tflite") for n in SEQ_MODELS}
+    if not all(os.path.exists(p) for p in paths.values()):
+        with tarfile.open(SEQ_ARCHIVE, "r:xz") as tar:
+            tar.extractall(dest, filter="data")
+    return paths
+
+
+def seq_order(g):
+    """A model's output positions, smallest first: the sigmoid, then the
+    first BiLSTM's sequence (the two conversions order them apart)."""
+    return sorted(range(len(g.outputs)),
+                  key=lambda k: int(np.prod(g.tensor(g.outputs[k]).shape)))
+
+
+def load_seq_goldens(graphs):
+    """tests/data/torch_seq_goldens.npz (tests/gen_torch_seq_models.py):
+    the reviews, and per IMDB model TFLite's outputs (a fresh interpreter
+    for each request) and band_tpu's, in seq_order; lstm_seq_int8's inputs
+    and TFLite outputs."""
+    z = np.load(SEQ_GOLDENS)
+    out = {"xs": z["xs"], "int8_xs": z[f"{SEQ_INT8}/xs"],
+           "int8": z[f"{SEQ_INT8}/tflite"]}
+    for name in SEQ_MODELS:
+        order = seq_order(graphs[name])
+        out[name] = {src: [z[f"{name}/{src}/{k}"] for k in order]
+                     for src in ("tflite", "band")}
+    return out
+
+
+def seq_limit(gd, k, i):
+    """The float gate's bound on output k of golden request i: max(2 x
+    band_tpu's deviation from TFLite there, 1e-4 x max|golden|)."""
+    want = gd["tflite"][k][i].astype(np.float64)
+    band = float(np.abs(gd["band"][k][i] - want).max())
+    return want, max(2.0 * band, 1e-4 * float(np.abs(want).max()))
+
+
+def seq_gate(outs, gd, i):
+    """(ok, worst deviation over its bound, message) of one request's
+    outputs (seq_order) under the float gate against golden request i:
+    each within seq_limit, and the sigmoid's decision (> 0.5) TFLite's."""
+    worst, msgs = 0.0, []
+    for k, o in enumerate(outs):
+        want, limit = seq_limit(gd, k, i)
+        o = np.asarray(o, np.float64).reshape(want.shape)
+        d = float(np.abs(o - want).max())
+        worst = max(worst, d / limit)
+        if d > limit:
+            msgs.append(f"output {k} deviates {d:.3e} > {limit:.3e}")
+        if k == 0 and not np.array_equal(o > 0.5, want > 0.5):
+            msgs.append(f"decision {o.ravel()} against TFLite's "
+                        f"{want.ravel()}")
+    return not msgs, worst, "; ".join(msgs)
+
+
+def seq_calls(torch, dev, graphs, sg, plain, worst):
+    """Every kernel call of lstm_seq_int8 (its int8 Dense head on B1 or
+    B4, the softmax) at b1 and in a b8 window, exact and fast, held
+    byte-equal to plain, and the outputs within 1 LSB of TFLite's."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import lowerings as L
+
+    g = graphs[SEQ_INT8]
+    for kind in ("exact", "fast"):
+        exact = kind == "exact"
+        prog = build_program(g, range(len(g.ops)), exact=exact, device=dev)
+        params = params_from_jax(prog.params, dev)
+        fn = prog.make_fn()
+        for b in (1, MAX_BATCH):
+            x = torch.from_numpy(np.concatenate(list(sg["int8_xs"][:b]))).to(
+                dev)
+            calls = capture_calls(L, fn, params, [x])
+            torch.cuda.synchronize()
+            for kname, args, kw, out in calls:
+                want = plain[kname](*args, **kw)
+                torch.cuda.synchronize()
+                held(torch, worst, kname, args, kw, out, want,
+                     f"{SEQ_INT8} {kind} b{b} {tuple(args[0].shape)}")
+            (out,) = fn(params, [x])
+            d = np.abs(out.cpu().numpy().astype(np.int32) - np.concatenate(
+                list(sg["int8"][:b])).astype(np.int32)).max()
+            check(d <= 1, f"kernels: {SEQ_INT8} {kind} b{b}: {d} LSB from "
+                  "TFLite")
+            used = collections.Counter(n for n, *_ in calls)
+            log(f"kernels: {SEQ_INT8} {kind} b{b}: {len(calls)} calls "
+                f"{dict(used)} byte-equal to plain (tolerance 0); the "
+                f"outputs within {d} LSB of TFLite's")
+
+
+def seq_profile(torch, dev, graphs, sg, name, smi):
+    """A b1 request of ``name`` through the executor: wall time, device
+    time and launches (torch.profiler), host syncs (aten::
+    _local_scalar_dense: a value read on the host), busy share, and the
+    share of the device time spent in the recurrences (the lowerings'
+    LSTM_STEPS and WHILE_ITERATIONS ranges)."""
+    from band_tpu_torch.backend.executor import ModelExecutor
+    from band_tpu_torch.ops import lowerings as L
+
+    g = graphs[name]
+    ex = ModelExecutor(-5, g, 0, dev)
+    key = ex.prepare_subgraph(range(len(g.ops)), [0])
+    x = sg["xs"][0]
+    reps = 5
+    for _ in range(2):
+        ex.execute(key, [x])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ex.execute(key, [x])
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            ex.execute(key, [x])
+            torch.cuda.synchronize()
+    # the ranges also appear on the device's timeline as annotations that
+    # span their kernels: they mark which kernels are the recurrence's,
+    # and are not kernels themselves
+    ranges = (L.LSTM_STEPS, L.WHILE_ITERATIONS)
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in evs
+             if e.device_type == cuda and e.name in ranges]
+    kernels = [e for e in evs if e.device_type == cuda
+               and e.name not in ranges]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    loop_ms = sum(e.time_range.elapsed_us() for e in kernels if any(
+        a <= e.time_range.start < b for a, b in spans)) / 1e3 / reps
+    launches = len(kernels)
+    syncs = sum(1 for e in evs if e.name == "aten::_local_scalar_dense")
+    measured = device_ms > 0
+    out = {
+        "model": name, "batch": 1, "executor_wall_ms": wall_ms,
+        "device_kernel_ms": device_ms if measured else "not measured",
+        "device_busy_share": (device_ms / wall_ms if measured
+                              else "not measured"),
+        "launches": launches // reps, "host_syncs": syncs // reps,
+        "recurrence_device_share": (loop_ms / device_ms if measured
+                                    and loop_ms > 0 else "not measured"),
+    }
+    log(f"seq_profile: {json.dumps(out)} ({smi})")
+    return out
+
+
+def seq_codispatch(bt, sg, graphs, smi):
+    """A co_dispatch worker (max_batch 8, co_dispatch 2) serving the WHILE
+    and the fused IMDB model interleaved: warm_co_dispatch refuses the
+    mix (the WHILE program is not capturable), no combined program is
+    built, the worker counts the windows it served unfused, and every
+    output is within the gate."""
+    eng = bt.Engine.create(
+        bt.RuntimeConfigBuilder()
+        .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+        .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU, device_ids=(0,),
+                                  max_batch=MAX_BATCH, co_dispatch=2,
+                                  dispatch_depth=4))
+        .build())
+    try:
+        eng.co_warm_miss_threshold = 1
+        mids = [eng.register_model(bt.Model.from_path(sg["paths"][n]))
+                for n in SEQ_MODELS]
+        check(eng.wait_buckets_ready(timeout=900),
+              "seq: co-dispatch bucket warm-up timed out")
+        check(not eng.warm_co_dispatch(mids, batch=2, timeout=60),
+              "seq: a co-dispatch mix holding a WHILE model was captured")
+        w = eng.workers[0]
+        w.pause()
+        jobs = []
+        for r in range(2):
+            for name, mid in zip(SEQ_MODELS, mids):
+                idx = [(2 * r + j) % len(sg["xs"]) for j in range(2)]
+                ids = eng.request_async_batch(
+                    [mid] * 2, [[sg["xs"][i]] for i in idx])
+                jobs += [(j, name, i) for j, i in zip(ids, idx)]
+        w.resume()
+        for j, name, i in jobs:
+            order = seq_order(graphs[name])
+            o = eng.wait(j)
+            ok, _, msg = seq_gate([o[p] for p in order], sg[name], i)
+            check(ok, f"seq: co-dispatch {name} golden {i}: {msg}")
+        check(w.uncapturable_windows > 0,
+              "seq: the worker counted no window served unfused")
+        check(eng.co_dispatch_count == 0 and not eng._combo_fns,
+              "seq: a combined program was built or served")
+        log(f"seq: co_dispatch 2 worker with {' + '.join(SEQ_MODELS)}: "
+            f"warm_co_dispatch refused, no combined program, "
+            f"{w.uncapturable_windows} windows served unfused, "
+            f"{len(jobs)} outputs within the gate ({smi})")
+        return w.uncapturable_windows
+    finally:
+        eng.shutdown()
+
+
+def seq_phase(torch, dev, bt, K, graphs, sg, smi):
+    """The full-width IMDB classifier, fused and as WHILE loops, and
+    lstm_seq_int8 exact and fast, on one GPU worker (fixed_worker,
+    max_batch 8) through the public API.  Each IMDB model: the golden
+    reviews at b1 (request_sync, timed) and a burst of SEQ_BURST
+    request_async, every output under the float gate (seq_gate); the two
+    conversions within the gate of each other on every golden review; on
+    the engine's executor the 8 golden reviews as one b8 window, in order
+    and reversed, under the gate and within its bound of the same review
+    alone.  lstm_seq_int8: the golden inputs at b1 and as a burst, exact
+    and fast, within 1 LSB of TFLite.  Launch counts zeroed just before
+    and read just after: B1, B4 and lut_softmax must launch (the int8
+    model's head), no other kernel.  Then the capture check
+    (seq_codispatch) and a b1 request's profile of each IMDB model."""
+    K.reset_launches()
+    eng = _engine(bt, bt.DeviceFlag.GPU, "exact")
+    xs, n = sg["xs"], len(sg["xs"])
+    rates, worst, solo = {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        mids = {name: eng.register_model(bt.Model.from_path(
+            sg["paths"][name])) for name in SEQ_MODELS}
+        i8 = os.path.join(DATA, f"{SEQ_INT8}.tflite")
+        mids["exact"] = eng.register_model(bt.Model.from_path(i8))
+        mids["fast"] = eng.register_model(bt.Model.from_path(i8),
+                                          numerics="fast")
+        check(eng.wait_buckets_ready(timeout=900),
+              "seq: bucket warm-up timed out")
+        log(f"seq: {', '.join(SEQ_MODELS)} and {SEQ_INT8} (exact, fast) "
+            f"registered, buckets 2..{MAX_BATCH} warm in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for name in SEQ_MODELS:
+            mid, order = mids[name], seq_order(graphs[name])
+            ex = eng.model_record(mid).executors[0]
+            t0 = time.perf_counter()
+            outs = [eng.request_sync(mid, [xs[i]]) for i in range(n)]
+            b1 = n / (time.perf_counter() - t0)
+            before = dict(ex.windows)
+            t0 = time.perf_counter()
+            ids = [eng.request_async(mid, [xs[i % n]])
+                   for i in range(SEQ_BURST)]
+            burst_outs = [eng.wait(j) for j in ids]
+            burst = SEQ_BURST / (time.perf_counter() - t0)
+            w = 0.0
+            for i, o in enumerate(outs + burst_outs):
+                ok, ratio, msg = seq_gate([o[p] for p in order], sg[name],
+                                          i % n)
+                check(ok, f"seq: {name} request {i} (golden {i % n}): {msg}")
+                w = max(w, ratio)
+            windows = {b: c - before.get(b, 0) for b, c in ex.windows.items()
+                       if c - before.get(b, 0)}
+            check(max(windows) > 1, f"seq: {name}: the burst ran no batch "
+                  "window")
+            solo[name] = [[np.asarray(o[p]) for p in order] for o in outs]
+            rates[name] = dict(b1_req_s=b1, burst_req_s=burst,
+                               burst_windows=dict(sorted(windows.items())))
+            log(f"seq: {name}: {n} sync and {SEQ_BURST} burst outputs "
+                f"within the gate (worst {w:.3f} of its bound; decisions "
+                f"TFLite's); b1 {b1:.3f} req/s, burst {burst:.3f} req/s, "
+                f"windows {dict(sorted(windows.items()))} ({smi})")
+            worst[name] = w
+        a, b = (solo[m] for m in SEQ_MODELS)
+        cross = 0.0
+        for i in range(n):
+            for k in range(len(a[i])):
+                want, limit = seq_limit(sg[SEQ_MODELS[0]], k, i)
+                d = float(np.abs(a[i][k].astype(np.float64).reshape(
+                    want.shape) - b[i][k].reshape(want.shape)).max())
+                check(d <= limit, f"seq: the conversions differ by {d} on "
+                      f"golden {i} output {k} (bound {limit})")
+                cross = max(cross, d / limit)
+        worst["fused_vs_while"] = cross
+        log(f"seq: fused and WHILE conversions agree on every golden review "
+            f"(worst {cross:.3f} of the gate's bound)")
+        for name in SEQ_MODELS:
+            ex = eng.model_record(mids[name]).executors[0]
+            key = ex.largest_subgraph_key()
+            pos = [ex.output_ids(key).index(graphs[name].outputs[p])
+                   for p in seq_order(graphs[name])]
+            for order in (list(range(n)), list(reversed(range(n)))):
+                outs = ex.execute_batched(key, [[xs[i]] for i in order])
+                for i, o in zip(order, outs):
+                    got = [o[p].cpu().numpy() for p in pos]
+                    ok, _, msg = seq_gate(got, sg[name], i)
+                    check(ok, f"seq: {name} b{n} window {order} golden {i}: "
+                          f"{msg}")
+                    for k, (g_, s_) in enumerate(zip(got, solo[name][i])):
+                        _, limit = seq_limit(sg[name], k, i)
+                        d = float(np.abs(g_.astype(np.float64).reshape(
+                            s_.shape) - s_).max())
+                        check(d <= limit, f"seq: {name} golden {i} in a "
+                              f"window moved {d} from alone (bound {limit})")
+            log(f"seq: {name}: the {n} golden reviews as one b{n} window, "
+                "and reversed, under the gate and within its bound of each "
+                "review alone")
+        for kind in ("exact", "fast"):
+            mid = mids[kind]
+            outs = [eng.request_sync(mid, [sg["int8_xs"][i]])
+                    for i in range(n)]
+            ids = [eng.request_async(mid, [sg["int8_xs"][i]])
+                   for i in range(n)]
+            outs += [eng.wait(j) for j in ids]
+            d = max(int(np.abs(np.asarray(o[0]).astype(np.int32)
+                               - sg["int8"][i % n].astype(np.int32)).max())
+                    for i, o in enumerate(outs))
+            check(d <= 1, f"seq: {SEQ_INT8} {kind}: {d} LSB from TFLite")
+            log(f"seq: {SEQ_INT8} {kind}: {n} sync and {n} burst outputs "
+                f"within {d} LSB of TFLite's")
+    finally:
+        eng.shutdown()
+    counts = K.launch_counts()
+    for name in K.LAUNCHES:
+        check((counts[name] > 0) == (name in SEQ_RAN),
+              f"seq: kernel {name} launched {counts[name]} times")
+    log(f"seq: launches {json.dumps(counts)}")
+    unfused = seq_codispatch(bt, sg, graphs, smi)
+    profiles = {name: seq_profile(torch, dev, graphs, sg, name, smi)
+                for name in SEQ_MODELS}
+    return counts, rates, profiles, worst, unfused
+
+
+# --------------------------------------------------------------------------
 # hetero phase
 # --------------------------------------------------------------------------
 
@@ -3442,7 +3804,9 @@ def main():
 
     graphs = {n: parse_tflite_file(os.path.join(DATA, f"{n}.tflite"))
               for n in FAST_MODELS + SSD_MODELS + DECODER_MODELS
-              + (SR_MODEL,) + FLOAT_MODELS + (DETECT_MODEL,)}
+              + (SR_MODEL,) + FLOAT_MODELS + (DETECT_MODEL, SEQ_INT8)}
+    seq_files = seq_paths()
+    graphs.update({n: parse_tflite_file(p) for n, p in seq_files.items()})
     goldens = load_goldens(graphs)
     fast_goldens = load_fast_goldens(graphs)
     hetero_goldens = load_hetero_goldens()
@@ -3450,9 +3814,11 @@ def main():
     ops_goldens = load_ops_goldens(graphs)
     float_goldens = load_float_goldens(graphs)
     detect_goldens = load_detect_goldens(graphs)
+    seq_goldens = load_seq_goldens(graphs)
+    seq_goldens["paths"] = seq_files
     worst, stats, sr_calls, detect_b1 = kernel_phase(
         torch, dev, graphs, goldens, hetero_goldens, ops_goldens,
-        detect_goldens)
+        detect_goldens, seq_goldens)
     hybrid_stats = hybrid_kernel_lines(torch, dev, graphs, float_goldens,
                                        smi)
     conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
@@ -3469,6 +3835,8 @@ def main():
         torch, dev, bt, K, graphs, float_goldens, smi)
     detect_counts, detect_rates, detect_profiles = detect_phase(
         torch, dev, bt, K, graphs, detect_goldens, smi)
+    seq_counts, seq_rates, seq_profiles, seq_worst, seq_unfused = seq_phase(
+        torch, dev, bt, K, graphs, seq_goldens, smi)
     smallest = detect_kernel_lines(torch, detect_b1, smi)
     decode = detect_decode_lines(torch, dev, graphs, detect_goldens, smi,
                                  smallest)
@@ -3492,6 +3860,10 @@ def main():
                                  "numerics": detect_rates,
                                  "b1_request": detect_profiles,
                                  "decode": decode}))
+    log("seq: " + json.dumps({"card": smi, "models": seq_rates,
+                              "worst_of_bound": seq_worst,
+                              "b1_request": seq_profiles,
+                              "codispatch_unfused_windows": seq_unfused}))
     line = []
     for name, meta in KERNELS.items():
         s = stats[name]
@@ -3513,6 +3885,8 @@ def main():
             "sr_launches": sr_counts[name],
             # the detect phase's CenterNet requests, exact and fast
             "detect_launches": detect_counts[name],
+            # the seq phase's requests (lstm_seq_int8's head and softmax)
+            "seq_launches": seq_counts[name],
         })
     for name, meta in MMA_KERNELS.items():
         s = mma_stats[name]
@@ -3530,6 +3904,7 @@ def main():
             "codispatch_launches": co_counts[name],
             "sr_launches": sr_counts[name],
             "detect_launches": detect_counts[name],
+            "seq_launches": seq_counts[name],
         })
     for name, meta in HYBRID_KERNELS.items():
         s = hybrid_stats
@@ -3543,6 +3918,7 @@ def main():
             "bound_by": "bytes" if s["bytes_s"] >= s["ops_s"] else "operations",
             "library_ms": s["library_ms"], "library": s["library"],
             "mobilenet_v2_dynrange_b1_launches": s["launches_b1"],
+            "seq_launches": seq_counts[name],
         })
     log(json.dumps({"kernels": line}))
     log(f"card: {smi}")

@@ -481,11 +481,29 @@ def test_hybrid_request_is_isolated_from_its_neighbour(name, neighbour):
 # --------------------------------------------------------------------------
 
 def test_runtime_fc_weights_are_refused():
-    g = copy.deepcopy(tparse(_path("float_toy")))
+    """Runtime int8 weights (a control-flow subgraph's input) are refused:
+    no model makes them, and B1 needs prepared weights.  Runtime float
+    weights run (tests/test_torch_control_flow.py holds them in loop
+    bodies): here the same as the constant weights, exactly."""
+    g8 = copy.deepcopy(tparse(_path("fc_int8")))
+    op = next(op for op in g8.ops if op.opname == "FULLY_CONNECTED")
+    g8.tensor(op.inputs[1]).data = None
+    with pytest.raises(LoweringError, match="runtime int8 weights"):
+        tbuild(g8, [op.index])
+    g = tparse(_path("float_toy"))
     op = next(op for op in g.ops if op.opname == "FULLY_CONNECTED")
-    g.tensor(op.inputs[1]).data = None  # a control-flow subgraph's input
-    with pytest.raises(LoweringError, match="runtime weights"):
-        tbuild(g, [op.index])
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        g.tensor(op.inputs[0]).shape).astype(np.float32))
+    prog = tbuild(g, [op.index])
+    (want,) = prog.make_fn()(params_from_jax(prog.params), [x])
+    gr = copy.deepcopy(g)
+    w = gr.tensor(op.inputs[1])
+    w_data, w.data = w.data, None
+    rprog = tbuild(gr, [op.index])
+    feeds = {op.inputs[0]: x, op.inputs[1]: torch.from_numpy(w_data)}
+    (got,) = rprog.make_fn()(params_from_jax(rprog.params),
+                             [feeds[t] for t in rprog.input_ids])
+    assert torch.equal(got, want)
 
 
 @pytest.fixture

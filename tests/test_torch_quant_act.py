@@ -290,9 +290,11 @@ def test_requantizing_quantize_matches_band_tpu(in_dtype, out_dtype):
 
 
 def test_float_variants_are_refused():
-    """Float LOGISTIC, TANH and DEQUANTIZE are not ported: prepare raises.
-    The float MUL and SUB are (band_tpu's float32 product and
-    difference, tests/test_torch_float.py holds them op by op)."""
+    """A float DEQUANTIZE is not ported: prepare raises.  The float MUL
+    and SUB are (band_tpu's float32 product and difference,
+    tests/test_torch_float.py holds them op by op), and so are the float
+    LOGISTIC and TANH (the Keras LSTMs' gates, band_tpu's jax.nn.sigmoid
+    and jnp.tanh: within 1 ulp of them here)."""
     def g(opname, n_in):
         tensors = [TG.TensorDef(i, f"t{i}", (1, 4), TS.TensorType.FLOAT32)
                    for i in range(n_in + 1)]
@@ -301,9 +303,17 @@ def test_float_variants_are_refused():
                                                  {"activation": "NONE"})],
                         list(range(n_in)), [n_in])
 
-    for opname, n_in in (("LOGISTIC", 1), ("TANH", 1), ("DEQUANTIZE", 1)):
-        with pytest.raises(LoweringError):
-            tbuild(g(opname, n_in), [0])
+    with pytest.raises(LoweringError):
+        tbuild(g("DEQUANTIZE", 1), [0])
+    x = np.array([[-9.0, -0.5, 0.0, 3.0]], np.float32)
+    for opname, fn in (("LOGISTIC", jax.nn.sigmoid), ("TANH", jnp.tanh)):
+        prog = tbuild(g(opname, 1), [0])
+        ctx = LowerCtx(prog.graph, {}, prog.meta)
+        ctx.set(0, _t(x))
+        get_lowering(opname).trace(ctx, prog.graph.ops[0])
+        np.testing.assert_allclose(ctx.arr(1).numpy(),
+                                   np.asarray(fn(jnp.array(x))),
+                                   rtol=1.2e-7, atol=0)
     a = np.array([[-2.0, -0.5, 0.0, 3.0]], np.float32)
     b = np.array([[1.5, -4.0, 2.0, 0.25]], np.float32)
     for opname, want in (("MUL", a * b), ("SUB", a - b)):
