@@ -10,9 +10,15 @@ satisfaction per model, a total, and the runtime's health
 ``StagedInput`` on every worker's ``torch.device``; a relative graph
 path resolves against the working directory.
 
-Not ported (ConfigError): image-fed models (``"image"``, ROADMAP A13:
-the data plane) and multi-process serving (a ``distributed`` block,
-ROADMAP A15).
+Image-fed models (``"image": <file>`` on a model) decode the file once
+(PIL, imported only for such a model) and run the host preprocessing
+pipeline on every request (``ImageProcessorBuilder().add_auto_convert``
+to the model's first input, native C++ kernels), so the measured rate
+includes the data plane, as band_tpu's tool does
+(band_tpu/tools/benchmark.py:165-179, 211-219).
+
+Not ported (ConfigError): multi-process serving (a ``distributed``
+block, ROADMAP A15).
 
 Usage: python -m band_tpu_torch.tools.benchmark <config.json>
 """
@@ -28,6 +34,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..buffer.buffer import Buffer
+from ..buffer.processor import ImageProcessorBuilder
 from ..common import JobStatus, RequestOption
 from ..config import RuntimeConfig, config_from_dict
 from ..errors import ConfigError
@@ -47,16 +55,16 @@ class ModelLoadConfig:
     slo_us: int = -1
     slo_scale: float = -1.0
     worker_id: int = -1
+    # image-fed mode: path to an image file; every request then runs
+    # the host preprocessing pipeline (decode happened once; convert and
+    # resize per request) so the measured rate includes the data plane
+    image: str = ""
     # per-model numerics override ("exact" | "fast" | "" = engine
     # default)
     numerics: str = ""
 
     @staticmethod
     def from_dict(d: dict) -> "ModelLoadConfig":
-        if d.get("image"):
-            raise ConfigError(
-                "image-fed benchmark models are not ported to PyTorch yet "
-                "(ROADMAP A13: the data plane, buffer/)")
         return ModelLoadConfig(
             path=d.get("graph") or d.get("path"),
             batch_size=int(d.get("batch_size", 1)),
@@ -64,6 +72,7 @@ class ModelLoadConfig:
             slo_us=int(d.get("slo_us", -1)),
             slo_scale=float(d.get("slo_scale", -1.0)),
             worker_id=int(d.get("worker_id", -1)),
+            image=str(d.get("image", "")),
             numerics=str(d.get("numerics", "")),
         )
 
@@ -129,6 +138,8 @@ class Benchmark:
         self.model_ids: List[int] = []
         self.options: List[RequestOption] = []
         self.inputs: List[List] = []
+        # per model: None, or (decoded image, preprocessing pipeline)
+        self.preprocs: List = []
         self.stats: Dict[int, _ModelStats] = {}
         rng = np.random.default_rng(0)
 
@@ -163,6 +174,20 @@ class Benchmark:
                 ins.append(staged)
             self.inputs.append(ins)
             self.stats[mid] = _ModelStats()
+            pre = None
+            if mc.image:
+                from PIL import Image
+
+                td0 = g.tensor(g.inputs[0])
+                src = np.asarray(Image.open(mc.image).convert("RGB"))
+                proc = (
+                    ImageProcessorBuilder()
+                    .add_auto_convert([max(s, 1) for s in td0.shape],
+                                      td0.dtype)
+                    .build()
+                )
+                pre = (src, proc)
+            self.preprocs.append(pre)
 
         # pre-build the combined programs of workers configured with
         # co_dispatch > 1: recurring mixes then fuse from the first
@@ -196,6 +221,15 @@ class Benchmark:
                         "windows run unfused",
                         [m for m, _ in entries], batches, wid,
                     )
+
+    def _request_inputs(self, idx: int):
+        """Per-request inputs: the static staged tensors, or (image-fed
+        mode) a fresh run of the preprocessing pipeline."""
+        pre = self.preprocs[idx]
+        if pre is None:
+            return self.inputs[idx]
+        src, proc = pre
+        return [proc.to_tensor(Buffer.from_numpy(src))]
 
     # ------------------------------------------------------------------
     def run(self) -> Dict:
@@ -237,7 +271,7 @@ class Benchmark:
                 t0 = time.perf_counter()
                 ids = self.engine.request_async_batch(
                     [mid] * mc.batch_size,
-                    [self.inputs[idx]] * mc.batch_size,
+                    [self._request_inputs(idx)] * mc.batch_size,
                     [self.options[idx]] * mc.batch_size,
                 )
                 self._record(mid, ids)
@@ -266,7 +300,7 @@ class Benchmark:
                 mc = self.config.models[idx]
                 ids = self.engine.request_async_batch(
                     [mid] * mc.batch_size,
-                    [self.inputs[idx]] * mc.batch_size,
+                    [self._request_inputs(idx)] * mc.batch_size,
                     [self.options[idx]] * mc.batch_size,
                 )
                 batch_ids.append(ids)
@@ -289,7 +323,7 @@ class Benchmark:
             mid = self.model_ids[idx]
             batch = int(entry.get("batch", 1))
             ids = self.engine.request_async_batch(
-                [mid] * batch, [self.inputs[idx]] * batch,
+                [mid] * batch, [self._request_inputs(idx)] * batch,
                 [self.options[idx]] * batch,
             )
             pending.append((mid, ids))

@@ -257,8 +257,42 @@ Phases:
              recurrences' share of the device time.  In the kernel phase
              every kernel call of lstm_seq_int8 at b1 and b8, exact and
              fast, is held byte-equal to plain.
+17. frontend (run after benchmark) the full-width MobileNetV2 fed from
+             camera frames (tests/data/torch_frontend_goldens.npz: eight
+             1920x1080 frames from band_tpu_torch/buffer/synthetic.py,
+             four RGB and four NV12, each regenerated here and checked
+             against its sha256; band_tpu's AutoConvert tensor of each;
+             TFLite's output on that tensor).  Gates, tolerance 0 unless
+             stated: (1) the port's data plane on this host, native
+             kernels and numpy paths, each frame within 1 code of the
+             golden tensor (bytes compared mod 256: the int8 cast wraps),
+             the share of differing bytes printed; (2) the golden tensors
+             through Engine.request_sync, a burst of 8 request_async, HTTP
+             POST /request (sync, and async + POST /wait), the router over
+             two EngineServers (each its own engine and GPU worker on card
+             0) under round_robin and least_loaded (both backends served,
+             by their /stats), and the C ABI (example/main.c's
+             BandEngineRequestSync, a subprocess): outputs byte-equal to
+             TFLite's; (3) the card-processed tensors through the same
+             routes, and raw frames through example/buffer_main.c's
+             BandImageProcessorProcess (tensors equal to this process's
+             pipeline): outputs equal to the engine's on the same tensor;
+             (4) HTTP hot swap: DELETE /models/<id>, POST /models again,
+             served right, /models and /stats list what is registered;
+             (5) every kernel call of a b1 frame request byte-equal to
+             plain (B1, B2's direct branch for the stem, B3, the softmax).
+             Launch counts zeroed just before the engine and read after
+             the router (the C programs launch in their own processes):
+             B1, B2, B3 and lut_softmax must launch, no other kernel.
+             Printed beside the card's name and power limit: b1 req/s
+             over 32 timed requests through the engine, HTTP, the router
+             (each policy) and the C ABI; host ms per 1080p frame of each
+             format to int8 224x224; frame -> answer ms (engine and
+             buffer_main.c); preprocess_bench's MB/s per operator (the
+             host CPU's).
 Then it prints the kernels line (each kernel's launches in the engine
-phase of its numerics, in the sr, codispatch and detect phases; B2's
+phase of its numerics, in the sr, codispatch, detect, seq and frontend
+phases; B2's
 general branch, the mma kernel of csrc/qconv_mma.cuh, in two entries of
 its own, exact and fast, with its launches and a b1 FSRCNN request's
 times from the sr phase; qmatmul_hybrid with its launches in the float
@@ -270,6 +304,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -396,6 +431,16 @@ SEQ_MODELS = ("imdb_bilstm", "imdb_bilstm_while")
 SEQ_INT8 = "lstm_seq_int8"
 SEQ_BURST = 16
 SEQ_RAN = ("qmatmul_exact", "qmatmul_fast", "lut_softmax")
+# frontend: the full-width MobileNetV2 fed camera frames through the data
+# plane, the engine, the HTTP server, the router and the C ABI
+# (tests/gen_torch_frontend_goldens.py)
+FRONTEND_GOLDENS = os.path.join(DATA, "torch_frontend_goldens.npz")
+FRONTEND_PATH = os.path.join(DATA, f"{FULL_WIDTH}.tflite")
+FRAME_W, FRAME_H = 1920, 1080
+FRONTEND_TIMED = 32
+FRONTEND_HOST_REPS = 10
+FRONTEND_RAN = ("qmatmul_exact", "qconv2d_exact", "qdwconv2d_exact",
+                "lut_softmax")
 MMA_KERNELS = {
     "qconv2d_exact_mma": dict(
         wrapper="qconv2d_exact",
@@ -3763,6 +3808,438 @@ def benchmark_phase(smi):
     return reports
 
 
+# --------------------------------------------------------------------------
+# frontend phase: camera frames through the data plane, the engine, the
+# HTTP server, the router and the C ABI
+# --------------------------------------------------------------------------
+
+def load_frontend_goldens():
+    """tests/gen_torch_frontend_goldens.py's file: frame seeds and
+    formats, each frame's digest, band_tpu's AutoConvert tensor of it and
+    TFLite's output on that tensor."""
+    z = np.load(FRONTEND_GOLDENS)
+    return {k: z[k] for k in ("seeds", "formats", "frame_sha", "tensors",
+                              "outputs")}
+
+
+def frontend_frames(fg):
+    """The golden frames, regenerated on this host and checked against
+    their digests: [(format, Buffer)]."""
+    from band_tpu_torch.buffer.buffer import BufferFormat
+    from band_tpu_torch.buffer.synthetic import camera_frame, frame_digest
+
+    fmts = {"rgb": BufferFormat.RGB, "nv12": BufferFormat.NV12}
+    frames = []
+    for seed, fmt, sha in zip(fg["seeds"], fg["formats"], fg["frame_sha"]):
+        buf = camera_frame(int(seed), FRAME_W, FRAME_H, fmts[str(fmt)])
+        check(frame_digest(buf) == str(sha),
+              f"frontend: frame {seed} regenerates to other bytes here")
+        frames.append((str(fmt), buf))
+    return frames
+
+
+def code_distance(a, b):
+    """Largest distance between two int8 tensors' bytes, mod 256: the
+    data-type convert wraps uint8 codes into int8 (ROADMAP Watch), so a
+    resize's 127 against 128 shows as 127 against -128."""
+    d = (a.view(np.uint8).astype(np.int16) - b.view(np.uint8)) % 256
+    return int(np.minimum(d, 256 - d).max())
+
+
+def frontend_dataplane(fg, frames, smi):
+    """Gate 1: every frame through the port's AutoConvert pipeline, the
+    native kernels and the numpy paths, within 1 code of band_tpu's
+    golden tensor (the share of differing bytes printed); host ms per
+    1080p frame of each format; preprocess_bench's table.  Returns the
+    native tensors (the card-processed tensors of the later gates) and
+    the host ms per frame by format."""
+    from band_tpu_torch.buffer.processor import ImageProcessorBuilder
+    from band_tpu_torch.tools import preprocess_bench
+
+    shape = tuple(int(s) for s in fg["tensors"].shape[1:])
+    proc = ImageProcessorBuilder().add_auto_convert(shape, np.int8).build()
+    tensors, shares = [], {"native": [], "numpy": []}
+    for i, (fmt, buf) in enumerate(frames):
+        for path in ("native", "numpy"):
+            t = proc.to_tensor(buf, native=path == "native")
+            check(t.shape == shape and t.dtype == np.int8,
+                  f"frontend: frame {i} {path}: {t.dtype}{t.shape}")
+            d = code_distance(t, fg["tensors"][i])
+            check(d <= 1, f"frontend: frame {i} ({fmt}) {path} path {d} "
+                  "codes from band_tpu's tensor")
+            shares[path].append(float((t != fg["tensors"][i]).mean()))
+            if path == "native":
+                tensors.append(t)
+    log("frontend_dataplane: " + json.dumps({
+        "frames": len(frames), "max_codes_from_golden": 1,
+        "differing_share": shares}) + " (host CPU)")
+    host_ms = {}
+    for fmt in ("rgb", "nv12"):
+        buf = next(b for f, b in frames if f == fmt)
+        proc.to_tensor(buf)
+        t0 = time.perf_counter()
+        for _ in range(FRONTEND_HOST_REPS):
+            proc.to_tensor(buf)
+        host_ms[fmt] = 1e3 * (time.perf_counter() - t0) / FRONTEND_HOST_REPS
+    log("frontend_host_ms_per_frame: " + json.dumps(host_ms)
+        + f" (1080p -> int8 224x224, one host core; {smi})")
+    table = {r["op"]: r["mb_s"] for r in preprocess_bench.run_all(0.2)}
+    log("frontend_preprocess_bench: " + json.dumps(table)
+        + " (MB/s of input, the host CPU's, not the card's)")
+    return tensors, host_ms
+
+
+def _http(url, method="GET", body=None, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _frontend_config(bt):
+    return (bt.RuntimeConfigBuilder()
+            .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+            .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                      device_ids=(0,), max_batch=MAX_BATCH))
+            .build())
+
+
+def _served(send, xs, want, what):
+    """Serve each of xs through ``send`` (tensor -> output array) and
+    hold it byte-equal to want."""
+    for i, x in enumerate(xs):
+        got = send(x)
+        check(got.dtype == want[i].dtype and np.array_equal(got, want[i]),
+              f"frontend: {what} request {i} differs")
+
+
+def _rate(send, x):
+    """b1 closed loop: FRONTEND_TIMED sends back to back after two."""
+    send(x)
+    send(x)
+    t0 = time.perf_counter()
+    for _ in range(FRONTEND_TIMED):
+        send(x)
+    return FRONTEND_TIMED / (time.perf_counter() - t0)
+
+
+def frontend_http(bt, fg, card, card_ref, smi):
+    """HTTP POST /request (sync, and async + POST /wait) on the golden
+    and the card-processed tensors, the b1 rate, and the hot swap."""
+    from band_tpu_torch.tools.server import decode_tensor, encode_tensor, serve
+
+    es, httpd = serve(_frontend_config(bt), port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, reg = _http(f"{url}/models", "POST", {"path": FRONTEND_PATH})
+        check(code == 200, f"frontend: HTTP register: {code} {reg}")
+        mid = reg["model_id"]
+
+        def send(x):
+            code, out = _http(f"{url}/request", "POST", {
+                "model_id": mid, "inputs": [encode_tensor(x)]})
+            check(code == 200, f"frontend: HTTP request: {code} {out}")
+            return decode_tensor(out["outputs"][0])
+
+        _served(send, fg["tensors"], fg["outputs"], "HTTP sync golden")
+        jobs = []
+        for x in fg["tensors"]:
+            code, out = _http(f"{url}/request", "POST", {
+                "model_id": mid, "inputs": [encode_tensor(x)],
+                "sync": False})
+            check(code == 200, f"frontend: HTTP async: {code} {out}")
+            jobs.append(out["job_id"])
+        for i, jid in enumerate(jobs):
+            code, out = _http(f"{url}/wait", "POST", {"job_id": jid})
+            check(code == 200 and np.array_equal(
+                decode_tensor(out["outputs"][0]), fg["outputs"][i]),
+                f"frontend: HTTP async + wait request {i}")
+        _served(send, card, card_ref, "HTTP card-processed")
+        rate = _rate(send, fg["tensors"][0])
+        # hot swap: unregister, register again, still right
+        code, out = _http(f"{url}/models/{mid}", "DELETE")
+        check(code == 200 and out["unregistered"] == mid,
+              f"frontend: HTTP unregister: {code} {out}")
+        code, out = _http(f"{url}/request", "POST", {
+            "model_id": mid, "inputs": [encode_tensor(fg["tensors"][0])]})
+        check(code == 400, f"frontend: a request after unregister: {code}")
+        code, reg = _http(f"{url}/models", "POST", {"path": FRONTEND_PATH})
+        check(code == 200 and reg["model_id"] != mid,
+              f"frontend: HTTP register again: {code} {reg}")
+        mid = reg["model_id"]
+        _served(send, fg["tensors"][:2], fg["outputs"], "HTTP hot-swapped")
+        _, models = _http(f"{url}/models")
+        _, stats = _http(f"{url}/stats")
+        check(list(models) == [str(mid)]
+              and list(stats["expected_latency_us"]) == [str(mid)]
+              and stats["execution_counts"][str(mid)] >= 2,
+              f"frontend: after the hot swap /models {list(models)}, "
+              f"/stats {stats}")
+    finally:
+        httpd.shutdown()
+        es.shutdown()
+    log(f"frontend: HTTP: {len(fg['tensors'])} sync and "
+        f"{len(fg['tensors'])} async + /wait golden outputs byte-equal to "
+        f"TFLite, {len(card)} card-processed equal to the engine's; hot "
+        f"swap served right; b1 {rate:.2f} req/s ({smi})")
+    return rate
+
+
+def frontend_router(bt, fg, card, card_ref, smi):
+    """Two EngineServers (each its own engine and GPU worker on card 0)
+    behind the router, under round_robin and least_loaded: golden and
+    card-processed tensors, each backend's own /stats showing it served,
+    and the b1 rate under each policy."""
+    from band_tpu_torch.tools.router import serve_router
+    from band_tpu_torch.tools.server import decode_tensor, encode_tensor, serve
+
+    started = []
+    rates = {}
+    try:
+        for _ in range(2):
+            es, httpd = serve(_frontend_config(bt), port=0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            started.append((es, httpd))
+        urls = [f"http://127.0.0.1:{h.server_address[1]}"
+                for _, h in started]
+        router, rhttpd = serve_router(urls, port=0, policy="round_robin")
+        threading.Thread(target=rhttpd.serve_forever, daemon=True).start()
+        started.append((None, rhttpd))
+        rurl = f"http://127.0.0.1:{rhttpd.server_address[1]}"
+        code, reg = _http(f"{rurl}/models", "POST", {"path": FRONTEND_PATH})
+        check(code == 200 and reg["replicas"] == 2,
+              f"frontend: router register: {code} {reg}")
+        name = reg["model"]
+
+        def send(x):
+            code, out = _http(f"{rurl}/request", "POST", {
+                "model": name, "inputs": [encode_tensor(x)]})
+            check(code == 200, f"frontend: router request: {code} {out}")
+            return decode_tensor(out["outputs"][0])
+
+        def served():
+            return [sum(_http(f"{u}/stats")[1]["execution_counts"].values())
+                    for u in urls]
+
+        for policy in ("round_robin", "least_loaded"):
+            router.policy = policy
+            before = served()
+            _served(send, fg["tensors"], fg["outputs"],
+                    f"router {policy} golden")
+            _served(send, card, card_ref, f"router {policy} card-processed")
+            after = served()
+            check(all(a > b for a, b in zip(after, before)),
+                  f"frontend: router {policy}: a backend took no request "
+                  f"({before} -> {after})")
+            rates[policy] = _rate(send, fg["tensors"][0])
+            log(f"frontend: router {policy}: {len(fg['tensors'])} golden "
+                f"outputs byte-equal to TFLite, {len(card)} card-processed "
+                f"equal to the engine's; backends served "
+                f"{[a - b for a, b in zip(after, before)]}; b1 "
+                f"{rates[policy]:.2f} req/s ({smi})")
+    finally:
+        for es, httpd in reversed(started):
+            httpd.shutdown()
+            if es is not None:
+                es.shutdown()
+    return rates
+
+
+def frontend_c_abi(fg, frames, card, card_ref, smi):
+    """The C ABI, driven as subprocesses on a GPU-worker config: main.c
+    serves the golden and the card-processed tensors through
+    BandEngineRequestSync (then times it), buffer_main.c turns the raw
+    frames of each format into tensors through BandImageProcessorProcess
+    and serves them (then times frame -> answer).  Their kernels launch
+    in their own processes."""
+    from band_tpu_torch.buffer.synthetic import frame_bytes
+    from band_tpu_torch.c import build as cbuild
+
+    work = os.path.join(ROOT, "band_tpu_torch", "_build", "frontend")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    exes = {n: cbuild.build_example(n, work) for n in ("main", "buffer_main")}
+    build_s = time.perf_counter() - t0
+    cfg = os.path.join(work, "gpu.json")
+    with open(cfg, "w") as f:
+        json.dump({"schedulers": ["fixed_worker"],
+                   "workers": [{"device": "gpu", "device_ids": [0],
+                                "max_batch": MAX_BATCH}]}, f)
+    env = dict(os.environ, PYTHONPATH=cbuild.python_path())
+
+    def run(*args):
+        p = subprocess.run([str(a) for a in args], env=env,
+                           capture_output=True, text=True, timeout=600)
+        check(p.returncode == 0, f"frontend: C ABI {os.path.basename(args[0])}"
+              f" exited {p.returncode}: {p.stderr[-2000:]} {p.stdout[-2000:]}")
+        return p.stdout
+
+    def number(out, key):
+        line = next(l for l in out.split() if l.startswith(key + "="))
+        return float(line.split("=")[1])
+
+    n = len(fg["tensors"])
+    inputs = os.path.join(work, "requests.bin")
+    np.concatenate([fg["tensors"], np.stack(card)]).tofile(inputs)
+    out = run(exes["main"], FRONTEND_PATH, cfg, inputs,
+              os.path.join(work, "main_out"), FRONTEND_TIMED)
+    # band_c.h BandDeviceFlag kBandGpu (1): the worker is the card's
+    check("worker0_device=1" in out and "async_equals_sync=1" in out
+          and "default_engine=1 default_workers=2" in out
+          and "C API OK" in out, f"frontend: C ABI main.c: {out}")
+    got = np.fromfile(os.path.join(work, "main_out.0"), np.int8).reshape(
+        (2 * n,) + fg["outputs"].shape[1:])
+    _served(lambda x: x, got[:n], fg["outputs"],
+            "C ABI BandEngineRequestSync golden")
+    _served(lambda x: x, got[n:], card_ref,
+            "C ABI BandEngineRequestSync card-processed")
+    c_rate = 1e3 / number(out, "c_api_ms_per_request")
+    frame_ms = {}
+    for fmt, code in (("rgb", 1), ("nv12", 6)):
+        idx = [i for i, (f, _) in enumerate(frames) if f == fmt]
+        raw = os.path.join(work, f"frames_{fmt}.bin")
+        with open(raw, "wb") as f:
+            for i in idx:
+                f.write(frame_bytes(frames[i][1]))
+        out = run(exes["buffer_main"], FRONTEND_PATH, cfg, raw, FRAME_W,
+                  FRAME_H, code, os.path.join(work, f"tensors_{fmt}.bin"),
+                  os.path.join(work, f"buffer_out_{fmt}"),
+                  FRONTEND_TIMED // 2)
+        check("BUFFER API OK" in out and out.count("ok=1") >= 6
+              and "ok=0" not in out, f"frontend: C ABI buffer_main.c: {out}")
+        ts = np.fromfile(os.path.join(work, f"tensors_{fmt}.bin"),
+                         np.int8).reshape((len(idx),) + card[0].shape)
+        _served(lambda x: x, ts, [card[i] for i in idx],
+                f"C ABI BandImageProcessorProcess {fmt} tensor")
+        outs = np.fromfile(os.path.join(work, f"buffer_out_{fmt}.0"),
+                           np.int8).reshape((len(idx),)
+                                            + fg["outputs"].shape[1:])
+        _served(lambda x: x, outs, [card_ref[i] for i in idx],
+                f"C ABI buffer_main {fmt} output")
+        frame_ms[fmt] = number(out, "c_buffer_ms_per_request")
+    log(f"frontend: C ABI (libband_tpu_torch_c.so and the examples built in "
+        f"{build_s:.1f} s): main.c {n} golden outputs byte-equal to TFLite "
+        f"and {n} card-processed equal to the engine's, b1 {c_rate:.2f} "
+        f"req/s; buffer_main.c frames -> tensors equal to the Python "
+        f"pipeline's, outputs equal to the engine's; frame -> answer ms "
+        f"{json.dumps(frame_ms)} ({smi})")
+    return c_rate, frame_ms
+
+
+def frontend_calls(torch, dev, graphs, card, worst):
+    """Gate 5: every kernel call of one b1 request of a card-processed
+    frame, byte-equal to its plain version (not counted as launches of
+    the phase)."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops import lowerings as L
+
+    plain = {"qmatmul_exact": K.qmatmul_plain,
+             "qconv2d_exact": K.qconv2d_plain,
+             "qdwconv2d_exact": K.qdwconv2d_plain,
+             "lut_softmax": K.lut_softmax_plain}
+    g = graphs[FULL_WIDTH]
+    with torch.inference_mode():
+        prog = build_program(g, range(len(g.ops)), exact=True)
+        params = params_from_jax(prog.params, dev)
+        # a copy: to_tensor's batch axis is a numpy view with stride 0
+        calls = capture_calls(L, prog.make_fn(), params,
+                              [torch.from_numpy(card[0].copy()).to(dev)])
+        torch.cuda.synchronize()
+        for name, args, kw, out in calls:
+            want = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            held(torch, worst, name, args, kw, out, want,
+                 f"frontend frame 0 {tuple(args[0].shape)}")
+    kinds = collections.Counter(n for n, *_ in calls)
+    check(set(kinds) == set(FRONTEND_RAN),
+          f"frontend: a frame request's kernels {dict(kinds)}")
+    check(b2_plan(*next(c[1:] for c in calls if c[0] == "qconv2d_exact")
+                  ).branch == "direct",
+          "frontend: the stem did not take B2's direct branch")
+    log(f"frontend: every kernel call of a b1 frame request byte-equal to "
+        f"plain (tolerance 0): {dict(kinds)}")
+
+
+def frontend_phase(torch, dev, bt, K, graphs, worst, smi):
+    """Camera frames to answers through every front end, on one GPU
+    worker.  Returns (launch counts of the phase, summary)."""
+    fg = load_frontend_goldens()
+    frames = frontend_frames(fg)
+    card, host_ms = frontend_dataplane(fg, frames, smi)
+    K.reset_launches()
+    eng = bt.Engine.create(_frontend_config(bt))
+    try:
+        t0 = time.perf_counter()
+        mid = eng.register_model(bt.Model.from_path(FRONTEND_PATH))
+        check(eng.wait_buckets_ready(timeout=600),
+              "frontend: bucket warm-up timed out")
+        log(f"frontend: {FULL_WIDTH} registered, buckets warm in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        def send(x):
+            return eng.request_sync(mid, [x])[0]
+
+        _served(send, fg["tensors"], fg["outputs"], "engine sync golden")
+        ids = [eng.request_async(mid, [x]) for x in fg["tensors"]]
+        _served(lambda j: eng.wait(j)[0], ids, fg["outputs"],
+                "engine burst golden")
+        card_ref = [send(x) for x in card]
+        engine_rate = _rate(send, fg["tensors"][0])
+        # frame -> answer in this process: the host pipeline, then the
+        # engine, back to back
+        from band_tpu_torch.buffer.processor import ImageProcessorBuilder
+
+        proc = ImageProcessorBuilder().add_auto_convert(
+            card[0].shape, np.int8).build()
+        frame_ms = {}
+        for fmt in ("rgb", "nv12"):
+            buf = next(b for f, b in frames if f == fmt)
+            t0 = time.perf_counter()
+            for _ in range(FRONTEND_TIMED // 2):
+                send(proc.to_tensor(buf))
+            frame_ms[fmt] = 1e3 * (time.perf_counter() - t0) / (
+                FRONTEND_TIMED // 2)
+    finally:
+        eng.shutdown()
+    log(f"frontend: engine: {len(fg['tensors'])} sync and a burst of "
+        f"{len(ids)} golden outputs byte-equal to TFLite; b1 "
+        f"{engine_rate:.2f} req/s; frame -> answer ms {json.dumps(frame_ms)}"
+        f" ({smi})")
+    http_rate = frontend_http(bt, fg, card, card_ref, smi)
+    router_rates = frontend_router(bt, fg, card, card_ref, smi)
+    counts = K.launch_counts()
+    for name in K.LAUNCHES:
+        check((counts[name] > 0) == (name in FRONTEND_RAN),
+              f"frontend: kernel {name} launched {counts[name]} times")
+    log(f"frontend: launches {json.dumps(counts)}")
+    c_rate, c_frame_ms = frontend_c_abi(fg, frames, card, card_ref, smi)
+    frontend_calls(torch, dev, graphs, card, worst)
+    b1 = {"engine": engine_rate, "http": http_rate,
+          "router_round_robin": router_rates["round_robin"],
+          "router_least_loaded": router_rates["least_loaded"],
+          "c_abi": c_rate}
+    ms = {k: 1e3 / v for k, v in b1.items()}
+    summary = {
+        "card": smi, "model": FULL_WIDTH, "b1_req_s": b1,
+        "ms_per_request_over_engine": {
+            k: v - ms["engine"] for k, v in ms.items() if k != "engine"},
+        "host_ms_per_frame": host_ms,
+        "frame_to_answer_ms": {"engine": frame_ms, "c_abi": c_frame_ms},
+        "preprocess_share": {
+            fmt: host_ms[fmt] / frame_ms[fmt] for fmt in frame_ms},
+    }
+    return counts, summary
+
+
 def main():
     import torch
 
@@ -3847,6 +4324,8 @@ def main():
     co_counts, _ = codispatch_phase(torch, bt, K, goldens, smi)
     monitor_phase(torch, bt, goldens, smi)
     benchmark_phase(smi)
+    fe_counts, fe_summary = frontend_phase(torch, dev, bt, K, graphs, worst,
+                                           smi)
 
     log("engine: " + json.dumps({"card": smi, "numerics": "exact",
                                  "models": rates}))
@@ -3864,6 +4343,7 @@ def main():
                               "worst_of_bound": seq_worst,
                               "b1_request": seq_profiles,
                               "codispatch_unfused_windows": seq_unfused}))
+    log("frontend: " + json.dumps(fe_summary))
     line = []
     for name, meta in KERNELS.items():
         s = stats[name]
@@ -3887,6 +4367,8 @@ def main():
             "detect_launches": detect_counts[name],
             # the seq phase's requests (lstm_seq_int8's head and softmax)
             "seq_launches": seq_counts[name],
+            # the frontend phase's requests (engine, HTTP, router)
+            "frontend_launches": fe_counts[name],
         })
     for name, meta in MMA_KERNELS.items():
         s = mma_stats[name]
@@ -3905,6 +4387,7 @@ def main():
             "sr_launches": sr_counts[name],
             "detect_launches": detect_counts[name],
             "seq_launches": seq_counts[name],
+            "frontend_launches": fe_counts[name],
         })
     for name, meta in HYBRID_KERNELS.items():
         s = hybrid_stats
@@ -3919,6 +4402,7 @@ def main():
             "library_ms": s["library_ms"], "library": s["library"],
             "mobilenet_v2_dynrange_b1_launches": s["launches_b1"],
             "seq_launches": seq_counts[name],
+            "frontend_launches": fe_counts[name],
         })
     log(json.dumps({"kernels": line}))
     log(f"card: {smi}")

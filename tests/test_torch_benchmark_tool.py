@@ -3,8 +3,10 @@ band_tpu's (tests/test_benchmark_tool.py's contracts) on CPU workers:
 the same bad configs raise in both, the reference schema keys parse,
 short periodic, stream and workload runs serve, the report has
 band_tpu's keys on the same fc_int8 config, a stream config with
-co_dispatch 2 fuses its rounds, and image-fed and distributed configs
-are refused with the ROADMAP item that brings them."""
+co_dispatch 2 fuses its rounds, image-fed configs parse as band_tpu's
+do (ROADMAP A13, ported; served in tests/test_torch_frontends.py), and
+distributed configs are refused with the ROADMAP item that brings
+them."""
 
 import copy
 import os
@@ -198,6 +200,15 @@ def test_failed_prewarm_warns(monkeypatch):
                       "num_processes": 2, "process_id": 0}}, "A15"),
 ])
 def test_image_and_distributed_are_refused(ask, item):
+    """A distributed config is refused naming A15.  An image-fed one
+    (A13, ported in the data-plane slice) is no longer refused: it parses
+    with its image path, as band_tpu's does."""
     d = dict(_config(), **ask)
+    if item == "A13":
+        cfg = tbench.BenchmarkConfig.from_dict(d)
+        assert cfg.models[0].image == "cat.jpg"
+        assert cfg.models[0].image == (
+            jbench.BenchmarkConfig.from_dict(d).models[0].image)
+        return
     with pytest.raises(tb.ConfigError, match=item):
         tbench.BenchmarkConfig.from_dict(d)

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing it loads neither jax nor
-band_tpu, and no file of the port (nor chip_smoke.py) imports them."""
+band_tpu (nor PIL, grpc, protobuf or TensorFlow), no file of the port
+(nor chip_smoke.py) imports jax or band_tpu, and only the gRPC front-end
+imports grpc or protobuf at module level."""
 
 import glob
 import os
@@ -29,8 +31,15 @@ def test_import_leaves_jax_and_band_tpu_out():
         "import band_tpu_torch.backend.executor, band_tpu_torch.ops.kernels\n"
         "import band_tpu_torch.tools.benchmark\n"
         "import band_tpu_torch.monitor.resource_monitor\n"
+        "import band_tpu_torch.buffer.processor, band_tpu_torch.buffer.synthetic\n"
+        "import band_tpu_torch.tools.server, band_tpu_torch.tools.router\n"
+        "import band_tpu_torch.tools.evaluate\n"
+        "import band_tpu_torch.tools.preprocess_bench\n"
+        "import band_tpu_torch.c._embed, band_tpu_torch.c.build\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'band_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'band_tpu',\n"
+        "                                    'PIL', 'grpc', 'tensorflow')\n"
+        "             or m.startswith('google.protobuf'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
@@ -65,3 +74,26 @@ def test_chip_smoke_refuses_without_cuda_or_the_package(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+GRPC_FILES = {os.path.join(ROOT, "band_tpu_torch", "tools", f)
+              for f in ("grpc_server.py", "band_grpc_pb2.py")}
+HEAVY = re.compile(r"^\s*(import|from)\s+(grpc|google\.protobuf|PIL|tensorflow)\b",
+                   re.MULTILINE)
+TOP_LEVEL_HEAVY = re.compile(
+    r"^(import|from)\s+(grpc|google\.protobuf|PIL|tensorflow)\b",
+    re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_FILES
+                                  if p not in GRPC_FILES],
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_heavy_imports_stay_lazy(path):
+    """PIL and TensorFlow only inside the functions that need them (the
+    tools' image and oracle paths), grpc and protobuf only in the gRPC
+    front-end, and none of them in chip_smoke.py: the card machine may
+    lack them all."""
+    with open(path) as f:
+        src = f.read()
+    pattern = HEAVY if path.endswith("chip_smoke.py") else TOP_LEVEL_HEAVY
+    assert not pattern.search(src), pattern.search(src).group(0)
