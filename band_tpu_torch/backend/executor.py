@@ -15,7 +15,18 @@ a subgraph runs at log2(max_batch) + 1 batch sizes; outputs are split
 back per request.  ``exact=False`` builds the programs with the fast
 numerics epilogues.  On a host worker (``host=True``) a subgraph may
 hold custom ops (backend/program.py); such a program takes one request
-at a time, so its windows run request by request.  No mesh path.
+at a time, so its windows run request by request.
+
+Mesh workers (``mesh``: a dp x tp grid, parallel/mesh.py): a subgraph is
+a ShardedProgram, its weights split over "tp" once at preparation and a
+window split over "dp" where its size divides (band_tpu/backend/
+executor.py:120-135, :339-348).  The executor's ``device`` is the mesh's
+lead device in this process, where inputs are staged and outputs land.
+A mesh spanning processes launches through the SPMD control plane
+(``_spmd``, set by ``SpmdChannel.attach`` on the leader, parallel/
+spmd.py): every window is announced to the other processes, which replay
+it, before it runs here.  Mesh programs are never captured into a
+co-dispatch CUDA graph (``build_combo`` refuses them).
 
 Co-dispatch: ``build_combo`` makes the combined program of a model mix,
 several (subgraph, bucket) windows served as one dispatch, and
@@ -68,11 +79,18 @@ class ModelExecutor:
         device: torch.device,
         exact: bool = True,
         host: bool = False,
+        mesh=None,
     ):
         self.model_id = model_id
         self.graph = graph
         self.worker_id = worker_id
+        # a mesh worker's grid (parallel/mesh.py Mesh), else None; its
+        # lead device in this process stands for the worker's device
+        self.mesh = mesh
         self.device = torch.device(device)
+        # set on the leader by SpmdChannel.attach() for a mesh spanning
+        # processes: every launch is announced to the followers first
+        self._spmd = None
         # numerics: True reproduces the TFLite interpreter bit for bit;
         # False prepares the float32 epilogues of fast numerics
         self.exact = exact
@@ -115,11 +133,18 @@ class ModelExecutor:
         try:
             prog = build_program(self.graph, op_indices, exact=self.exact,
                                  host=self.host, device=self.device)
-            # weights move to the worker's device once, here
-            params = params_from_jax(prog.params, self.device)
+            # weights move to the worker's device(s) once, here
+            if self.mesh is not None:
+                from ..parallel.mesh import ShardedProgram
+
+                sp = ShardedProgram(prog, self.mesh)
+                fn, params = sp.run, sp.params
+            else:
+                fn = prog.make_fn()
+                params = params_from_jax(prog.params, self.device)
             with self._lock:
                 self._programs[key] = prog
-                self._fns[key] = prog.make_fn()
+                self._fns[key] = fn
                 self._params[key] = params
                 self._free[key] = prog.output_free
         finally:
@@ -161,7 +186,10 @@ class ModelExecutor:
         event recorded on it) before reading them on the host."""
         if key not in self._programs:
             raise ExecutionError(f"subgraph {key} not prepared")
-        out = self._run(key, [to_device(v, self.device) for v in inputs])
+        if self._spmd is not None:
+            out = self._spmd.run_window(self, key, [list(inputs)])[0]
+        else:
+            out = self._run(key, [to_device(v, self.device) for v in inputs])
         self._mark_warm(key, 1)
         return out
 
@@ -201,7 +229,11 @@ class ModelExecutor:
             out = [self.execute(key, ins) for ins in inputs_batch]
             self._mark_warm(key, bucket, window=False)
             return out
-        out = self._run_window(key, inputs_batch, bucket)
+        if self._spmd is not None:
+            out = self._spmd.run_window(self, key,
+                                        [list(ins) for ins in inputs_batch])
+        else:
+            out = self._run_window(key, inputs_batch, bucket)
         self._mark_warm(key, bucket)
         return out
 
@@ -209,21 +241,26 @@ class ModelExecutor:
                     bucket: int) -> List[List[torch.Tensor]]:
         """One stacked launch sequence of a window padded to ``bucket``
         with its first request; per-request outputs."""
-        padded = _pad(inputs_batch, bucket)
-        args = []
-        for pos in range(len(padded[0])):
-            col = [ins[pos] for ins in padded]
-            if all(isinstance(v, np.ndarray) for v in col):
-                # one host-side stack, one copy to the device (a scalar
-                # input stacks as [B])
-                args.append(to_device(np.concatenate(
-                    [np.atleast_1d(v) for v in col], axis=0), self.device))
-            else:
-                args.append(torch.cat(
-                    [torch.atleast_1d(to_device(v, self.device))
-                     for v in col], dim=0))
-        return _split(self._run(key, args), bucket, len(inputs_batch),
-                      self._free[key])
+        args = stack_window(_pad(inputs_batch, bucket), self.device)
+        return split_window(self._run(key, args), bucket, len(inputs_batch),
+                            self._free[key])
+
+
+def stack_window(padded: Sequence[Sequence],
+                 device: torch.device) -> List[torch.Tensor]:
+    """Each input position of a window stacked on its leading axis, on
+    ``device``: one host-side stack and one copy where every request's
+    value is on the host (a scalar input stacks as [B])."""
+    args = []
+    for pos in range(len(padded[0])):
+        col = [ins[pos] for ins in padded]
+        if all(isinstance(v, np.ndarray) for v in col):
+            args.append(to_device(np.concatenate(
+                [np.atleast_1d(v) for v in col], axis=0), device))
+        else:
+            args.append(torch.cat(
+                [torch.atleast_1d(to_device(v, device)) for v in col], dim=0))
+    return args
 
 
 def _pad(inputs_batch: Sequence[Sequence], bucket: int) -> List[Sequence]:
@@ -233,7 +270,7 @@ def _pad(inputs_batch: Sequence[Sequence], bucket: int) -> List[Sequence]:
     return list(inputs_batch) + [inputs_batch[0]] * (bucket - len(inputs_batch))
 
 
-def _split(outs: Sequence[torch.Tensor], bucket: int, n: int,
+def split_window(outs: Sequence[torch.Tensor], bucket: int, n: int,
            free: Sequence[bool]) -> List[List[torch.Tensor]]:
     """The first ``n`` requests' outputs of a window stacked to ``bucket``;
     an output that carries no request axis (``free``) is every request's."""
@@ -283,6 +320,10 @@ def build_combo(members: Sequence[Tuple[SubgraphKey, int]],
     if len(devices) != 1:
         raise ExecutionError(f"a combo's members span devices {devices}")
     for (key, bucket), ex in zip(members, executors):
+        if ex.mesh is not None:
+            raise ExecutionError(
+                f"subgraph {key} runs on a mesh: its gathers and the "
+                "control plane's announcements are not captured")
         if key not in ex._programs:
             raise ExecutionError(f"subgraph {key} not prepared")
         if ex._programs[key].has_custom:
@@ -379,6 +420,6 @@ def run_combo(combo: ComboProgram,
     with torch.inference_mode():
         outs = [[o.clone() for o in group] for group in combo.static_outputs]
     K.add_launches(combo.launch_tally)
-    return [_split(group, bucket, len(ins), ex._free[key])
+    return [split_window(group, bucket, len(ins), ex._free[key])
             for (key, bucket), ex, group, ins in zip(
                 combo.members, combo.executors, outs, inputs_groups)]

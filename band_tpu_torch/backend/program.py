@@ -33,7 +33,7 @@ from ..errors import LoweringError
 from ..ir.graph import Graph
 from ..ops.host_ops import has_host_impl, run_host_op
 from ..ops.lowerings import (CONTROL_FLOW, LowerCtx, request_free,
-                             require_ieee_fp32)
+                             require_ieee_fp32, shard_params)
 from ..ops.registry import REGISTRY, get_lowering
 
 
@@ -118,6 +118,17 @@ def params_from_jax(params: Dict[str, np.ndarray],
     }
 
 
+def sharded_params_from_jax(graph: Graph, params: Dict[str, np.ndarray],
+                            meta: Dict[str, Any], op_index: int, c0: int,
+                            c1: int, device=None):
+    """The sharded form of ``params_from_jax``: the tensors (on
+    ``device``) and meta overrides of op ``op_index``'s shard computing
+    output channels [c0, c1), from prepared params in numpy (this
+    package's or band_tpu's; ops/lowerings.py shard_params)."""
+    own, over = shard_params(graph, graph.ops[op_index], params, meta, c0, c1)
+    return params_from_jax(own, device), over
+
+
 @dataclass
 class SubgraphProgram:
     """A prepared, runnable subgraph."""
@@ -148,10 +159,12 @@ class SubgraphProgram:
             for t in self.output_ids
         ]
 
-    def make_fn(self):
+    def make_fn(self, run_op=None):
         """Function (params, inputs) -> outputs over torch tensors.  The
         inputs may hold a window of requests stacked on their leading
-        axis (ops/lowerings.py); the outputs then do too."""
+        axis (ops/lowerings.py); the outputs then do too.  ``run_op(ctx,
+        op)``, where given, runs an op in place of its lowering when it
+        returns True (a mesh's shards, parallel/mesh.py)."""
         graph = self.graph
         op_indices = self.op_indices
         input_ids = self.input_ids
@@ -166,6 +179,8 @@ class SubgraphProgram:
                 ctx.set(tid, v)
             for oi in op_indices:
                 op = graph.ops[oi]
+                if run_op is not None and run_op(ctx, op):
+                    continue
                 if op.is_custom:
                     _run_custom(ctx, op)
                 else:

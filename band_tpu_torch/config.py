@@ -108,9 +108,10 @@ class WorkerSpec:
     host CPU.
 
     Replaces the reference's (DeviceFlag, cpu_mask, num_threads) triple
-    (band/config.h:38-56).  ``device_ids`` index the cards; a spec with
-    >1 device describes a mesh worker, which the engine refuses until
-    the multi-GPU work lands.
+    (band/config.h:38-56).  ``device_ids`` index this process's cards; a
+    spec with >1 device describes a mesh worker (``mesh_shape`` (dp, tp),
+    default pure tp) whose ids index the global pool of every process's
+    devices (parallel/mesh.py).
     """
 
     device: DeviceFlag = DeviceFlag.GPU
@@ -255,10 +256,13 @@ class MonitorConfig:
 
 @dataclass
 class DistributedConfig:
-    """Multi-process bring-up knobs (multi-host tier; the reference is
-    single-process, SURVEY §5.8).  Empty coordinator_address means
-    single-process unless auto_detect is set.  The engine refuses an
-    enabled block until the multi-GPU work lands."""
+    """torch.distributed bring-up knobs (multi-host tier; the reference
+    is single-process, SURVEY §5.8; parallel/distributed.py).  Empty
+    coordinator_address means single-process unless auto_detect is set,
+    which reads the BAND_TPU_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID
+    environment.  ``local_device_ids`` picks this process's cards (or
+    virtual CPU devices); mesh workers index every process's, in rank
+    order."""
 
     coordinator_address: str = ""
     num_processes: int = -1

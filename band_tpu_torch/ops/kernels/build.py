@@ -75,8 +75,15 @@ def _lib_path(name: str, src: str) -> str:
 
 def build_all(verbose: bool = False) -> float:
     """Compile every kernel library that is not built yet, one nvcc
-    process per source, all running at once.  Returns the seconds spent."""
-    with _lock:
+    process per source, all running at once.  Returns the seconds spent.
+    A file lock in the build directory keeps two processes (a mesh's on
+    one card) from building at once: the second finds the first's
+    libraries."""
+    import fcntl
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _lock, open(os.path.join(BUILD_DIR, ".kernels.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
         t0 = time.perf_counter()
         todo = {
             name: (src, _lib_path(name, src))
@@ -84,7 +91,6 @@ def build_all(verbose: bool = False) -> float:
             if not os.path.exists(_lib_path(name, src))
         }
         if todo:
-            os.makedirs(BUILD_DIR, exist_ok=True)
             nvcc = nvcc_path()
             procs = []
             for name, (src, out) in todo.items():

@@ -746,8 +746,9 @@ def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
             _check_tf32(x2, op, TF32_MATMUL)
             out = _apply_float_activation(F.linear(
                 x2, ctx.param(op, "w"), _optional(ctx, op, "bias")), act)
-        ctx.set(op.outputs[0], out.reshape(ctx.stacked(out_td.shape)).to(
-            Q.torch_dtype(out_td.dtype)))
+        ctx.set(op.outputs[0], out.reshape(
+            _stacked_width(ctx, out_td, out.shape[-1])).to(
+                Q.torch_dtype(out_td.dtype)))
         return
     x_raw = ctx.arr(op.inputs[0])
     x = _to_int8_domain(x_raw)
@@ -755,7 +756,17 @@ def _fully_connected(ctx: LowerCtx, op: OpNode) -> None:
     fast, epi, rq = _requant(ctx, op, out_td)
     out = (qmatmul_fast if fast else qmatmul_exact)(
         x.reshape(-1, x.shape[-1]), ctx.param(op, "w"), *epi, **rq)
-    ctx.set(op.outputs[0], out.reshape(ctx.stacked(out_td.shape)))
+    ctx.set(op.outputs[0], out.reshape(
+        _stacked_width(ctx, out_td, out.shape[-1])))
+
+
+def _stacked_width(ctx: LowerCtx, td: TensorDef, width: int):
+    """``ctx.stacked`` of ``td``'s shape with ``width`` on its last axis:
+    the units come from the weights, so that a mesh's shard of the op
+    (output channels split, parallel/mesh.py) stores its slice."""
+    shape = [int(s) for s in td.shape]
+    shape[-1] = int(width)
+    return ctx.stacked(shape)
 
 
 # --------------------------------------------------------------------------
@@ -2170,6 +2181,80 @@ def _transpose_conv(ctx: LowerCtx, op: OpNode) -> None:
     if (t_h * sh, t_w * sw) != (out_h, out_w):
         out = out[:, :out_h, :out_w].contiguous()
     ctx.set(op.outputs[0], out)
+
+
+# --------------------------------------------------------------------------
+# Output-channel shards: the ops a mesh worker splits across its "tp"
+# devices (parallel/mesh.py), and each shard's params
+# --------------------------------------------------------------------------
+
+SHARDED_OPS = ("CONV_2D", "DEPTHWISE_CONV_2D", "FULLY_CONNECTED",
+               "TRANSPOSE_CONV")
+# the per-output-channel params of the int8 conv family (band_tpu's names)
+_CHANNEL_PARAMS = ("w", "bias", "qm", "shift", "mult")
+
+
+def output_channels(graph: Graph, op: OpNode) -> Optional[Tuple[int, int]]:
+    """(output channels, depth multiplier) of an op that a mesh may split
+    by output channel: an int8 or uint8 CONV_2D, DEPTHWISE_CONV_2D,
+    FULLY_CONNECTED with constant weights, or TRANSPOSE_CONV.  None for
+    every other op, float and hybrid ones included: those run whole."""
+    if op.opname not in SHARDED_OPS or op.is_custom:
+        return None
+    w = graph.tensor(op.inputs[1])
+    if op.opname == "TRANSPOSE_CONV":
+        x_td = graph.tensor(op.inputs[2])
+        if (x_td.quant is None or x_td.dtype.kind == "f"
+                or graph.tensor(op.outputs[0]).quant is None):
+            return None
+        return int(w.shape[0]), 1
+    if _float_input(graph, op) or (op.opname == "FULLY_CONNECTED"
+                                   and _runtime_fc_operands(graph, op)):
+        return None
+    if op.opname == "DEPTHWISE_CONV_2D":
+        oc = int(w.shape[3])
+        return oc, oc // int(graph.tensor(op.inputs[0]).shape[-1])
+    return int(w.shape[0]), 1  # OHWI conv weights, [out, in] FC weights
+
+
+def shard_params(graph: Graph, op: OpNode, params: Dict[str, np.ndarray],
+                 meta: Dict[str, Any], c0: int, c1: int
+                 ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """The params (numpy: this package's prepared ones or band_tpu's) and
+    the meta overrides of ``op``'s shard that computes output channels
+    [c0, c1).  Every per-output-channel array of the op is sliced on its
+    last axis as a contiguous copy (kernel B2's direct branch loads its
+    weights 8 bytes at a time: never a strided view), whatever its
+    length (band_tpu leaves vectors shorter than 8 unsharded, sharding.py
+    :36-38, which GSPMD can afford and a slice by hand cannot); a
+    per-tensor one (one entry) is kept whole.  A TRANSPOSE_CONV keeps
+    each channel's rounding group: its union conv's columns and phase
+    vectors are (phase, channel), sliced group by group."""
+    oc, _ = output_channels(graph, op)
+    prefix = f"op{op.index}/"
+    own = {k: np.asarray(v) for k, v in params.items() if k.startswith(prefix)}
+    if op.opname != "TRANSPOSE_CONV":
+        out = {}
+        for k, v in own.items():
+            if (k[len(prefix):] in _CHANNEL_PARAMS and v.ndim
+                    and v.shape[-1] == oc):
+                v = v[..., c0:c1]
+            out[k] = np.ascontiguousarray(v)
+        return out, {}
+    phases = op.options["stride_h"] * op.options["stride_w"]
+    out, groups = {}, []
+    for g, (g0, g1, rounding) in enumerate(meta[prefix + "groups"]):
+        lo, hi = max(g0, c0), min(g1, c1)
+        if lo >= hi:
+            continue
+        for name in _CHANNEL_PARAMS:
+            v = own.get(f"{prefix}{name}_{g}")
+            if v is not None:
+                v = v.reshape(v.shape[:-1] + (phases, g1 - g0))
+                out[f"{prefix}{name}_{len(groups)}"] = np.ascontiguousarray(
+                    v[..., lo - g0:hi - g0].reshape(v.shape[:-2] + (-1,)))
+        groups.append((lo - c0, hi - c0, rounding))
+    return out, {prefix + "groups": tuple(groups), prefix + "oc": c1 - c0}
 
 
 # --------------------------------------------------------------------------

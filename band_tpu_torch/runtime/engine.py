@@ -31,10 +31,17 @@ resource monitor (monitor/resource_monitor.py) feeds
 ``_on_resource_update``, which throttles workers on thermal, HBM, clock
 or duty-cycle pressure.
 
-Counterpart: band_tpu/runtime/engine.py.  Not ported yet, and refused
-with ConfigError when a config asks for them: multi-process serving,
-mesh workers, a compilation cache and any backend but "torch"
-(backend/factory.py).
+Mesh workers and one engine over processes: a worker with several
+device ids is a mesh (parallel/mesh.py; ids index the global device
+pool, parallel/distributed.py), and a ``distributed`` block brings up
+torch.distributed before anything else, so that every process builds the
+same engine and the SPMD control plane (parallel/spmd.py) replays the
+leader's launches of a mesh spanning processes.  A mesh over more devices
+than the pool holds is refused, never wrapped onto fewer.
+
+Counterpart: band_tpu/runtime/engine.py.  Refused with ConfigError: a
+compilation cache (nothing is compiled by a JIT) and any backend but
+"torch" (backend/factory.py).
 """
 
 from __future__ import annotations
@@ -81,6 +88,8 @@ from .planner import Planner
 from .ring_buffer import TensorRingBuffer
 from .tensor import StagedInput
 from .worker import DeviceQueueWorker, GlobalQueueWorker, Worker
+from ..parallel import distributed as dist
+from ..parallel.mesh import Mesh, mesh_spans_processes
 
 
 def _boundary_bytes(graph, spec) -> Dict[int, int]:
@@ -131,13 +140,9 @@ def _refuse_unported(config: RuntimeConfig) -> None:
     from ..backend.factory import available_backends
 
     asks = []
-    if config.distributed.enabled:
-        asks.append("multi-process serving (distributed)")
     if config.compilation_cache_dir:
         asks.append("compilation_cache_dir (nothing is compiled by a JIT)")
     for i, spec in enumerate(config.worker.workers):
-        if spec.is_mesh:
-            asks.append(f"worker {i}: a mesh of devices {spec.device_ids}")
         if (spec.backend or "torch").lower() not in available_backends():
             asks.append(f"worker {i}: backend {spec.backend!r} (registered: "
                         f"{available_backends()})")
@@ -148,18 +153,60 @@ def _refuse_unported(config: RuntimeConfig) -> None:
 
 
 def resolve_device(spec: WorkerSpec) -> torch.device:
-    """The torch device of a single-device worker.  A GPU worker is
-    ``cuda:<id>`` (ids wrap around the visible cards, as band_tpu's do
-    over its devices) and raises when CUDA is absent; it never becomes
-    the CPU."""
+    """The torch device of a single-device worker.  A GPU worker's id
+    indexes this process's cards (``local_device_ids``, else every
+    visible card; ids wrap around them, as band_tpu's do over its local
+    devices) and raises when CUDA is absent; it never becomes the CPU."""
     if spec.device == DeviceFlag.CPU:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise ConfigError(
             f"{spec.device.value} worker needs CUDA, which is not available"
         )
-    n = torch.cuda.device_count()
-    return torch.device("cuda", spec.device_ids[0] % n)
+    local = dist.local_devices("cuda")
+    return local[spec.device_ids[0] % len(local)]
+
+
+def mesh_dims(spec: WorkerSpec) -> Tuple[int, int]:
+    """(dp, tp) of a mesh worker from its mesh_shape: 2-D shapes are
+    (dp, tp), 1-D shapes pure tp, default pure tp
+    (band_tpu/backend/executor.py mesh_dims)."""
+    n = len(spec.device_ids)
+    if len(spec.mesh_shape) == 2:
+        return spec.mesh_shape[0], spec.mesh_shape[1]
+    if len(spec.mesh_shape) == 1:
+        return max(n // spec.mesh_shape[0], 1), spec.mesh_shape[0]
+    return 1, n
+
+
+def resolve_mesh(spec: WorkerSpec) -> Mesh:
+    """The grid of a mesh worker (band_tpu/runtime/engine.py:334-360):
+    its device ids index the GLOBAL pool of its kind (every process's
+    cards, or CPU devices, in rank order), since spanning processes is a
+    mesh's point.  A mesh beyond the pool raises, never wraps onto fewer
+    devices, and a GPU mesh needs CUDA."""
+    kind = "cpu" if spec.device == DeviceFlag.CPU else "cuda"
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise ConfigError(
+            f"{spec.device.value} mesh worker needs CUDA, which is not "
+            "available")
+    pool = dist.devices(kind)
+    ids = list(spec.device_ids)
+    if len(set(ids)) != len(ids):
+        raise ConfigError(f"mesh worker lists a device twice: {ids}")
+    if max(ids) >= len(pool):
+        raise ConfigError(
+            f"mesh worker wants devices {ids} but only {len(pool)} "
+            f"{'cards' if kind == 'cuda' else 'CPU devices'} present")
+    chosen = [pool[i] for i in ids]
+    dp, tp = mesh_dims(spec)
+    mesh = Mesh([d.device for d in chosen], dp, tp,
+                [d.process_index for d in chosen])
+    if not any(mesh.local_cells(r) for r in range(dp)):
+        raise ConfigError(
+            f"mesh worker devices {ids} hold none of process "
+            f"{dist.process_index()}'s")
+    return mesh
 
 
 def synchronize(device: torch.device) -> None:
@@ -198,9 +245,25 @@ class Engine(EngineBase):
         config.validate()
         _refuse_unported(config)
         self.config = config
-        # the device of each worker, resolved before any thread starts
+        if config.distributed.enabled:
+            # multi-process bring-up precedes every device query, so that
+            # mesh device ids index the global pool (SURVEY §5.8)
+            dist.initialize(config.distributed)
+        # each mesh worker's grid (None for a single-device worker), and
+        # the device of each worker (a mesh's lead device in this
+        # process), resolved before any thread starts; a mesh spanning
+        # processes creates its process groups here, worker by worker, in
+        # the same order on every process
+        self._worker_meshes: List[Optional[Mesh]] = [
+            resolve_mesh(spec) if spec.is_mesh else None
+            for spec in config.worker.workers
+        ]
+        for mesh in self._worker_meshes:
+            if mesh is not None:
+                mesh.attach_groups()
         self._worker_devices: List[torch.device] = [
-            resolve_device(spec) for spec in config.worker.workers
+            resolve_device(spec) if mesh is None else mesh.lead()
+            for spec, mesh in zip(config.worker.workers, self._worker_meshes)
         ]
         if config.cpu_mask:
             # engine-wide pinning of the creating thread (reference:
@@ -263,7 +326,7 @@ class Engine(EngineBase):
             # the latency profile DB (stale topologies re-probe)
             if not (self._links_path
                     and load_links(self._links_path, self.link_costs)):
-                measure_links(self._worker_devices, self.link_costs)
+                measure_links(self._local_devices(), self.link_costs)
                 if self._links_path:
                     save_links(self.link_costs, self._links_path)
         # native planner decision core (C++, built with the host
@@ -279,6 +342,9 @@ class Engine(EngineBase):
         self._plan_workers = plan_native.WorkerTables(
             [self._worker_is_host(w) for w in range(len(self.workers))],
             self._worker_devices,
+            [dist.process_index() if mesh is None
+             else int(mesh.processes.flat[0])
+             for mesh in self._worker_meshes],
         )
         for w in self.workers:
             w.start()
@@ -405,6 +471,20 @@ class Engine(EngineBase):
     def _worker_is_host(self, worker_id: int) -> bool:
         return self.config.worker.workers[worker_id].device == DeviceFlag.CPU
 
+    def _local_devices(self) -> List[torch.device]:
+        """Every device of this process that a worker uses, a mesh's
+        included (the link-cost probe's card-to-card pair)."""
+        out = list(self._worker_devices)
+        for mesh in self._worker_meshes:
+            if mesh is not None:
+                out += [mesh.devices[r, c] for r in range(mesh.shape["dp"])
+                        for c in mesh.local_cells(r)]
+        return out
+
+    def _spans_processes(self, worker_id: int) -> bool:
+        mesh = self._worker_meshes[worker_id]
+        return mesh is not None and mesh_spans_processes(mesh)
+
     def _on_resource_update(self, snap) -> None:
         """Resource-aware throttling (band_tpu/runtime/engine.py:365-432):
         host workers on thermal pressure, GPU workers on the HBM
@@ -496,8 +576,12 @@ class Engine(EngineBase):
         model.model_id = model_id
         graph = model.graph
 
+        # host ops run on single-device host workers: a mesh worker
+        # absorbing one would stall its whole device group on a numpy op
+        # (band_tpu/runtime/engine.py:461-472)
         spec = build_model_spec(
-            graph, [self._worker_is_host(w) for w in range(len(self.workers))]
+            graph, [self._worker_is_host(w) and self._worker_meshes[w] is None
+                    for w in range(len(self.workers))]
         )
         analyzer = ModelAnalyzer(
             graph,
@@ -512,11 +596,13 @@ class Engine(EngineBase):
         for sdef in defs:
             wid = sdef.worker_id
             if wid not in rec.executors:
+                mesh = self._worker_meshes[wid]
                 rec.executors[wid] = create_executor(
                     self.config.worker.workers[wid].backend,
                     model_id, graph, wid, self._worker_devices[wid],
                     exact=numerics != "fast",
                     host=self._worker_is_host(wid),
+                    **({} if mesh is None else {"mesh": mesh}),
                 )
             key = rec.executors[wid].prepare_subgraph(
                 sorted(sdef.op_indices), sorted(sdef.unit_indices)
@@ -617,6 +703,11 @@ class Engine(EngineBase):
                 executor = rec.executors[key.worker_id]
                 device = self._worker_devices[key.worker_id]
                 use_bg = self.config.profile.background_buckets
+                # a mesh spanning processes runs collectives, which every
+                # process must issue in one order: only its b1 profile
+                # runs, here, in lockstep with the other processes
+                if self._spans_processes(key.worker_id):
+                    use_bg, max_batch = False, 1
                 if use_bg and max_batch > 1:
                     buckets = [
                         b for b in _pow2_buckets(max_batch)
@@ -767,15 +858,16 @@ class Engine(EngineBase):
     # multi-model window fusion (co-dispatch)
     # ------------------------------------------------------------------
     def _combo_entry_eligible(self, key: SubgraphKey) -> bool:
-        """A (key, bucket) may join a combined program only when its
-        program has no host op (band_tpu excludes its eager subgraphs)
-        and is capturable (no WHILE or IF); every worker of the port is a
-        single device."""
+        """A (key, bucket) may join a combined program only on a
+        single-device worker (a mesh's gathers and the SPMD control
+        plane's announcements stay individual launches, band_tpu/runtime/
+        engine.py:784-788), when its program has no host op (band_tpu
+        excludes its eager subgraphs) and is capturable (no WHILE or IF)."""
         rec = self._models.get(key.model_id)
         if rec is None or key.model_id in self._unregistering:
             return False
         ex = rec.executors.get(key.worker_id)
-        if ex is None:
+        if ex is None or getattr(ex, "mesh", None) is not None:
             return False
         prog = ex.program(key)
         return not prog.has_custom and prog.capturable

@@ -13,8 +13,8 @@ and LSF decisions, so the constants are measured where it matters.
 
 Link classes, as in band_tpu (the table and its config keys are the
 same): ``h2d`` host <-> card, ``host`` host memcpy, ``ici`` card <->
-card, ``dcn`` across processes (only configured: multi-process serving
-is not ported, so nothing measures it).  Cost model per link class:
+card, ``dcn`` across processes (``measure_dcn``, on a live
+torch.distributed cluster).  Cost model per link class:
 ``fixed_us + nbytes // bytes_per_us``.
 
 Counterpart: band_tpu/runtime/link_costs.py; ``measure`` times torch
@@ -111,9 +111,11 @@ def _fit(small_us: float, big_us: float, small_b: int, big_b: int):
 def topology_hash() -> str:
     """Key for persisted probed tables: probing is only valid for the
     same process count, card count and card model."""
+    from ..parallel.distributed import process_count
+
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     name = torch.cuda.get_device_name(0) if n else "cpu"
-    return f"p1-d{n}-{name.replace(' ', '_')}"
+    return f"p{process_count()}-d{n}-{name.replace(' ', '_')}"
 
 
 def save_table(table: LinkCostTable, path: str) -> None:
@@ -151,8 +153,9 @@ def measure(
     cost.  Each probe copies a fresh host tensor from pageable memory
     with ``Tensor.to`` (what ``Engine.try_copy_input_tensors`` does on
     a hop) and waits with ``torch.cuda.synchronize``, so the numbers
-    include the round trip the schedulers will actually pay.  DCN is
-    not probed: there is no second process."""
+    include the round trip the schedulers will actually pay.  Card to
+    card is probed where two or more cards are visible to the workers
+    (a mesh's included); DCN by ``measure_dcn``."""
     table = table or LinkCostTable()
     small = np.ones(small_bytes, np.uint8)
     big = np.ones(big_bytes, np.uint8)
@@ -191,4 +194,36 @@ def measure(
         t_s = _best_of(lambda: d2d(src_s))
         t_b = _best_of(lambda: d2d(src))
         table.set(ICI, *_fit(t_s, t_b, small_bytes, big_bytes))
+    return table
+
+
+def measure_dcn(
+    table: Optional[LinkCostTable] = None,
+    small_bytes: int = 1 << 14, big_bytes: int = 1 << 22,
+) -> LinkCostTable:
+    """Probe the cross-process (DCN) payload path on a live
+    torch.distributed cluster and write the fit into `table`.  Every
+    process must call this at the same point: the probe is a broadcast
+    from process 0 over the default (gloo) group, the path of the
+    cluster's host collectives, and process 0's fit is then broadcast so
+    that every process writes the same values
+    (band_tpu/runtime/link_costs.py:100-133)."""
+    from ..parallel import distributed as dist
+
+    table = table or LinkCostTable()
+    if dist.process_count() < 2:
+        return table
+    import torch.distributed as tdist
+
+    small = torch.ones(small_bytes, dtype=torch.uint8)
+    big = torch.ones(big_bytes, dtype=torch.uint8)
+
+    def bcast(t):
+        tdist.broadcast(t, 0)
+
+    bcast(small)  # warm the path (the first collective pays setup)
+    t_s = _best_of(lambda: bcast(small))
+    t_b = _best_of(lambda: bcast(big))
+    fixed, per = dist.agree(_fit(t_s, t_b, small_bytes, big_bytes))
+    table.set(DCN, int(fixed), int(per))
     return table

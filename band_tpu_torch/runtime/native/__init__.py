@@ -120,13 +120,15 @@ class WorkerTables:
     """Per-worker link-class facts for transfer costing."""
 
     def __init__(self, is_host: Sequence[bool],
-                 devices: Sequence[torch.device]):
+                 devices: Sequence[torch.device],
+                 procs: Optional[Sequence[int]] = None):
         self.n = len(is_host)
         self.is_host = np.asarray(is_host, np.uint8)
         self.dev = np.asarray([card_key(d) for d in devices], np.int64)
-        # one process drives every card of the engine (multi-process
-        # serving is not ported)
-        self.proc = np.zeros(self.n, np.int32)
+        # each worker's process (a mesh's: its first device's), so that a
+        # hop between processes is priced as DCN
+        self.proc = np.asarray(
+            procs if procs is not None else [0] * self.n, np.int32)
         self.arg = (
             self.n, self.is_host.ctypes.data, self.dev.ctypes.data,
             self.proc.ctypes.data,

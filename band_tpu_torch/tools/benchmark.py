@@ -17,8 +17,9 @@ to the model's first input, native C++ kernels), so the measured rate
 includes the data plane, as band_tpu's tool does
 (band_tpu/tools/benchmark.py:165-179, 211-219).
 
-Not ported (ConfigError): multi-process serving (a ``distributed``
-block, ROADMAP A15).
+Multi-process serving: a config with a ``distributed`` block runs the
+same benchmark on every process of a torch.distributed cluster
+(``run_distributed``); process 0 drives the load and prints the report.
 
 Usage: python -m band_tpu_torch.tools.benchmark <config.json>
 """
@@ -30,7 +31,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -101,10 +102,6 @@ class BenchmarkConfig:
         if mode not in ("periodic", "stream", "workload"):
             raise ConfigError(f"unknown execution_mode {mode}")
         runtime = config_from_dict(d)
-        if runtime.distributed.enabled:
-            raise ConfigError(
-                "a distributed benchmark is not ported to PyTorch yet "
-                "(ROADMAP A15: multi-process serving)")
         if not runtime.worker.workers:
             raise ConfigError("benchmark config needs at least one worker")
         workload = d.get("workload")
@@ -411,6 +408,47 @@ class Benchmark:
         self.engine.shutdown()
 
 
+def run_distributed(cfg: BenchmarkConfig) -> Optional[Dict]:
+    """Multi-process serving: run the SAME benchmark config on every
+    process of a torch.distributed cluster (the config's ``distributed``
+    block carries coordinator and process identity).  Process 0 drives
+    the load and reports; the others register the same models
+    (registration is collective: online profiling runs the shared
+    sharded programs in lockstep) and replay the leader's cross-process
+    launches (parallel/spmd.py).  Returns the report on the leader, None
+    on followers (band_tpu/tools/benchmark.py:407-443)."""
+    from ..parallel import distributed as dist
+    from ..parallel.spmd import SpmdChannel
+    from ..runtime.link_costs import measure_dcn
+
+    bench = Benchmark(cfg)
+    d = cfg.runtime.distributed
+    try:
+        channel = SpmdChannel(
+            bench.engine,
+            coordinator_address=d.coordinator_address or dist.from_env(
+            ).coordinator_address,
+            control_port=d.control_port,
+        )
+        channel.barrier()
+        # probe the cross-process payload path so HEFT/SEL price DCN hops
+        # from measurement, not the default (collective: every process
+        # runs it here)
+        measure_dcn(bench.engine.link_costs)
+        if dist.process_index() != 0:
+            channel.run_follower()
+            return None
+        channel.attach()
+        try:
+            report = bench.run()
+            report["link_costs"] = bench.engine.link_costs.to_dict()
+        finally:
+            channel.shutdown_followers()
+        return report
+    finally:
+        bench.shutdown()
+
+
 def main(argv=None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) != 1:
@@ -418,6 +456,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     cfg = BenchmarkConfig.from_json(argv[0])
+    if cfg.runtime.distributed.enabled:
+        report = run_distributed(cfg)
+        if report is not None:
+            print(json.dumps(report, indent=1))
+        return 0
     bench = Benchmark(cfg)
     try:
         report = bench.run()

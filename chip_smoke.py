@@ -290,9 +290,31 @@ Phases:
              format to int8 224x224; frame -> answer ms (engine and
              buffer_main.c); preprocess_bench's MB/s per operator (the
              host CPU's).
+18. mesh    (run last) one engine over two processes on card 0: this
+             script started twice with ``--mesh-child <rank>
+             <coordinator>`` (subprocess, after the kernels were built
+             here), each owning cuda:0 as its local device (global ids 0
+             and 1).  Process 0's engine holds a tp=2 mesh worker, a dp=2
+             mesh worker and a single GPU worker (fixed_worker, max_batch
+             8); process 1 replays its launches (parallel/spmd.py).  The
+             8 MobileNetV2 goldens sync (16 timed) and as one burst
+             through each worker, every output byte-equal to TFLite's and
+             to the single worker's.  Launch counts zeroed just before and
+             read just after in both processes: B1, B2, B3 and lut_softmax
+             must launch in each, no other kernel.  Then every kernel call
+             of one golden request through a tp=2 mesh over both
+             processes (half width: B1 N 8-640, B2's stem 16 channels, B3
+             C 16-480) byte-equal to plain in each process, and the
+             benchmark tool's distributed branch for 3 s with the tp=2
+             worker.  Last, in this process, a tp=2 mesh over cuda:0,1:
+             served byte-equal where two cards are visible, else refused
+             with ConfigError.  Printed beside the card's name and power
+             limit: b1 req/s and ms a request per worker, gathers and
+             broadcasts a request and their host ms, launches per
+             process.
 Then it prints the kernels line (each kernel's launches in the engine
-phase of its numerics, in the sr, codispatch, detect, seq and frontend
-phases; B2's
+phase of its numerics, in the sr, codispatch, detect, seq, frontend and
+mesh phases (the mesh's summed over both processes); B2's
 general branch, the mma kernel of csrc/qconv_mma.cuh, in two entries of
 its own, exact and fast, with its launches and a b1 FSRCNN request's
 times from the sr phase; qmatmul_hybrid with its launches in the float
@@ -4240,6 +4262,292 @@ def frontend_phase(torch, dev, bt, K, graphs, worst, smi):
     return counts, summary
 
 
+# --------------------------------------------------------------------------
+# mesh: one engine over two processes on the card (parallel/)
+# --------------------------------------------------------------------------
+
+MESH_TIMEOUT_S = 480
+MESH_SYNC = 16          # timed request_sync a worker (the goldens twice)
+MESH_RAN = ("qmatmul_exact", "qconv2d_exact", "qdwconv2d_exact",
+            "lut_softmax")
+# (name, worker spec) of the mesh phase's engine, worker ids in order
+MESH_WORKERS = (
+    ("tp2", {"device": "gpu", "device_ids": [0, 1], "mesh_shape": [1, 2],
+             "max_batch": MAX_BATCH}),
+    ("dp2", {"device": "gpu", "device_ids": [0, 1], "mesh_shape": [2, 1],
+             "max_batch": MAX_BATCH}),
+    ("single", {"device": "gpu", "device_ids": [0], "max_batch": MAX_BATCH}),
+)
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _mesh_config(coord, rank, workers, **extra):
+    """A runtime config of the mesh phase: two processes on card 0, each
+    owning it as its local device 0 (global device ids 0 and 1)."""
+    d = {"schedulers": ["fixed_worker"], "workers": workers,
+         "profile_warmup_runs": 1, "profile_num_runs": 1,
+         "distributed": {"coordinator_address": coord, "num_processes": 2,
+                         "process_id": rank, "local_device_ids": [0],
+                         "control_port": int(coord.rpartition(":")[2])
+                         + extra.pop("control_offset", 1000)}}
+    d.update(extra)
+    return d
+
+
+def _mesh_serve(bt, M, eng, mid, xs, want):
+    """The leader's part: each worker serves the goldens sync (timed) and
+    as one burst, every output byte-equal to TFLite's and to the single
+    worker's.  Returns per-worker rates and collectives."""
+    out, single = {}, None
+    n = len(xs)
+    order = [("single", 2), ("tp2", 0), ("dp2", 1)]
+    for wname, wid in order:
+        opt = bt.RequestOption(target_worker=wid)
+        eng.request_sync(mid, [xs[0]], opt)  # this worker's first request
+        before = M.collective_stats()
+        t0 = time.perf_counter()
+        got = [eng.request_sync(mid, [xs[i % n]], opt)[0]
+               for i in range(MESH_SYNC)]
+        dt = time.perf_counter() - t0
+        stats = {k: v - before[k] for k, v in M.collective_stats().items()}
+        if single is None:
+            single = got[:n]
+        for i, o in enumerate(got):
+            check(np.array_equal(o, want[i % n]),
+                  f"mesh {wname}: sync request {i} differs from TFLite")
+            check(np.array_equal(o, single[i % n]),
+                  f"mesh {wname}: sync request {i} differs from the single "
+                  "worker's")
+        ids = eng.request_async_batch([mid] * n, [[x] for x in xs],
+                                      [opt] * n)
+        st = eng.wait_all(ids, timeout=120, raise_on_incomplete=True)
+        check(all(v == bt.JobStatus.SUCCESS for v in st.values()),
+              f"mesh {wname}: burst {st}")
+        for i, jid in enumerate(ids):
+            o = eng.get_outputs(jid)[0]
+            check(np.array_equal(o, want[i]) and np.array_equal(o, single[i]),
+                  f"mesh {wname}: burst request {i} differs")
+        ex = eng.model_record(mid).executors[wid]
+        out[wname] = {
+            "b1_req_s": MESH_SYNC / dt, "ms_per_request": 1e3 * dt / MESH_SYNC,
+            "gathers_per_request": stats["gathers"] / MESH_SYNC,
+            "gather_host_ms_per_request":
+                1e3 * stats["gather_host_s"] / MESH_SYNC,
+            "broadcasts_per_request": stats["broadcasts"] / MESH_SYNC,
+            "windows": {str(k): v for k, v in sorted(ex.windows.items())},
+        }
+    return out
+
+
+def _mesh_calls(torch, K, L, M, g, xs, want, rank):
+    """Every kernel call of one golden request through a tp=2 mesh over
+    both processes (each runs its half of every split op), held
+    byte-equal to the kernel's plain version in this process."""
+    from band_tpu_torch.backend.program import build_program
+
+    plain = {"qmatmul_exact": K.qmatmul_plain,
+             "qconv2d_exact": K.qconv2d_plain,
+             "qdwconv2d_exact": K.qdwconv2d_plain,
+             "lut_softmax": K.lut_softmax_plain}
+    dev = torch.device("cuda", 0)
+    mesh = M.Mesh([dev, dev], 1, 2, [0, 1])
+    prog = build_program(g, range(len(g.ops)), exact=True, device=dev)
+    sp = M.ShardedProgram(prog, mesh)
+    with torch.inference_mode():
+        calls = capture_calls(L, sp.run, sp.params,
+                              [torch.from_numpy(xs[0]).to(dev)])
+        torch.cuda.synchronize()
+        worst = collections.Counter()
+        widths = collections.defaultdict(set)
+        for name, args, kw, out in calls:
+            want_k = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            worst[name] = max(worst[name], same(
+                torch, name, out, want_k, f"mesh p{rank} {tuple(out.shape)}"))
+            widths[name].add(int(out.shape[-1]))
+    # the last call is the softmax, run whole after the FC's gather
+    check(np.array_equal(calls[-1][3].cpu().numpy(), want[0]),
+          f"mesh p{rank}: the sharded request differs from TFLite")
+    kinds = collections.Counter(n for n, *_ in calls)
+    check(set(kinds) == set(MESH_RAN), f"mesh p{rank}: kernels {kinds}")
+    check(b2_plan(*next(c[1:] for c in calls if c[0] == "qconv2d_exact")
+                  ).branch == "direct",
+          f"mesh p{rank}: the half-width stem left B2's direct branch")
+    return {"calls": dict(kinds), "max_abs_err": dict(worst),
+            "widths": {k: [min(v), max(v)] for k, v in widths.items()}}
+
+
+def mesh_child(rank, coord):
+    """One of the mesh phase's two processes: an engine with the tp=2,
+    dp=2 and single workers over both processes (process 0 drives it,
+    process 1 replays), then one request's kernel calls held against
+    plain, then the benchmark tool's distributed branch.  Prints one
+    MESH_RESULT line."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import band_tpu_torch as bt
+    from band_tpu_torch.config import config_from_dict
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops import lowerings as L
+    from band_tpu_torch.parallel import mesh as M
+    from band_tpu_torch.parallel.spmd import SpmdChannel
+    from band_tpu_torch.tflite.parser import parse_tflite_file
+    from band_tpu_torch.tools.benchmark import BenchmarkConfig, run_distributed
+
+    if not torch.cuda.is_available():
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path = os.path.join(DATA, f"{FULL_WIDTH}.tflite")
+    g = parse_tflite_file(path)
+    z = np.load(GOLDENS)
+    want = z[f"{FULL_WIDTH}/output"]
+    xs = _inputs(z, FULL_WIDTH, g, len(want))
+    res = {"rank": rank}
+    eng = bt.Engine.create(config_from_dict(_mesh_config(
+        coord, rank, [w for _, w in MESH_WORKERS])))
+    try:
+        t0 = time.perf_counter()
+        mid = eng.register_model(bt.Model.from_path(path))
+        res["register_s"] = time.perf_counter() - t0
+        channel = SpmdChannel(eng, coordinator_address=coord,
+                              control_port=int(coord.rpartition(":")[2])
+                              + 1000)
+        channel.barrier()
+        # the main path: counts zeroed just before, read just after
+        K.reset_launches()
+        M.reset_collective_stats()
+        if rank == 0:
+            channel.attach()
+            try:
+                res["workers"] = _mesh_serve(bt, M, eng, mid, xs, want)
+            finally:
+                channel.shutdown_followers()
+        else:
+            channel.run_follower()
+        res["launches"] = K.launch_counts()
+        res["collectives"] = M.collective_stats()
+    finally:
+        eng.shutdown()
+    for name, n in res["launches"].items():
+        check((n > 0) == (name in MESH_RAN),
+              f"mesh p{rank}: kernel {name} launched {n} times")
+    res["held"] = _mesh_calls(torch, K, L, M, g, xs, want, rank)
+    res["benchmark"] = run_distributed(BenchmarkConfig.from_dict(_mesh_config(
+        coord, rank, [MESH_WORKERS[0][1]], control_offset=2000,
+        models=[{"graph": path, "period_ms": 5, "batch_size": 2}],
+        running_time_ms=BENCH_MS, execution_mode="periodic")))
+    print("MESH_RESULT" + json.dumps(res), flush=True)
+    return 0
+
+
+def mesh_single_process(torch, bt, goldens, smi):
+    """A tp=2 mesh in one process: over cuda:0,1 where two cards are
+    visible, served byte-equal to the goldens; else the engine must refuse
+    device ids (0, 1) with ConfigError (never wrap onto one card)."""
+    n_cards = torch.cuda.device_count()
+    cfg = (bt.RuntimeConfigBuilder()
+           .add_scheduler(bt.SchedulerType.FIXED_WORKER)
+           .add_worker(bt.WorkerSpec(device=bt.DeviceFlag.GPU,
+                                     device_ids=(0, 1), mesh_shape=(1, 2),
+                                     max_batch=MAX_BATCH))
+           .build())
+    if n_cards < 2:
+        try:
+            bt.Engine.create(cfg)
+        except bt.ConfigError as e:
+            log(f"mesh: single-process tp=2 over cuda:0,1 refused on "
+                f"{n_cards} card: ConfigError: {e}")
+            return {"cards": n_cards, "refused": str(e)}
+        raise AssertionError("a mesh over two cards was served on one")
+    eng = bt.Engine.create(cfg)
+    try:
+        mid = eng.register_model(bt.Model.from_path(
+            os.path.join(DATA, f"{FULL_WIDTH}.tflite")))
+        xs, want = goldens[FULL_WIDTH]["xs"], goldens[FULL_WIDTH]["output"][0]
+        t0 = time.perf_counter()
+        for i, x in enumerate(xs):
+            check(np.array_equal(eng.request_sync(mid, [x])[0], want[i]),
+                  f"mesh: single-process tp=2 request {i} differs")
+        rate = len(xs) / (time.perf_counter() - t0)
+    finally:
+        eng.shutdown()
+    log(f"mesh: single-process tp=2 over cuda:0,1: {len(xs)} requests "
+        f"byte-equal to TFLite, {rate:.2f} req/s ({smi})")
+    return {"cards": n_cards, "b1_req_s": rate}
+
+
+def mesh_phase(torch, bt, goldens, smi):
+    """Two processes on cuda:0 (the kernels already built here), one
+    engine over both; then the single-process mesh.  Returns (launches of
+    the served phase summed over both processes, summary)."""
+    coord = f"localhost:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", str(r),
+         coord], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in (0, 1)]
+    results = {}
+    try:
+        for r, p in enumerate(procs):
+            left = max(MESH_TIMEOUT_S - (time.perf_counter() - t0), 1)
+            out, err = p.communicate(timeout=left)
+            check(p.returncode == 0, f"mesh: process {r} exited "
+                  f"{p.returncode}:\n{err[-8000:]}\n{out[-2000:]}")
+            line = next((ln for ln in out.splitlines()
+                         if ln.startswith("MESH_RESULT")), None)
+            check(line is not None, f"mesh: process {r} printed no result")
+            results[r] = json.loads(line[len("MESH_RESULT"):])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    drv = results[0]
+    for wname, w in drv["workers"].items():
+        log(f"mesh: {wname} b1 {w['b1_req_s']:.2f} req/s, "
+            f"{w['ms_per_request']:.2f} ms a request; gathers a request "
+            f"{w['gathers_per_request']:.1f}, their host ms "
+            f"{w['gather_host_ms_per_request']:.3f}; broadcasts a request "
+            f"{w['broadcasts_per_request']:.2f}; windows {w['windows']} "
+            f"({smi})")
+    for r in (0, 1):
+        log(f"mesh: process {r} launches {json.dumps(results[r]['launches'])}"
+            f"; collectives {json.dumps(results[r]['collectives'])}; "
+            f"registered in {results[r]['register_s']:.2f} s")
+        h = results[r]["held"]
+        log(f"mesh_calls: process {r}: a tp=2 request's kernel calls "
+            f"{json.dumps(h['calls'])} byte-equal to plain (max |err| "
+            f"{json.dumps(h['max_abs_err'])}); output widths "
+            f"{json.dumps(h['widths'])}")
+    bench = drv["benchmark"]
+    check(bench is not None and results[1]["benchmark"] is None,
+          "mesh: the distributed benchmark reports from process 0 only")
+    check(bench["total"]["processed"] > 0 and bench["total"]["canceled"] == 0,
+          f"mesh: distributed benchmark {bench['total']}")
+    log(f"benchmark: mesh_tp2 (2 processes) {json.dumps(bench)} ({smi})")
+    single = mesh_single_process(torch, bt, goldens, smi)
+    counts = {name: results[0]["launches"][name] + results[1]["launches"][name]
+              for name in results[0]["launches"]}
+    summary = {"card": smi, "model": FULL_WIDTH, "wall_s": wall,
+               "workers": drv["workers"],
+               "launches": {r: results[r]["launches"] for r in (0, 1)},
+               "benchmark_req_s": bench["model_0"]["fps"],
+               "single_process": single}
+    return counts, summary
+
+
 def main():
     import torch
 
@@ -4326,6 +4634,7 @@ def main():
     benchmark_phase(smi)
     fe_counts, fe_summary = frontend_phase(torch, dev, bt, K, graphs, worst,
                                            smi)
+    mesh_counts, mesh_summary = mesh_phase(torch, bt, goldens, smi)
 
     log("engine: " + json.dumps({"card": smi, "numerics": "exact",
                                  "models": rates}))
@@ -4344,6 +4653,7 @@ def main():
                               "b1_request": seq_profiles,
                               "codispatch_unfused_windows": seq_unfused}))
     log("frontend: " + json.dumps(fe_summary))
+    log("mesh: " + json.dumps(mesh_summary))
     line = []
     for name, meta in KERNELS.items():
         s = stats[name]
@@ -4369,6 +4679,8 @@ def main():
             "seq_launches": seq_counts[name],
             # the frontend phase's requests (engine, HTTP, router)
             "frontend_launches": fe_counts[name],
+            # the mesh phase's, both processes
+            "mesh_launches": mesh_counts[name],
         })
     for name, meta in MMA_KERNELS.items():
         s = mma_stats[name]
@@ -4388,6 +4700,7 @@ def main():
             "detect_launches": detect_counts[name],
             "seq_launches": seq_counts[name],
             "frontend_launches": fe_counts[name],
+            "mesh_launches": mesh_counts[name],
         })
     for name, meta in HYBRID_KERNELS.items():
         s = hybrid_stats
@@ -4403,6 +4716,7 @@ def main():
             "mobilenet_v2_dynrange_b1_launches": s["launches_b1"],
             "seq_launches": seq_counts[name],
             "frontend_launches": fe_counts[name],
+            "mesh_launches": mesh_counts[name],
         })
     log(json.dumps({"kernels": line}))
     log(f"card: {smi}")
@@ -4413,4 +4727,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-child":
+        sys.exit(mesh_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

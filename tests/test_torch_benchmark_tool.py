@@ -5,8 +5,8 @@ short periodic, stream and workload runs serve, the report has
 band_tpu's keys on the same fc_int8 config, a stream config with
 co_dispatch 2 fuses its rounds, image-fed configs parse as band_tpu's
 do (ROADMAP A13, ported; served in tests/test_torch_frontends.py), and
-distributed configs are refused with the ROADMAP item that brings
-them."""
+so do distributed configs (A15; served in
+tests/test_torch_multiprocess.py)."""
 
 import copy
 import os
@@ -200,15 +200,18 @@ def test_failed_prewarm_warns(monkeypatch):
                       "num_processes": 2, "process_id": 0}}, "A15"),
 ])
 def test_image_and_distributed_are_refused(ask, item):
-    """A distributed config is refused naming A15.  An image-fed one
-    (A13, ported in the data-plane slice) is no longer refused: it parses
-    with its image path, as band_tpu's does."""
+    """Neither is refused any more: an image-fed config (A13, the data
+    plane) parses with its image path, and a distributed one (A15) with
+    its cluster, as band_tpu's do (served on two processes in
+    tests/test_torch_multiprocess.py)."""
     d = dict(_config(), **ask)
+    cfg = tbench.BenchmarkConfig.from_dict(d)
+    ref = jbench.BenchmarkConfig.from_dict(d)
     if item == "A13":
-        cfg = tbench.BenchmarkConfig.from_dict(d)
         assert cfg.models[0].image == "cat.jpg"
-        assert cfg.models[0].image == (
-            jbench.BenchmarkConfig.from_dict(d).models[0].image)
+        assert cfg.models[0].image == ref.models[0].image
         return
-    with pytest.raises(tb.ConfigError, match=item):
-        tbench.BenchmarkConfig.from_dict(d)
+    got, want = cfg.runtime.distributed, ref.runtime.distributed
+    assert got.enabled and (got.coordinator_address, got.num_processes,
+                            got.process_id) == (
+        want.coordinator_address, want.num_processes, want.process_id)

@@ -2,8 +2,9 @@
 same outputs as band_tpu's Engine for sync and async requests, and the
 TFLite goldens for every request, byte for byte (tolerance 0).  Plus
 the engine's refusals: a GPU worker without CUDA, every config part
-that is not ported yet, and an unknown per-model numerics; and the
-config parts served since they were ported."""
+that is not ported, a mesh beyond the device pool, a distributed block
+without a cluster, and an unknown per-model numerics; and the config
+parts served since they were ported."""
 
 import os
 
@@ -119,15 +120,21 @@ def _sched(b, s):
 
 
 def _refused_configs():
+    """(config change, the refusal's message).  Meshes and distributed
+    blocks are served since ROADMAP A15; what stays refused there is a
+    mesh beyond the device pool (never wrapped onto fewer devices) and a
+    distributed block that names no process of a cluster."""
     return {
-        "mesh": lambda b: setattr(
-            b._cfg.worker.workers[0], "device_ids", (0, 1)),
-        "distributed": lambda b: setattr(
+        "mesh": (lambda b: setattr(
+            b._cfg.worker.workers[0], "device_ids", (0, 8)),
+            "only 8 CPU devices present"),
+        "distributed": (lambda b: setattr(
             b._cfg.distributed, "coordinator_address", "localhost:1234"),
-        "compilation_cache": lambda b: setattr(
-            b._cfg, "compilation_cache_dir", "cache"),
-        "backend": lambda b: setattr(
-            b._cfg.worker.workers[0], "backend", "xla"),
+            "needs coordinator_address, num_processes and process_id"),
+        "compilation_cache": (lambda b: setattr(
+            b._cfg, "compilation_cache_dir", "cache"), "not ported"),
+        "backend": (lambda b: setattr(
+            b._cfg.worker.workers[0], "backend", "xla"), "not ported"),
     }
 
 
@@ -148,6 +155,8 @@ def _served_configs():
             b._cfg, "link_costs", {"h2d": [10.0, 1000.0]}),
         "probe_link_costs": lambda b: setattr(
             b._cfg, "probe_link_costs", True),
+        "mesh": lambda b: setattr(
+            b._cfg.worker.workers[0], "device_ids", (0, 1)),
     }
 
 
@@ -156,8 +165,9 @@ def test_unported_config_is_refused(ask):
     b = tb.RuntimeConfigBuilder().add_worker(
         tb.WorkerSpec(device=tb.DeviceFlag.CPU, device_ids=(0,)))
     b.add_scheduler(tb.SchedulerType.FIXED_WORKER)
-    _refused_configs()[ask](b)
-    with pytest.raises(tb.ConfigError, match="not ported"):
+    change, message = _refused_configs()[ask]
+    change(b)
+    with pytest.raises(tb.ConfigError, match=message):
         tb.Engine.create(b._cfg)
 
 
@@ -186,6 +196,8 @@ def test_ported_config_is_served(ask):
             assert eng.workers[0].spec.co_dispatch == 2
         if ask == "monitor":
             assert eng.resource_monitor._thread.is_alive()
+        if ask == "mesh":
+            assert eng._worker_meshes[0].shape == {"dp": 1, "tp": 2}
         mid, sync, burst = _serve(eng, tb, "fc_int8", xs)
         for i, out in enumerate(sync):
             np.testing.assert_array_equal(out, want[i])

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: importing it loads neither jax nor
-band_tpu (nor PIL, grpc, protobuf or TensorFlow), no file of the port
-(nor chip_smoke.py) imports jax or band_tpu, and only the gRPC front-end
+"""The PyTorch port stands alone: importing it (its parallel package
+included) loads neither jax nor band_tpu (nor PIL, grpc, protobuf or
+TensorFlow), no file of the port (nor chip_smoke.py) imports jax or
+band_tpu, and only the gRPC front-end
 imports grpc or protobuf at module level."""
 
 import glob
@@ -36,6 +37,9 @@ def test_import_leaves_jax_and_band_tpu_out():
         "import band_tpu_torch.tools.evaluate\n"
         "import band_tpu_torch.tools.preprocess_bench\n"
         "import band_tpu_torch.c._embed, band_tpu_torch.c.build\n"
+        "import band_tpu_torch.parallel.distributed\n"
+        "import band_tpu_torch.parallel.mesh, band_tpu_torch.parallel.spmd\n"
+        "import band_tpu_torch.parallel.sharding\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'band_tpu',\n"
         "                                    'PIL', 'grpc', 'tensorflow')\n"
