@@ -49,7 +49,8 @@ from ..common import SubgraphKey, bucket_of
 from ..errors import ExecutionError
 from ..ir.graph import Graph
 from ..ops.quant import torch_dtype
-from .program import SubgraphProgram, build_program, params_from_jax
+from .program import (SubgraphProgram, build_program, params_from_jax,
+                      spans_off)
 
 
 def to_device(v, device: torch.device) -> torch.Tensor:
@@ -355,7 +356,7 @@ def _capture(combo: ComboProgram) -> None:
                             dtype=torch_dtype(dtype), device=dev)
                 for shape, dtype in ex._programs[key].input_specs])
         graph = torch.cuda.CUDAGraph()
-        with K.recording() as tally, torch.inference_mode():
+        with K.recording() as tally, torch.inference_mode(), spans_off():
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outs = [ex._fns[key](ex._params[key], ins)
                         for (key, _), ex, ins in zip(

@@ -18,13 +18,14 @@ B4          qmatmul.qmatmul_fast       band_tpu/ops/pallas/qmatmul.py:42
 B4 hybrid   qmatmul.qmatmul_hybrid     band_tpu/ops/lowerings.py:971-995 (jnp.dot + float32 rescale, no Pallas)
 B2 fast     qconv.qconv2d_fast         band_tpu/ops/lowerings.py:563-575 (XLA conv + requantize_fast)
 B2 mma      csrc/qconv_mma.cuh         B2's and B2 fast's general branch (counted apart as well)
+B2 hybrid   qconv.qconv2d_hybrid       band_tpu/ops/lowerings.py:2133-2163 (XLA phase convs, no Pallas; fault C9)
 B3 fast     qdwconv.qdwconv2d_fast     band_tpu/ops/lowerings.py:943-964 (XLA conv + requantize_fast)
 softmax     softmax.lut_softmax        band_tpu/ops/quant.py:443 (XLA, no Pallas)
 ==========  =========================  =======================================
 """
 
 from .qconv import (qconv2d_exact, qconv2d_fast, qconv2d_fast_plain,  # noqa: F401
-                    qconv2d_plain)
+                    qconv2d_hybrid, qconv2d_hybrid_plain, qconv2d_plain)
 from .qdwconv import (qdwconv2d_exact, qdwconv2d_fast,  # noqa: F401
                       qdwconv2d_fast_plain, qdwconv2d_plain)
 from .qmatmul import (gemm_plan, qmatmul_exact, qmatmul_fast,  # noqa: F401
@@ -40,7 +41,7 @@ LAUNCHES = {
     for c in (_qm.launches, _qc.launches, _qd.launches, _sm.launches,
               _qm.fast_launches, _qc.fast_launches, _qd.fast_launches,
               _qm.hybrid_launches,
-              _qc.mma_launches, _qc.fast_mma_launches)
+              _qc.mma_launches, _qc.fast_mma_launches, _qc.hybrid_launches)
 }
 
 

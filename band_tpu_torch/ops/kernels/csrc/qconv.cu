@@ -355,7 +355,7 @@ int launch_qconv(const void* x, const void* w, void* out, int n, int h,
   if (p.branch == 1)
     return static_cast<int>(launch_mma(
         p.variant, p.th, p.tw, p.ph, p.pw, p.slabs, p.gather != 0, p.gx,
-        p.gy, p.smem, s, px, pw, po, n, h, wd, ci, oh, ow, oc, kh, kw, sh,
+        p.gy, p.smem, s, px, pw, out, n, h, wd, ci, oh, ow, oc, kh, kw, sh,
         sw, dh, dw, pt, pl, x_zp, ep));
   if (p.branch != 2) return static_cast<int>(cudaErrorInvalidValue);
   const int M = n * oh * ow;
@@ -411,4 +411,28 @@ extern "C" int band_qconv2d_fast(
                    gz, threads, smem, slabs, gather};
   return launch_qconv(x, w, out, n, h, wd, ci, oh, ow, oc, kh, kw, sh, sw, dh,
                       dw, pt, pl, x_zp, ep, p, stream);
+}
+
+// The hybrid instance (qconv.py qconv2d_hybrid): int8 codes of a float
+// input quantized per request, int8 weights without zero point, float32
+// out through HybridConvEpilogue; always the mma branch (the direct
+// kernel writes int8 only), its plan from qconv.py general_plan.
+extern "C" int band_qconv2d_hybrid(
+    const void* x, const void* w, const void* bias, const void* w_scale,
+    const void* colsum, const void* zp, const void* scale, void* out, int n,
+    int h, int wd, int ci, int oh, int ow, int oc, int kh, int kw, int sh,
+    int sw, int dh, int dw, int pt, int pl, int variant, int th, int tw,
+    int ph, int pw, int gx, int gy, int smem, int slabs, int gather,
+    void* stream) {
+  using namespace band;
+  const HybridConvEpilogue ep{static_cast<const float*>(bias),
+                              static_cast<const float*>(w_scale),
+                              static_cast<const int32_t*>(colsum),
+                              static_cast<const float*>(zp),
+                              static_cast<const float*>(scale), 0, 0.f};
+  return static_cast<int>(launch_mma(
+      variant, th, tw, ph, pw, slabs, gather != 0, gx, gy, smem,
+      static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(x),
+      static_cast<const int8_t*>(w), out, n, h, wd, ci, oh, ow, oc, kh, kw,
+      sh, sw, dh, dw, pt, pl, 0, ep));
 }

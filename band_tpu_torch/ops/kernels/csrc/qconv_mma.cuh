@@ -1,8 +1,10 @@
 // B2's general branch on Hopper's tensor cores: an implicit GEMM of an int8
 // NHWC convolution from an input patch staged in shared memory, with the
-// requant epilogue fused (requant.cuh: exact or fast).  Included by
-// qconv.cu, whose conv_plan routes here every conv that its direct kernel
-// does not take.
+// requant epilogue fused (requant.cuh: exact or fast, or the hybrid one
+// with float32 out, whose padded taps take each image's own zero point).
+// Included by qconv.cu, whose conv_plan routes here every conv that its
+// direct kernel does not take, and whose band_qconv2d_hybrid launches it
+// for a dynamic-range TRANSPOSE_CONV's union conv (its time: PERF.md).
 //
 // What bounds it on the H100.  FSRCNN x2 at 360x640 sends this branch its
 // deconv (one union conv of the four sub-pixel phases: 5x5 taps, Ci 56,
@@ -153,15 +155,16 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
 // The patch of one group: ph x pw pixels of gs * 16 bytes from channel
 // cbase, pixel (py, px) at input (iy0 + py ssh, ix0 + px ssw), V bytes a
 // copy (V divides Ci, so a copy lies wholly below or wholly past Ci):
-// cp.async inside the image (zeros past Ci), x_zp bytes outside it (zeros
-// past Ci).
+// cp.async inside the image (zeros past Ci), ``pad`` bytes outside it
+// (zeros past Ci): x_zp, or a hybrid image's own zero point.
 template <int V>
 __device__ __forceinline__ void stage_patch(uint8_t* s_x, const int8_t* img,
                                             const MmaGeom& g, int iy0,
-                                            int ix0, int cbase, int tid) {
+                                            int ix0, int cbase, int pad,
+                                            int tid) {
   const int cpp = g.gs * kChunk / V;
   const int items = g.ph * g.pw * cpp;
-  const uint32_t zp4 = static_cast<uint32_t>(static_cast<uint8_t>(g.x_zp)) *
+  const uint32_t zp4 = static_cast<uint32_t>(static_cast<uint8_t>(pad)) *
                        0x01010101u;
 #pragma unroll 4
   for (int i = tid; i < items; i += kMmaThreads) {
@@ -232,7 +235,9 @@ __device__ __forceinline__ void stage_weights(uint8_t* s_w, const int8_t* w,
   }
 }
 
-// out[n, oy, ox, n0 + j] for the block's th x tw pixels and BN columns;
+// out[n, oy, ox, n0 + j] for the block's th x tw pixels and BN columns
+// (int8, or float32 for the hybrid epilogue, which is bound to image n:
+// its zero point fills the padded taps);
 // MI m16 tiles a warp (BM = 64 MI pixels), NJ n8 tiles (BN = 8 NJ).
 // SPLIT: more than one group, whose sums go through uint32 totals.  A
 // single group keeps no totals, so fewer registers and more blocks an SM
@@ -241,7 +246,8 @@ __device__ __forceinline__ void stage_weights(uint8_t* s_w, const int8_t* w,
 template <int MI, int NJ, bool SPLIT, class Ep>
 __global__ void __launch_bounds__(kMmaThreads)
     qconv_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                     int8_t* __restrict__ out, MmaGeom g, Ep ep) {
+                     typename Ep::Out* __restrict__ out, MmaGeom g,
+                     const Ep ep_all) {
   constexpr int BN = 8 * NJ;
   extern __shared__ __align__(16) uint8_t sbuf[];
   const int tid = threadIdx.x;
@@ -255,6 +261,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   b /= g.tiles_x;
   const int by = b % g.tiles_y;
   const int n = b / g.tiles_y;
+  Ep ep = ep_all;
+  ep.bind(n);
+  const int pad = ep.fill(g.x_zp);
   const int oy0 = by * g.th;
   const int ox0 = bx * g.tw;
   const int n0 = blockIdx.y * BN;
@@ -334,10 +343,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int ixg = ix0 + (tg - tdy * g.kw) * g.dw;
     if (grp > 0) __syncthreads();  // every warp is done with the last group
     switch (g.vx) {
-      case 16: stage_patch<16>(s_x, img, g, iyg, ixg, cbase, tid); break;
-      case 8: stage_patch<8>(s_x, img, g, iyg, ixg, cbase, tid); break;
-      case 4: stage_patch<4>(s_x, img, g, iyg, ixg, cbase, tid); break;
-      default: stage_patch<1>(s_x, img, g, iyg, ixg, cbase, tid);
+      case 16: stage_patch<16>(s_x, img, g, iyg, ixg, cbase, pad, tid); break;
+      case 8: stage_patch<8>(s_x, img, g, iyg, ixg, cbase, pad, tid); break;
+      case 4: stage_patch<4>(s_x, img, g, iyg, ixg, cbase, pad, tid); break;
+      default: stage_patch<1>(s_x, img, g, iyg, ixg, cbase, pad, tid);
     }
     stage_weights<BN>(s_w, w, g, n0, tg, cbase, nchunks, 32 * ksteps, tid);
     cp_async_wait_all();
@@ -410,7 +419,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int oy = oy0 + ty;
       const int ox = ox0 + m - ty * g.tw;
       if (oy >= g.OH || ox >= g.OW) continue;
-      int8_t* o = out + ((static_cast<size_t>(n) * g.OH + oy) * g.OW + ox) * g.Oc;
+      typename Ep::Out* o =
+          out + ((static_cast<size_t>(n) * g.OH + oy) * g.OW + ox) * g.Oc;
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -432,8 +442,9 @@ inline int mma_copy_width(const void* p, int len) {
 
 template <int MI, int NJ, class Ep>
 cudaError_t launch_mma_tile(dim3 grid, int smem, cudaStream_t s,
-                            const int8_t* x, const int8_t* w, int8_t* out,
-                            const MmaGeom& g, const Ep& ep) {
+                            const int8_t* x, const int8_t* w,
+                            typename Ep::Out* out, const MmaGeom& g,
+                            const Ep& ep) {
   const bool split = g.taps * g.groups > 1;
   const auto kernel = split ? qconv_mma_kernel<MI, NJ, true, Ep>
                             : qconv_mma_kernel<MI, NJ, false, Ep>;
@@ -449,11 +460,11 @@ cudaError_t launch_mma_tile(dim3 grid, int smem, cudaStream_t s,
 // An mma launch from conv_plan's plan: N tile index nt (BN = 8 << nt),
 // tile th x tw (64 MI pixels), patch ph x pw, gs slabs a group, gathering
 // or not, grid and shared memory, each checked against what the shape
-// gives.
+// gives.  ``out_v`` holds Ep::Out elements.
 template <class Ep>
 cudaError_t launch_mma(int nt, int th, int tw, int ph, int pw, int gs,
                        bool gather, int gx, int gy, int smem, cudaStream_t s,
-                       const int8_t* x, const int8_t* w, int8_t* out, int n,
+                       const int8_t* x, const int8_t* w, void* out_v, int n,
                        int h, int wd, int ci, int oh, int ow, int oc, int kh,
                        int kw, int sh, int sw, int dh, int dw, int pt, int pl,
                        int x_zp, const Ep& ep) {
@@ -492,6 +503,7 @@ cudaError_t launch_mma(int nt, int th, int tw, int ph, int pw, int gs,
   g.by_pw = FastDiv(pw);
   g.by_gs = FastDiv(gs);
   g.by_kw = FastDiv(g.tkw);
+  typename Ep::Out* out = static_cast<typename Ep::Out*>(out_v);
   const dim3 grid(gx, gy);
   const int mi = th * tw / 64;
   switch (3 * (mi / 4) + nt) {  // (MI 2 or 4, NJ 1, 2 or 4)

@@ -1,8 +1,9 @@
 // The requantization epilogues shared by the int8 kernels: the bit-exact
 // TFLite one (Epilogue), the float32 one of fast numerics (FastEpilogue),
 // and the float32-output one of dynamic-range (hybrid) models
-// (HybridEpilogue, the GEMM's only).  The kernels take one as a template
-// parameter; ``Out`` is the type of the output element it gives.
+// (HybridEpilogue, the GEMM's; HybridConvEpilogue, the conv's).  The
+// kernels take one as a template parameter; ``Out`` is the type of the
+// output element it gives.
 //
 // Replaces the requant that band_tpu traces into every exact Pallas
 // kernel (band_tpu/ops/quant.py:286 multiply_by_quantized_multiplier and
@@ -97,6 +98,11 @@ struct Epilogue {
                                                int c) const {
     return apply(acc, wsum, params(c));
   }
+
+  // the conv kernels' per-image hooks (qconv_mma.cuh): nothing depends on
+  // the image, and padded taps read the static x_zp
+  __device__ __forceinline__ void bind(int) {}
+  __device__ __forceinline__ int fill(int x_zp) const { return x_zp; }
 };
 
 // Fast-numerics epilogue: the float32 requant of band_tpu's fast path
@@ -144,6 +150,9 @@ struct FastEpilogue {
                                                int c) const {
     return apply(acc, wsum, params(c));
   }
+
+  __device__ __forceinline__ void bind(int) {}
+  __device__ __forceinline__ int fill(int x_zp) const { return x_zp; }
 };
 
 // Dynamic-range (hybrid) epilogue: float activations quantized per row
@@ -193,6 +202,53 @@ struct HybridEpilogue {
     if (bias != nullptr) v = __fadd_rn(v, p.bias);
     if (act == 1) v = v < 0.f ? 0.f : v;
     if (act == 2) v = v < 0.f ? 0.f : (v > 6.f ? 6.f : v);
+    return v;
+  }
+};
+
+// Dynamic-range (hybrid) epilogue of the conv (qconv_mma.cuh): a
+// TRANSPOSE_CONV's union conv over int8 codes q of a float input quantized
+// per request (image n: zero point zp[n], scale[n]), int8 weights with no
+// zero point and a float32 scale per column.  TFLite 2.21's hybrid
+// TRANSPOSE_CONV (fault C9 in ROADMAP.md): an int32 sum of (q - zp) * w
+// over the taps inside the image, then float32.  The kernel fills padded
+// taps with the image's own zp (``fill``), so
+//   a = acc - zp[n] * colsum[c]            (uint32: exact, |a| < 2^31)
+// is that sum, padding included; then
+//   v = float32(a) * (scale[n] * w_scale[c])   (__int2float_rn, _rn products)
+//   v = v + bias[c]                             (when there is a bias)
+// one rounding a step, as the plain version's float32 steps in PyTorch.
+struct HybridConvEpilogue {
+  using Out = float;
+  static constexpr int w_zp = 0;
+  const float* bias;       // [Oc], or null
+  const float* w_scale;    // [Oc]
+  const int32_t* colsum;   // [Oc] column sums of the weights
+  const float* zp;         // [N] integers in [-128, 127]
+  const float* scale;      // [N]
+  int izp;                 // the bound image's zero point
+  float iscale;            // and scale
+
+  struct Params {
+    float bias, w_scale;
+    int32_t colsum;
+  };
+  __device__ __forceinline__ Params params(int c) const {
+    return Params{bias != nullptr ? bias[c] : 0.f, w_scale[c], colsum[c]};
+  }
+  __device__ __forceinline__ void bind(int n) {
+    izp = __float2int_rn(zp[n]);
+    iscale = scale[n];
+  }
+  __device__ __forceinline__ int fill(int) const { return izp; }
+
+  __device__ __forceinline__ float apply(int32_t acc, int32_t,
+                                         const Params& p) const {
+    const int32_t a = static_cast<int32_t>(
+        static_cast<uint32_t>(acc) -
+        static_cast<uint32_t>(izp) * static_cast<uint32_t>(p.colsum));
+    float v = __fmul_rn(__int2float_rn(a), __fmul_rn(iscale, p.w_scale));
+    if (bias != nullptr) v = __fadd_rn(v, p.bias);
     return v;
   }
 };

@@ -23,6 +23,16 @@ bounds each.
 ``qconv2d_fast`` is the same kernel with the float32 epilogue of fast
 numerics, which on the TPU was XLA's conv followed by
 ``requantize_fast`` (band_tpu/ops/lowerings.py:563-575).
+
+``qconv2d_hybrid`` is the mma branch with a float32-output epilogue
+(requant.cuh HybridConvEpilogue): a dynamic-range TRANSPOSE_CONV's union
+conv over the int8 codes of a float input quantized per request, each
+request's padded taps filled with its own zero point.  band_tpu ran the
+hybrid deconv as XLA convs of the weight codes (band_tpu/ops/
+lowerings.py:2133-2134, without their scale: fault C9 in ROADMAP.md);
+the port follows TFLite 2.21's integer form.  A float32 cuDNN conv of
+the residuals would be exact only below 2^24, and a 9x9 deconv's phase
+sums up to 25 * 56 * 255 * 127 ~ 4.5e7.
 """
 
 from __future__ import annotations
@@ -45,11 +55,15 @@ fast_launches = LaunchCount("qconv2d_fast")
 # the launches of each that took the mma branch (csrc/qconv_mma.cuh)
 mma_launches = LaunchCount("qconv2d_exact_mma")
 fast_mma_launches = LaunchCount("qconv2d_fast_mma")
+hybrid_launches = LaunchCount("qconv2d_hybrid")
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 35 + [ctypes.c_void_p]
 _FAST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 34 + [ctypes.c_void_p]
+_HYBRID_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 25
+                    + [ctypes.c_void_p])
 _fn = None
 _fast_fn = None
+_hybrid_fn = None
 
 # The direct kernel's variants (channels, output pixels of a thread), in
 # the order of the switch in csrc/qconv.cu.
@@ -459,4 +473,88 @@ def qconv2d_fast(x, w_km, bias, mult, kh, kw, stride=(1, 1),
     fast_launches.add()
     if p.branch == "mma":
         fast_mma_launches.add()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def hybrid_plan(n: int, oh: int, ow: int, ci: int, oc: int, kh: int,
+                kw: int, stride, dilation) -> ConvPlan:
+    """qconv2d_hybrid's plan: the mma branch's (general_plan), whatever
+    the shape: the direct kernel has no float32 epilogue."""
+    return general_plan(n, oh, ow, ci, oc, kh, kw, tuple(stride),
+                        tuple(dilation))
+
+
+def qconv2d_hybrid_plain(x, w_km, w_scale, colsum, zp, scale, bias=None,
+                         kh=1, kw=1, stride=(1, 1), dilation=(1, 1),
+                         padding=((0, 0), (0, 0))):
+    """qconv2d_hybrid in plain PyTorch: the int32 sum of (q - zp[n]) *
+    w over each window (a float64 convolution of the residuals,
+    zero-padded: exact), wrapped to int32 as the kernel's, then the
+    epilogue's float32 steps, each rounded once.  ``colsum`` is not
+    read: the residuals carry the zero point."""
+    (pt, pb), (pl, pr) = padding
+    n, h, w, ci = x.shape
+    oc = w_km.shape[1]
+    r = x.to(torch.float64) - zp.to(torch.float64).reshape(n, 1, 1, 1)
+    rp = F.pad(r.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    wt = w_km.to(torch.float64).reshape(kh, kw, ci, oc).permute(3, 2, 0, 1)
+    acc = F.conv2d(rp, wt, stride=tuple(stride), dilation=tuple(dilation))
+    a = Q.wrap32(acc.permute(0, 2, 3, 1).to(torch.int64)).to(torch.float32)
+    v = a * (scale.reshape(n, 1, 1, 1) * w_scale)
+    return v + bias if bias is not None else v
+
+
+def _check_hybrid(x, w_km, w_scale, colsum, zp, scale, bias, oc):
+    dev = x.device
+    n = x.shape[0]
+    for t, name, size in ((w_scale, "w_scale", oc), (zp, "zp", n),
+                          (scale, "scale", n)):
+        check_tensor(t, name, torch.float32, 1, dev)
+        require(t.numel() == size, f"{name} has {t.numel()} != {size}")
+    check_tensor(colsum, "colsum", torch.int32, 1, dev)
+    require(colsum.numel() == oc, f"colsum has {colsum.numel()} != {oc}")
+    if bias is not None:
+        check_tensor(bias, "bias", torch.float32, 1, dev)
+        require(bias.numel() == oc, f"bias has {bias.numel()} != {oc}")
+
+
+def qconv2d_hybrid(x, w_km, w_scale, colsum, zp, scale, bias=None, kh=1,
+                   kw=1, stride=(1, 1), dilation=(1, 1),
+                   padding=((0, 0), (0, 0))):
+    """out[N, OH, OW, Oc] float32 = (sum over the window of q * w -
+    zp[n] * colsum[c]) * (scale[n] * w_scale[c]) + bias[c], the window
+    padded by ``padding`` with each image's own zp[n], so a padded tap
+    adds (zp - zp) * w = 0.
+
+    x int8 [N, H, W, Ci] (the codes of image n quantized with zero point
+    zp[n] and scale[n]: quant.asym_quant_rows); w_km int8 [kh*kw*Ci, Oc]
+    without zero point; colsum int32 [Oc] its column sums; w_scale and
+    bias (None for none) float32 [Oc]; zp and scale float32 [N].  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    global _hybrid_fn
+    n, h, w, ci, oc, oh, ow, (sh, sw), (dh, dw), pads = _geometry(
+        x, w_km, kh, kw, stride, dilation, padding)
+    (pt, pb), (pl, pr) = pads
+    _check_hybrid(x, w_km, w_scale, colsum, zp, scale, bias, oc)
+    if not on_card(x):
+        return qconv2d_hybrid_plain(x, w_km, w_scale, colsum, zp, scale,
+                                    bias, kh, kw, (sh, sw), (dh, dw), pads)
+    require(n * oh * ow < 2**31 and x.numel() < 2**31,
+            "tensor too large for 32-bit indexing")
+    out = torch.empty((n, oh, ow, oc), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    if _hybrid_fn is None:
+        _hybrid_fn = build.bind("qconv", "band_qconv2d_hybrid",
+                                _HYBRID_ARGTYPES)
+    p = hybrid_plan(n, oh, ow, ci, oc, kh, kw, (sh, sw), (dh, dw))
+    opt = build.ptr(bias) if bias is not None else ctypes.c_void_p(None)
+    build.launch(_hybrid_fn, x.device, build.ptr(x), build.ptr(w_km), opt,
+                 build.ptr(w_scale), build.ptr(colsum), build.ptr(zp),
+                 build.ptr(scale), build.ptr(out), n, h, w, ci, oh, ow, oc,
+                 kh, kw, sh, sw, dh, dw, pt, pl, p.variant, *p.tile,
+                 *p.patch, p.grid[0], p.grid[1], p.smem, p.slabs,
+                 int(p.gather))
+    hybrid_launches.add()
     return out

@@ -54,11 +54,27 @@ on a card while the TF32 flag that would change it is on), or, with int8
 weights, band_tpu's hybrid semantics: each request's input quantized by
 its own range at run time (quant.asym_quant_rows), the FC and the 1x1
 convs on kernel qmatmul_hybrid, the other convs as float32 convs of the
-residuals.  ADD, SUB, MUL, the pools, MEAN, SOFTMAX, RELU, RELU6 and the
-structural ops take float tensors as band_tpu does.
+residuals.  TRANSPOSE_CONV: float, one F.conv_transpose2d under the same
+TF32 rule; hybrid, TFLite 2.21's integer form (band_tpu's differs: fault
+C9 in ROADMAP.md), the union conv of its sub-pixel phases as one launch
+of kernel B2's hybrid instance (qconv2d_hybrid, float32 out), each
+request's padded taps filled with its own zero point.  ADD, SUB, MUL,
+the pools, MEAN, SOFTMAX, RELU, RELU6 and the structural ops take float
+tensors as band_tpu does.
 
-The op set is band_tpu's whole registry (119 op types); float and
-hybrid TRANSPOSE_CONV raise LoweringError.  The support op set (casts,
+The op set is band_tpu's whole registry (119 op types), with the forms
+band_tpu computes: any PRELU alpha that broadcasts, constant or runtime
+(exact int8 per element in int64 where no per-channel table fits);
+STRIDED_SLICE's negative strides and, as TFLite has them, its ellipsis
+and new-axis masks (band_tpu ignores the masks: fault C10); constant and
+per-channel DEQUANTIZE; per-channel QUANTIZE of a float input, as TFLite
+(band_tpu applies channel 0's parameters to all: fault C11); runtime
+LSTM operands.  Still refused, each with its reason in ROADMAP.md A.4:
+hybrid weights other than int8 with zero point 0, runtime int8 FC
+weights, the 16-bit LOGISTIC, TANH and ELU, a requantize to a
+per-channel output, a SLICE with a runtime size outside the TensorArray
+write, SEGMENT_SUM with runtime ids and no static segment count.  The
+support op set (casts,
 comparisons, select, reductions, integer division, index, move,
 segment, spectral and 3-D ops) runs as PyTorch ops on the tensor's
 device, TOPK_V2 on a packed key that orders ties by index.
@@ -86,8 +102,8 @@ from ..errors import LoweringError
 from ..ir.graph import Graph, OpNode, QuantParams, TensorDef
 from . import quant as Q
 from .kernels import (lut_softmax, qconv2d_exact, qconv2d_fast,
-                      qdwconv2d_exact, qdwconv2d_fast, qmatmul_exact,
-                      qmatmul_fast, qmatmul_hybrid)
+                      qconv2d_hybrid, qdwconv2d_exact, qdwconv2d_fast,
+                      qmatmul_exact, qmatmul_fast, qmatmul_hybrid)
 from .kernels.qmatmul import HYBRID_ACTIVATIONS
 from .registry import register
 
@@ -234,7 +250,8 @@ def _hybrid_weights(graph: Graph, op: OpNode) -> bool:
     if w_td.dtype != np.int8 or np.any(w_td.quant.zero_point != 0):
         raise LoweringError(
             f"{op.opname} op {op.index}: hybrid weights must be int8 with "
-            "zero point 0")
+            "zero point 0 (what TFLite's dynamic-range converter writes; "
+            "TFLite's hybrid kernels ignore a weight zero point)")
     return True
 
 
@@ -285,14 +302,19 @@ def tf32_on(flag: str) -> bool:
 
 def tf32_flag(graph: Graph, op: OpNode) -> Optional[str]:
     """The flag that must be off for ``op`` on a card, or None: float and
-    hybrid convs other than the hybrid 1x1 ones (cuDNN), float
-    FULLY_CONNECTED and BATCH_MATMUL (cuBLAS), CONV_3D (cuDNN).  The
+    hybrid convs other than the hybrid 1x1 ones (cuDNN), the float
+    TRANSPOSE_CONV (cuDNN), float FULLY_CONNECTED and BATCH_MATMUL
+    (cuBLAS), CONV_3D (cuDNN).  The hybrid TRANSPOSE_CONV runs B2.  The
     hybrid GEMMs run the int8 kernel and take no flag; the sequence LSTM
     (cuBLAS, also the float simulation of the int8 one)."""
     if op.opname in ("BATCH_MATMUL", "UNIDIRECTIONAL_SEQUENCE_LSTM"):
         return TF32_MATMUL
     if op.opname == "CONV_3D":
         return TF32_CONV
+    if op.opname == "TRANSPOSE_CONV":
+        float_weights = graph.tensor(op.inputs[1]).dtype.kind == "f"
+        return (TF32_CONV if _float_tconv(graph, op) and float_weights
+                else None)
     if op.opname not in ("CONV_2D", "DEPTHWISE_CONV_2D", "FULLY_CONNECTED") \
             or op.is_custom or not _float_input(graph, op):
         return None
@@ -663,7 +685,8 @@ def _prepare_fc(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
         if w_td.dtype.kind != "f" or not _float_input(graph, op):
             raise LoweringError(
                 f"FULLY_CONNECTED op {op.index}: runtime int8 weights (a "
-                "control-flow subgraph's input) are not ported to PyTorch")
+                "control-flow subgraph's input) are refused, as band_tpu "
+                "refuses them: no model makes them")
         # runtime float weights or bias (a loop body's or an IF branch's
         # input): read at run time
         return _constant_inputs(graph, op)
@@ -1072,14 +1095,35 @@ def _softmax(ctx: LowerCtx, op: OpNode) -> None:
 # QUANTIZE, DEQUANTIZE
 # --------------------------------------------------------------------------
 
+def _channel_shape(td: TensorDef) -> Tuple[int, ...]:
+    """[1, ..., C, ..., 1]: a per-channel vector of ``td``'s quantized
+    dimension, broadcasting over the tensor's model shape."""
+    shape = [1] * len(td.shape)
+    shape[td.quant.quantized_dimension] = -1
+    return tuple(shape)
+
+
 def _prepare_quantize(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
+    """Per-tensor: band_tpu's.  A per-channel output of a float input:
+    TFLite 2.21's PerChannelQuantize (band_tpu applies the first
+    channel's scale and zero point to every channel: fault C11 in
+    ROADMAP.md), ``scale`` and ``zp`` shaped along the quantized
+    dimension."""
     in_td = graph.tensor(op.inputs[0])
     out_td = graph.tensor(op.outputs[0])
-    if out_td.quant is None or out_td.quant.per_channel:
+    if out_td.quant is None:
         raise LoweringError(
-            f"QUANTIZE op {op.index}: only per-tensor quantized outputs are "
-            "ported to PyTorch yet"
-        )
+            f"QUANTIZE op {op.index}: the output has no quantization")
+    if out_td.quant.per_channel:
+        if in_td.quant is not None and in_td.dtype.kind != "f":
+            raise LoweringError(
+                f"QUANTIZE op {op.index}: a requantize to a per-channel "
+                "output (TFLite 2.21 writes zeros for it; no converter "
+                "emits it)")
+        shape = _channel_shape(out_td)
+        return {"scale": out_td.quant.scale.astype(np.float32).reshape(shape),
+                "zp": out_td.quant.zero_point.astype(np.float32).reshape(
+                    shape)}
     if in_td.quant is None or in_td.dtype.kind == "f":
         return {}
     s_i, _ = _scalar_qp(in_td.quant)
@@ -1095,6 +1139,14 @@ def _quantize_op(ctx: LowerCtx, op: OpNode) -> None:
     with ruy's rounding, clamped."""
     g = ctx.graph
     out_td = g.tensor(op.outputs[0])
+    if f"op{op.index}/scale" in ctx.params:
+        # TFLite's PerChannelQuantize: round(x / scale[c]) half away from
+        # zero (std::round) + zp[c], clamped
+        x = _lv(ctx, op, op.inputs[0]).to(torch.float32)
+        q = Q.std_round(x / ctx.param(op, "scale")) + ctx.param(op, "zp")
+        qmin, qmax = Q.quantized_range(out_td.dtype)
+        _put(ctx, op, q.clamp(qmin, qmax))
+        return
     s_o, zp_o = _scalar_qp(out_td.quant)
     x = ctx.arr(op.inputs[0])
     if not ctx.is_quantized(op.inputs[0]):
@@ -1112,19 +1164,40 @@ def _quantize_op(ctx: LowerCtx, op: OpNode) -> None:
 
 def _prepare_dequantize(graph: Graph, op: OpNode,
                         exact: bool) -> Dict[str, Any]:
+    """A constant (per-tensor or per-channel, band_tpu/ops/lowerings.py:
+    1709-1722): its float32 value, computed once as band_tpu computes it,
+    (int32(q) - zp) -> float32, times the float32 scale.  A per-channel
+    activation: ``scale`` and ``zp`` along its quantized dimension.  A
+    float input (an fp16 constant the parser did not fold) is refused."""
     td = graph.tensor(op.inputs[0])
-    if (td.quant is None or td.quant.per_channel or td.is_constant
-            or td.dtype.kind == "f"):
+    if td.quant is None or td.dtype.kind == "f":
         raise LoweringError(
-            f"DEQUANTIZE op {op.index}: only per-tensor quantized "
-            "activations are ported to PyTorch yet"
-        )
-    return {}
+            f"DEQUANTIZE op {op.index}: only quantized inputs are ported "
+            "to PyTorch (fp16 constants are folded by the parser)")
+    if not td.quant.per_channel and not td.is_constant:
+        return {}
+    shape = _channel_shape(td) if td.quant.per_channel else ()
+    scale = td.quant.scale.astype(np.float32).reshape(shape)
+    zp = td.quant.zero_point.astype(np.int32).reshape(shape)
+    if td.is_constant:
+        return {"value": np.asarray(
+            (td.data.astype(np.int32) - zp).astype(np.float32) * scale,
+            np.float32)}
+    return {"scale": scale, "zp": zp}
 
 
 @register("DEQUANTIZE", prepare=_prepare_dequantize)
 def _dequantize_op(ctx: LowerCtx, op: OpNode) -> None:
-    """(q - zp) * s in float32."""
+    """(q - zp) * s in float32; a constant's value prepared once; a
+    per-channel activation's zp and s broadcast along its channels."""
+    if f"op{op.index}/value" in ctx.params:
+        ctx.set(op.outputs[0], ctx.param(op, "value"))
+        return
+    if f"op{op.index}/scale" in ctx.params:
+        x = _lv(ctx, op, op.inputs[0])
+        ctx.set_view(op.outputs[0], (x.to(torch.int32) - ctx.param(
+            op, "zp")).to(torch.float32) * ctx.param(op, "scale"))
+        return
     s, zp = _scalar_qp(ctx.qp(op.inputs[0]))
     ctx.set(op.outputs[0], Q.dequantize(ctx.arr(op.inputs[0]), s, zp))
 
@@ -1156,7 +1229,9 @@ def _prepare_unary_lut(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     ):
         raise LoweringError(
             f"{op.opname} op {op.index}: only the 8-bit quantized and the "
-            "float32 forms are ported to PyTorch")
+            "float32 forms are ported (TFLite's 16-bit kernels interpolate "
+            "a fixed-point table that band_tpu's float form does not "
+            "reproduce)")
     xs, xzp = _scalar_qp(in_td.quant)
     os_, ozp = _scalar_qp(out_td.quant)
     return {"lut": Q.activation_lut(_LUT_TRANSFORMS[op.opname], xs, xzp,
@@ -1349,24 +1424,62 @@ def _shape(ctx: LowerCtx, op: OpNode) -> None:
 
 def _index_op(ctx: LowerCtx, op: OpNode) -> None:
     """STRIDED_SLICE and SLICE: the prepared model index behind the
-    request axis (band_tpu's under vmap)."""
-    out = _lv(ctx, op, op.inputs[0])[(slice(None),) + ctx.smeta(op, "index")]
+    request axis (band_tpu's under vmap); a STRIDED_SLICE with negative
+    strides, an ellipsis or new axes: one gather of the prepared source
+    positions (``gather``) from each request's flattened input."""
+    x = _lv(ctx, op, op.inputs[0])
+    if f"op{op.index}/gather" in ctx.params:
+        out = x.reshape(x.shape[0], -1)[:, ctx.param(op, "gather")]
+        ctx.set_view(op.outputs[0], out.reshape(
+            (x.shape[0],) + ctx.smeta(op, "out_shape")))
+        return
+    out = x[(slice(None),) + ctx.smeta(op, "index")]
     ctx.set_view(op.outputs[0], out.contiguous())
+
+
+def _strided_index(begin, end, strides, o) -> tuple:
+    """TFLite's (and TF's) STRIDED_SLICE spec as a numpy index: per spec
+    entry i, the first ellipsis bit an Ellipsis, a new-axis bit a new
+    axis, a shrink bit begin[i], else the slice begin:end:stride with the
+    begin and end masks (numpy's negative-stride slices are TF's)."""
+    index, ellipsis = [], False
+    for i in range(len(begin)):
+        if (o.get("ellipsis_mask", 0) >> i) & 1:
+            if not ellipsis:
+                index.append(Ellipsis)
+            ellipsis = True
+        elif (o.get("new_axis_mask", 0) >> i) & 1:
+            index.append(None)
+        elif (o.get("shrink_axis_mask", 0) >> i) & 1:
+            index.append(int(begin[i]))
+        else:
+            index.append(slice(
+                None if (o.get("begin_mask", 0) >> i) & 1 else int(begin[i]),
+                None if (o.get("end_mask", 0) >> i) & 1 else int(end[i]),
+                int(strides[i])))
+    return tuple(index)
 
 
 def _prepare_strided_slice(graph: Graph, op: OpNode,
                            exact: bool) -> Dict[str, Any]:
-    """The index as slices and ints (band_tpu/ops/lowerings.py:1516)."""
+    """The index as slices and ints (band_tpu/ops/lowerings.py:1516).  With
+    negative strides, an ellipsis mask or a new-axis mask, TFLite's full
+    semantics (band_tpu ignores the two masks: fault C10 in ROADMAP.md)
+    as the source position of every output element, gathered at run
+    time."""
     o = op.options
     begin = graph.tensor(op.inputs[1]).data.astype(np.int64)
     end = graph.tensor(op.inputs[2]).data.astype(np.int64)
     strides = graph.tensor(op.inputs[3]).data.astype(np.int64)
+    shape = graph.tensor(op.inputs[0]).shape
     if (o.get("ellipsis_mask", 0) or o.get("new_axis_mask", 0)
             or np.any(strides < 0)):
-        raise LoweringError(
-            f"STRIDED_SLICE op {op.index}: ellipsis and new-axis masks and "
-            "negative strides are not ported to PyTorch yet")
-    shape = graph.tensor(op.inputs[0]).shape
+        src = np.arange(int(np.prod(shape)), dtype=np.int64).reshape(
+            shape)[_strided_index(begin, end, strides, o)]
+        out = {"gather": np.ascontiguousarray(src.reshape(-1)),
+               "out_shape": tuple(int(v) for v in src.shape)}
+        out.update(_constant_inputs(graph, op))
+        return out
     index = []
     for d in range(len(begin)):
         if (o.get("shrink_axis_mask", 0) >> d) & 1:
@@ -1820,19 +1933,36 @@ def _alpha_table(x_td: TensorDef, out_td: TensorDef, alpha_q: np.ndarray,
     MBQM((x - zp_in) * alpha_q, M2) with M2 = s_in * s_alpha / s_out (both
     in float32, as TFLite's Prepare computes them), double rounding; plus
     zp_out, clamped to the dtype."""
+    m = _prelu_multipliers(x_td, out_td, alpha_scale)
+    xi = torch.from_numpy(_byte_values(x_td.dtype) - m["zp_in"])
+    a = torch.from_numpy(alpha_q.astype(np.int64).reshape(-1, 1))
+    return _prelu_fixed(xi, a, m, out_td.dtype).numpy().astype(out_td.dtype)
+
+
+def _prelu_multipliers(x_td: TensorDef, out_td: TensorDef,
+                       alpha_scale: float) -> Dict[str, int]:
+    """TFLite's PRELU multipliers M1 = s_in / s_out and M2 = s_in *
+    s_alpha / s_out (float32, as its Prepare computes them), with the
+    zero points of the input and the output."""
     f32 = np.float32
     s_i, zp_i = _scalar_qp(x_td.quant)
     s_o, zp_o = _scalar_qp(out_td.quant)
     q1, sh1 = Q.quantize_multiplier(float(f32(s_i) / f32(s_o)))
     q2, sh2 = Q.quantize_multiplier(
         float(f32(f32(s_i) * f32(alpha_scale)) / f32(s_o)))
-    xi = torch.from_numpy(_byte_values(x_td.dtype) - zp_i)
-    a = torch.from_numpy(alpha_q.astype(np.int64).reshape(-1, 1))
-    pos = Q.multiply_by_quantized_multiplier(xi, q1, sh1, "double")
-    neg = Q.multiply_by_quantized_multiplier(xi * a, q2, sh2, "double")
-    out = torch.where(xi >= 0, pos, neg).to(torch.int64) + zp_o
-    qmin, qmax = Q.quantized_range(out_td.dtype)
-    return out.clamp(qmin, qmax).numpy().astype(out_td.dtype)
+    return dict(q1=q1, sh1=sh1, q2=q2, sh2=sh2, zp_in=zp_i, zp_out=zp_o)
+
+
+def _prelu_fixed(xi: torch.Tensor, a: torch.Tensor, m, dtype) -> torch.Tensor:
+    """The fixed-point PRELU of int64 ``xi`` = x - zp_in and ``a`` =
+    alpha - zp_alpha (broadcasting): MBQM(xi, M1) where xi >= 0, else
+    MBQM(xi * a, M2), double rounding, plus zp_out, clamped to ``dtype``."""
+    pos = Q.multiply_by_quantized_multiplier(xi, m["q1"], m["sh1"], "double")
+    neg = Q.multiply_by_quantized_multiplier(xi * a, m["q2"], m["sh2"],
+                                             "double")
+    out = torch.where(xi >= 0, pos, neg).to(torch.int64) + m["zp_out"]
+    qmin, qmax = Q.quantized_range(dtype)
+    return out.clamp(qmin, qmax)
 
 
 def _byte_values(dtype) -> np.ndarray:
@@ -1875,31 +2005,40 @@ def _leaky_relu(ctx: LowerCtx, op: OpNode) -> None:
 
 
 def _prepare_prelu(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
-    """Exact int8/uint8: TFLite's fixed-point PRELU as a table per channel
-    of alpha ([C, 256]; alpha must be a per-tensor quantized constant that
-    varies along the last axis at most).  Otherwise band_tpu's float form
-    with alpha dequantized in numpy float32 (band_tpu/ops/lowerings.py:
-    1859-1871)."""
+    """Exact int8/uint8 (TFLite's fixed-point PRELU, fault C4): a
+    per-tensor quantized constant alpha of one value per channel as a
+    table per channel ([C, 256]); any other per-tensor quantized alpha,
+    constant or runtime, that broadcasts against x (one per element, say)
+    per element in int64 (``fixed``).  Otherwise band_tpu's float form
+    (band_tpu/ops/lowerings.py:1859-1871): a constant alpha dequantized in
+    numpy float32, a runtime one dequantized at run time; any alpha that
+    broadcasts."""
     a_td = graph.tensor(op.inputs[1])
     x_td = graph.tensor(op.inputs[0])
-    if not a_td.is_constant:
-        raise LoweringError(
-            f"PRELU op {op.index}: a runtime alpha is not ported to "
-            "PyTorch yet")
     alpha = a_td.data
-    channels = alpha.shape[-1] if alpha.ndim else 1
     if exact and _int8_activation(graph, op):
         if (a_td.quant is None or a_td.quant.per_channel
-                or alpha.size != channels or len(x_td.shape) < 1
-                or channels not in (1, x_td.shape[-1])):
+                or a_td.dtype.kind not in "iu"):
             raise LoweringError(
-                f"PRELU op {op.index}: only a per-tensor quantized alpha of "
-                "one value per channel is ported to PyTorch")
+                f"PRELU op {op.index}: the exact int8 form takes a "
+                "per-tensor quantized alpha (TFLite's Prepare reads one "
+                "alpha scale)")
         a_s, a_zp = _scalar_qp(a_td.quant)
-        table = _alpha_table(x_td, graph.tensor(op.outputs[0]),
-                             alpha.reshape(-1).astype(np.int64) - a_zp, a_s)
-        return {"table": table.reshape(-1),
-                "offsets": (np.arange(channels, dtype=np.int64) * 256)}
+        channels = int(a_td.shape[-1]) if len(a_td.shape) else 1
+        if (a_td.is_constant and alpha.size == channels and len(x_td.shape)
+                and channels in (1, x_td.shape[-1])):
+            table = _alpha_table(x_td, graph.tensor(op.outputs[0]),
+                                 alpha.reshape(-1).astype(np.int64) - a_zp,
+                                 a_s)
+            return {"table": table.reshape(-1),
+                    "offsets": (np.arange(channels, dtype=np.int64) * 256)}
+        d: Dict[str, Any] = dict(
+            fixed=_prelu_multipliers(x_td, graph.tensor(op.outputs[0]), a_s),
+            zp_alpha=a_zp)
+        d.update(_constant_inputs(graph, op))
+        return d
+    if not a_td.is_constant:
+        return {}
     a = alpha.astype(np.float32)
     if a_td.quant is not None and a_td.dtype.kind in "iu":
         a = (alpha.astype(np.float32)
@@ -1909,12 +2048,27 @@ def _prepare_prelu(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
 
 @register("PRELU", prepare=_prepare_prelu)
 def _prelu(ctx: LowerCtx, op: OpNode) -> None:
-    """Exact: out = table[channel * 256 + byte(x)], one gather.  Fast and
-    float: where(x >= 0, x, alpha * x) in float32, quantized."""
+    """Exact with a table: out = table[channel * 256 + byte(x)], one
+    gather; exact otherwise: ``_prelu_fixed`` per element on the request
+    views of x and alpha.  Fast and float: where(x >= 0, x, alpha * x) in
+    float32, quantized; a runtime alpha per request."""
     if f"op{op.index}/table" in ctx.params:
         x = ctx.arr(op.inputs[0])
         idx = x.view(torch.uint8).to(torch.int64) + ctx.param(op, "offsets")
         ctx.set(op.outputs[0], ctx.param(op, "table")[idx])
+        return
+    if f"op{op.index}/fixed" in ctx.meta:
+        m = ctx.smeta(op, "fixed")
+        x, a = _binary_inputs(ctx, op)
+        out = _prelu_fixed(x.to(torch.int64) - m["zp_in"],
+                           a.to(torch.int64) - int(ctx.smeta(op, "zp_alpha")),
+                           m, ctx.graph.tensor(op.outputs[0]).dtype)
+        _put(ctx, op, out)
+        return
+    if f"op{op.index}/alpha" not in ctx.params:
+        x, a = _real_inputs(ctx, op)
+        store_real(ctx, op.outputs[0], torch.where(x >= 0, x, a * x),
+                   view=True)
         return
     x = as_float(ctx, op.inputs[0])
     store_real(ctx, op.outputs[0],
@@ -2040,6 +2194,86 @@ def _wrap_int32(v: np.ndarray) -> np.ndarray:
         np.int32)
 
 
+def _union_weights(w_hwio: np.ndarray, phases_h, phases_w, lo, taps,
+                   strides, fill: int) -> np.ndarray:
+    """The union conv's weights [taps h, taps w, ci, phase (rh, rw), oc]:
+    each phase's kernel slice w[u0::s] at its offset in the window,
+    ``fill`` (w_zp) at every tap the phase does not have."""
+    (lo_h, lo_w), (uh, uw), (sh, sw) = lo, taps, strides
+    ci, oc = w_hwio.shape[2], w_hwio.shape[3]
+    wu = np.full((uh, uw, ci, sh * sw, oc), fill, np.int8)
+    for rh, (u0h, kah, offh, _) in enumerate(phases_h):
+        for rw, (u0w, kaw, offw, _) in enumerate(phases_w):
+            wu[offh - lo_h:offh - lo_h + kah, offw - lo_w:offw - lo_w + kaw,
+               :, rh * sw + rw] = w_hwio[u0h::sh, u0w::sw]
+    return wu
+
+
+def _float_tconv(graph: Graph, op: OpNode) -> bool:
+    """Whether a TRANSPOSE_CONV takes a float input: float32 weights (a
+    float op) or int8 ones (a hybrid op, dynamic range)."""
+    x_td = graph.tensor(op.inputs[2])
+    return x_td.quant is None or x_td.dtype.kind == "f"
+
+
+def _tconv_geometry(graph: Graph, op: OpNode, kh: int, kw: int):
+    """(out_h, out_w, in_h, in_w, pad-before h, pad-before w) of a
+    TRANSPOSE_CONV: the IR's static output shape is authoritative (the
+    output-shape input is the converter's SHAPE -> PACK prelude)."""
+    o = op.options
+    out_shape = graph.tensor(op.outputs[0]).shape
+    if out_shape[1] is None or out_shape[1] < 0:
+        out_shape = graph.tensor(op.inputs[0]).data
+    out_h, out_w = int(out_shape[1]), int(out_shape[2])
+    x_td = graph.tensor(op.inputs[2])
+    in_h, in_w = int(x_td.shape[1]), int(x_td.shape[2])
+    pb_h, pb_w = _tconv_pads(o, in_h, in_w, kh, kw, o["stride_h"],
+                             o["stride_w"], out_h, out_w)
+    return out_h, out_w, in_h, in_w, pb_h, pb_w
+
+
+def _prepare_float_tconv(graph: Graph, op: OpNode) -> Dict[str, Any]:
+    """Float: the weights as F.conv_transpose2d takes them, ``w_iohw``
+    [I, O, kh, kw] (band_tpu keeps ``w``, rotated HWIO), and ``bias``.
+    Hybrid (int8 weights with zero point 0, a float input): the operands
+    of one qconv2d_hybrid launch of the union conv of every sub-pixel
+    phase, as the int8 form builds it with w_zp = 0 (``w`` [taps, (rh,
+    rw, c)] int8, a phase's missing taps 0), its columns' ``colsum``
+    (int32), ``w_scale`` and ``bias`` (float32) tiled over the phases."""
+    w_td = graph.tensor(op.inputs[1])
+    o_, kh, kw, ci = (int(v) for v in w_td.shape)
+    d: Dict[str, Any] = {}
+    bias = None
+    if len(op.inputs) > 3 and op.inputs[3] >= 0:
+        bias = graph.tensor(op.inputs[3]).data.astype(np.float32)
+        d["bias"] = bias
+    out_h, out_w, in_h, in_w, pb_h, pb_w = _tconv_geometry(graph, op, kh, kw)
+    d["out_hw"] = (out_h, out_w)
+    d["pad_before"] = (pb_h, pb_w)
+    if not _hybrid_weights(graph, op):
+        d["w_iohw"] = np.ascontiguousarray(
+            np.transpose(w_td.data, (3, 0, 1, 2)), np.float32)
+        return d
+    o = op.options
+    sh, sw = o["stride_h"], o["stride_w"]
+    w_hwio = np.transpose(w_td.data[:, ::-1, ::-1, :], (1, 2, 3, 0))
+    phases_h = _tconv_phases(kh, sh, pb_h, out_h)
+    phases_w = _tconv_phases(kw, sw, pb_w, out_w)
+    lo_h, uh, pads_h, crop_h, t_h = _tconv_window(phases_h, in_h)
+    lo_w, uw, pads_w, crop_w, t_w = _tconv_window(phases_w, in_w)
+    wu = _union_weights(w_hwio, phases_h, phases_w, (lo_h, lo_w), (uh, uw),
+                        (sh, sw), 0)
+    w = np.ascontiguousarray(wu.reshape(uh * uw * ci, sh * sw * o_))
+    scale = w_td.quant.scale.astype(np.float32)
+    d.update(w=w, colsum=w.astype(np.int64).sum(axis=0).astype(np.int32),
+             w_scale=np.tile(np.broadcast_to(scale, (o_,)), sh * sw),
+             taps=(uh, uw), pads=(pads_h, pads_w), crop=(crop_h, crop_w),
+             tiles=(t_h, t_w), oc=o_)
+    if bias is not None:
+        d["bias"] = np.tile(bias, sh * sw)
+    return d
+
+
 def _prepare_transpose_conv(graph: Graph, op: OpNode,
                             exact: bool) -> Dict[str, Any]:
     """The B2 operands of one union conv of every sub-pixel phase (rh, rw),
@@ -2066,11 +2300,9 @@ def _prepare_transpose_conv(graph: Graph, op: OpNode,
     follow band_tpu (one group)."""
     w_td = graph.tensor(op.inputs[1])
     x_td = graph.tensor(op.inputs[2])
+    if _float_tconv(graph, op):
+        return _prepare_float_tconv(graph, op)
     out_td = graph.tensor(op.outputs[0])
-    if x_td.quant is None or x_td.dtype.kind == "f" or out_td.quant is None:
-        raise LoweringError(
-            f"TRANSPOSE_CONV op {op.index}: float and hybrid variants are "
-            "not ported to PyTorch yet (int8/uint8 only)")
     # rotate 180 degrees and go to HWIO: a VALID conv reproduces the
     # scatter form of TFLite's TransposeConv
     w_hwio = np.transpose(w_td.data[:, ::-1, ::-1, :], (1, 2, 3, 0))
@@ -2093,14 +2325,8 @@ def _prepare_transpose_conv(graph: Graph, op: OpNode,
         groups = [g for g in ((0, k8, "ruy"), (k8, oc, "double"))
                   if g[1] > g[0]]
 
-    o = op.options
-    sh, sw = o["stride_h"], o["stride_w"]
-    out_shape = out_td.shape
-    if out_shape[1] is None or out_shape[1] < 0:
-        out_shape = graph.tensor(op.inputs[0]).data
-    out_h, out_w = int(out_shape[1]), int(out_shape[2])
-    in_h, in_w = int(x_td.shape[1]), int(x_td.shape[2])
-    pb_h, pb_w = _tconv_pads(o, in_h, in_w, kh, kw, sh, sw, out_h, out_w)
+    sh, sw = op.options["stride_h"], op.options["stride_w"]
+    out_h, out_w, in_h, in_w, pb_h, pb_w = _tconv_geometry(graph, op, kh, kw)
     w_i8, xzp, wzp = d.pop("w"), d["x_zp"], d["w_zp"]
     bias = d.pop("bias").astype(np.int64)
     full_sum = w_i8.astype(np.int64).sum(axis=(0, 1, 2))
@@ -2108,20 +2334,16 @@ def _prepare_transpose_conv(graph: Graph, op: OpNode,
     phases_w = _tconv_phases(kw, sw, pb_w, out_w)
     lo_h, uh, pads_h, crop_h, t_h = _tconv_window(phases_h, in_h)
     lo_w, uw, pads_w, crop_w, t_w = _tconv_window(phases_w, in_w)
-    # [taps h, taps w, ci, phase, oc]: w_zp where a phase has no tap
-    wu = np.full((uh, uw, ci, sh * sw, oc), wzp, np.int8)
+    wu = _union_weights(w_i8, phases_h, phases_w, (lo_h, lo_w), (uh, uw),
+                        (sh, sw), wzp).reshape(uh * uw * ci, sh * sw, oc)
     pbias = np.zeros((sh * sw, oc), np.int32)
-    for rh, (u0h, kah, offh, _) in enumerate(phases_h):
-        for rw, (u0w, kaw, offw, _) in enumerate(phases_w):
+    for rh, (u0h, _, _, _) in enumerate(phases_h):
+        for rw, (u0w, _, _, _) in enumerate(phases_w):
             wp = w_i8[u0h::sh, u0w::sw]
             taps_p = wp.shape[0] * wp.shape[1] * ci
             badj = (xzp * (full_sum - wp.astype(np.int64).sum(axis=(0, 1, 2)))
                     - wzp * (kh * kw * ci - taps_p) * xzp)
-            p = rh * sw + rw
-            pbias[p] = _wrap_int32(bias + badj)
-            wu[offh - lo_h:offh - lo_h + kah, offw - lo_w:offw - lo_w + kaw,
-               :, p] = wp
-    wu = wu.reshape(uh * uw * ci, sh * sw, oc)
+            pbias[rh * sw + rw] = _wrap_int32(bias + badj)
     epilogue = ("mult",) if "mult" in d else ("qm", "shift")
     for g, (c0, c1, _) in enumerate(groups):
         d[f"w_{g}"] = np.ascontiguousarray(
@@ -2149,7 +2371,10 @@ def _transpose_conv(ctx: LowerCtx, op: OpNode) -> None:
     the output size the phases' last rows and columns past it are cut
     (one more copy).  The output-shape input (SHAPE -> STRIDED_SLICE ->
     PACK) is not read: the IR's static shape is authoritative, and the
-    request axis is x's leading one."""
+    request axis is x's leading one.  Float and hybrid: ``_float_tconv_op``."""
+    if _float_tconv(ctx.graph, op):
+        _float_tconv_op(ctx, op)
+        return
     x = _to_int8_domain(ctx.arr(op.inputs[2]))
     dt = Q.torch_dtype(ctx.graph.tensor(op.outputs[0]).dtype)
     n = x.shape[0]
@@ -2181,6 +2406,63 @@ def _transpose_conv(ctx: LowerCtx, op: OpNode) -> None:
     if (t_h * sh, t_w * sw) != (out_h, out_w):
         out = out[:, :out_h, :out_w].contiguous()
     ctx.set(op.outputs[0], out)
+
+
+def _float_tconv_op(ctx: LowerCtx, op: OpNode) -> None:
+    """Float and hybrid TRANSPOSE_CONV.
+
+    Float (band_tpu's phase convs in float32, band_tpu/ops/lowerings.py:
+    2245-2261 and :2306-2309): one F.conv_transpose2d with the bias on
+    NCHW views (channels-last strides), padded by the pad-before on both
+    sides, under the TF32 rule; TFLite's odd pad pixel falls after, so the
+    result is cut to the output (or, where the output is larger than the
+    scatter's reach, extended with the bias alone).
+
+    Hybrid (dynamic range; TFLite 2.21's, fault C9 in ROADMAP.md): each
+    request quantized by its own range (quant.asym_quant_rows), then one
+    qconv2d_hybrid launch computes every sub-pixel phase of the union
+    conv at once, each request's padded taps filled with its own zero
+    point, (int32 sum - zp * colsum) * (scale * w_scale) + bias in
+    float32; its output lands in the interleave with one copy, as the
+    int8 form's.  The fused activation, where there is one, after."""
+    x = ctx.arr(op.inputs[2]).to(torch.float32)
+    act = op.options.get("activation", "NONE")
+    out_h, out_w = ctx.smeta(op, "out_hw")
+    sh, sw = op.options["stride_h"], op.options["stride_w"]
+    bias = _optional(ctx, op, "bias")
+    n = x.shape[0]
+    if f"op{op.index}/w_scale" not in ctx.params:
+        w = _prepared(ctx, op, "w_iohw", "w",
+                      lambda w: w.flip(0, 1).permute(2, 3, 0, 1).contiguous())
+        _check_tf32(x, op, TF32_CONV)
+        pb_h, pb_w = ctx.smeta(op, "pad_before")
+        reach = ((x.shape[1] - 1) * sh + w.shape[2] - 2 * pb_h,
+                 (x.shape[2] - 1) * sw + w.shape[3] - 2 * pb_w)
+        short = reach[0] < out_h or reach[1] < out_w
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w,
+                               None if short else bias, (sh, sw),
+                               (pb_h, pb_w))[:, :, :out_h, :out_w]
+        if short:
+            y = F.pad(y, (0, out_w - y.shape[3], 0, out_h - y.shape[2]))
+            if bias is not None:
+                y = y + bias.reshape(1, -1, 1, 1)
+        out = y.permute(0, 2, 3, 1).contiguous()
+    else:
+        oc = ctx.smeta(op, "oc")
+        uh, uw = ctx.smeta(op, "taps")
+        ch, cw = ctx.smeta(op, "crop")
+        t_h, t_w = ctx.smeta(op, "tiles")
+        q, zp, scale = Q.asym_quant_rows(x)
+        u = qconv2d_hybrid(q.to(torch.int8), ctx.param(op, "w"),
+                           ctx.param(op, "w_scale"), ctx.param(op, "colsum"),
+                           zp.reshape(-1), scale.reshape(-1), bias, kh=uh,
+                           kw=uw, padding=ctx.smeta(op, "pads"))
+        u = u[:, ch:ch + t_h, cw:cw + t_w].unflatten(3, (sh, sw, oc))
+        out = u.permute(0, 1, 3, 2, 4, 5).reshape(n, t_h * sh, t_w * sw, oc)
+        if (t_h * sh, t_w * sw) != (out_h, out_w):
+            out = out[:, :out_h, :out_w]
+        out = out.contiguous()
+    ctx.set(op.outputs[0], _apply_float_activation(out, act))
 
 
 # --------------------------------------------------------------------------
@@ -2929,7 +3211,12 @@ def _prepare_lstm(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     comes between; peepholes ``p_i``, ``p_f``, ``p_o``; layer-norm
     coefficients ``ln`` [G, n_cell]; projection ``proj_w_t`` [n_cell,
     n_out] and ``proj_b``; for the int8 form the scales and zero points
-    of the input, the states and the output."""
+    of the input, the states and the output.  Where an operand is a
+    runtime value (a loop body's input, say: band_tpu reads each from its
+    environment, band_tpu/ops/lowerings.py:2636-2700), nothing is stacked
+    here: ``runtime`` is set, the constant operands are kept as they are
+    (``_constant_inputs``) and the lowering stacks them all at run time
+    (``_lstm_operands``)."""
     x_td = graph.tensor(op.inputs[0])
     quantized = x_td.dtype.kind in "iu"
     if quantized and (x_td.dtype != np.int8 or x_td.quant is None):
@@ -2937,15 +3224,20 @@ def _prepare_lstm(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
             "UNIDIRECTIONAL_SEQUENCE_LSTM: unsupported input type "
             f"{x_td.dtype} (float32 and full-int8 are implemented)")
 
-    def real(i):
+    def tensor(i):
         tid = op.inputs[i] if i < len(op.inputs) else -1
-        if tid < 0:
+        return graph.tensor(tid) if tid >= 0 else None
+
+    runtime = any(tensor(i) is not None and tensor(i).data is None
+                  for i in range(1, len(op.inputs)) if i not in (18, 19))
+
+    def real(i):
+        td = tensor(i)
+        if td is None:
             return None
-        td = graph.tensor(tid)
-        if td.data is None:
-            raise LoweringError(
-                f"UNIDIRECTIONAL_SEQUENCE_LSTM op {op.index}: runtime "
-                f"operand {i} is not ported to PyTorch")
+        if runtime:
+            # the shape alone (a zero-size placeholder means "absent")
+            return None if 0 in td.shape else np.zeros(td.shape, np.float32)
         if td.data.size == 0:
             return None
         v = td.data.astype(np.float32)
@@ -2957,34 +3249,26 @@ def _prepare_lstm(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
     w = {g: real(i) for g, i in zip("ifco", (1, 2, 3, 4))}
     r = {g: real(i) for g, i in zip("ifco", (5, 6, 7, 8))}
     p = {g: real(i) for g, i in zip("ifo", (9, 10, 11))}
-    b = {g: real(i) for g, i in zip("ifco", (12, 13, 14, 15))}
     ln = {g: real(i) for g, i in zip("ifco", (20, 21, 22, 23))}
-    proj_w, proj_b = real(16), real(17)
     cifg = w["i"] is None
     gates = "foc" if cifg else "ifoc"
     n_cell, n_out = w["f"].shape[0], r["f"].shape[1]
-    bias = np.concatenate([b[g] if b[g] is not None
-                           else np.zeros(n_cell, np.float32) for g in gates])
     has_ln = ln["f"] is not None
     d: Dict[str, Any] = {
-        "w": np.ascontiguousarray(np.concatenate([w[g] for g in gates])),
-        "r_t": np.ascontiguousarray(np.concatenate([r[g] for g in gates]).T),
-        "b": bias, "gates": gates, "n_cell": n_cell, "n_out": n_out,
+        "gates": gates, "n_cell": n_cell, "n_out": n_out,
         "has_ln": has_ln, "peephole": p["f"] is not None,
         "time_major": bool(op.options.get("time_major", False)),
         "cell_clip": float(op.options.get("cell_clip", 0.0)),
         "proj_clip": float(op.options.get("proj_clip", 0.0)),
         "act": op.options.get("activation", "TANH"),
     }
-    for g in "ifo":
-        if p[g] is not None:
-            d[f"p_{g}"] = p[g]
-    if has_ln:
-        d["ln"] = np.stack([ln[g] for g in gates])
-    if proj_w is not None:
-        d["proj_w_t"] = np.ascontiguousarray(proj_w.T)
-        if proj_b is not None:
-            d["proj_b"] = proj_b
+    if runtime:
+        d["runtime"] = True
+        d.update(_constant_inputs(graph, op))
+    else:
+        d.update({k: v.numpy() for k, v in _lstm_stack(
+            lambda i: None if real(i) is None else torch.from_numpy(real(i)),
+            gates, n_cell).items()})
     if quantized:
         h_td, c_td = graph.tensor(op.inputs[18]), graph.tensor(op.inputs[19])
         out_td = graph.tensor(op.outputs[0])
@@ -2992,6 +3276,67 @@ def _prepare_lstm(graph: Graph, op: OpNode, exact: bool) -> Dict[str, Any]:
                  c_scale=float(c_td.quant.scale[0]),
                  out_q=_scalar_qp(out_td.quant))
     return d
+
+
+def _lstm_stack(real, gates: str, n_cell: int) -> Dict[str, torch.Tensor]:
+    """The stacked LSTM operands of ``_prepare_lstm`` (``w``, ``r_t``,
+    ``b``, the peepholes ``p_*``, ``ln``, ``proj_w_t``, ``proj_b``) from
+    ``real(i)``, operand i as a float32 tensor or None where absent."""
+    idx = dict(zip("ifco", range(4)))
+    w = torch.cat([real(1 + idx[g]) for g in gates])
+    b = [real(12 + idx[g]) for g in gates]
+    d = {"w": w, "r_t": torch.cat([real(5 + idx[g]) for g in gates]).t()
+         .contiguous(),
+         "b": torch.cat([v if v is not None else w.new_zeros(n_cell)
+                         for v in b])}
+    for g, i in zip("ifo", (9, 10, 11)):
+        p = real(i)
+        if p is not None:
+            d[f"p_{g}"] = p
+    ln = [real(20 + idx[g]) for g in gates]
+    if ln[0] is not None:
+        d["ln"] = torch.stack(ln)
+    proj_w, proj_b = real(16), real(17)
+    if proj_w is not None:
+        d["proj_w_t"] = proj_w.t().contiguous()
+        if proj_b is not None:
+            d["proj_b"] = proj_b
+    return d
+
+
+def _lstm_operands(ctx: LowerCtx, op: OpNode) -> Dict[str, torch.Tensor]:
+    """The stacked operands of an LSTM: prepared, or, where some are runtime
+    values, stacked now from each operand (its constant or its value),
+    dequantized as ``_prepare_lstm`` dequantizes them.  A runtime operand
+    must be the same for every request of the window (a request-free
+    value, or a window of one)."""
+    keys = ("w", "r_t", "b", "p_i", "p_f", "p_o", "ln", "proj_w_t", "proj_b")
+    if f"op{op.index}/runtime" not in ctx.meta:
+        return {k: ctx.params[f"op{op.index}/{k}"] for k in keys
+                if f"op{op.index}/{k}" in ctx.params}
+    quantized = f"op{op.index}/x_q" in ctx.meta
+
+    def real(i):
+        tid = op.inputs[i] if i < len(op.inputs) else -1
+        if tid < 0:
+            return None
+        td = ctx.graph.tensor(tid)
+        v = _operand(ctx, op, tid)
+        if tid not in ctx.free:
+            if ctx.batch != 1:
+                raise LoweringError(
+                    f"UNIDIRECTIONAL_SEQUENCE_LSTM op {op.index}: operand "
+                    f"{i} differs per request in a window of {ctx.batch}")
+            v = v.reshape(td.shape)
+        if v.numel() == 0:
+            return None
+        v = v.to(torch.float32)
+        if quantized and td.quant is not None:
+            v = (v - float(np.float32(td.quant.zero_point[0]))) * \
+                float(np.float32(td.quant.scale[0]))
+        return v
+
+    return _lstm_stack(real, ctx.smeta(op, "gates"), ctx.smeta(op, "n_cell"))
 
 
 # the profiler ranges of the recurrences (LSTM steps, WHILE iterations)
@@ -3025,7 +3370,8 @@ def _useq_lstm(ctx: LowerCtx, op: OpNode) -> None:
     x = xv.reshape(-1, t_len, xv.shape[-1])
     rows = x.shape[0]
     _check_tf32(x, op, TF32_MATMUL)
-    w, r_t, b = ctx.param(op, "w"), ctx.param(op, "r_t"), ctx.param(op, "b")
+    prm = _lstm_operands(ctx, op)
+    w, r_t, b = prm["w"], prm["r_t"], prm["b"]
     xp = F.linear(x.reshape(rows * t_len, -1), w, None if has_ln else b)
     xp = xp.reshape(rows, t_len, -1).transpose(0, 1).contiguous()
     quant = f"op{op.index}/h_q" in ctx.meta
@@ -3033,10 +3379,9 @@ def _useq_lstm(ctx: LowerCtx, op: OpNode) -> None:
         hs_, hzp = m("h_q")
         cs_ = m("c_scale")
     g0 = gates.index("o")  # the sigmoid gates before o: f, or i and f
-    p = {g: _optional(ctx, op, f"p_{g}") for g in "ifo"}
-    ln = _optional(ctx, op, "ln")
-    proj_w, proj_b = _optional(ctx, op, "proj_w_t"), _optional(ctx, op,
-                                                                "proj_b")
+    p = {g: prm.get(f"p_{g}") for g in "ifo"}
+    ln = prm.get("ln")
+    proj_w, proj_b = prm.get("proj_w_t"), prm.get("proj_b")
     clip, pclip = m("cell_clip"), m("proj_clip")
 
     def norm(z, j):

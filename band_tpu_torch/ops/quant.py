@@ -245,6 +245,15 @@ def round_ties_away(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
 
 
+def std_round(x: torch.Tensor) -> torch.Tensor:
+    """std::round exactly: half away from zero, with no rounding of its
+    own (``round_ties_away``'s |x| + 0.5 rounds up just below a half,
+    0.49999997 -> 1, as band_tpu's does)."""
+    t = torch.trunc(x)
+    return t + torch.where((x - t).abs() >= 0.5, torch.sign(x),
+                           torch.zeros_like(x))
+
+
 # --------------------------------------------------------------------------
 # Dynamic-range (hybrid) activations: float rows quantized at run time
 # --------------------------------------------------------------------------

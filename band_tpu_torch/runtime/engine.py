@@ -1169,18 +1169,26 @@ class Engine(EngineBase):
         return [out[tid] for tid in rec.model.graph.outputs]
 
     def start_device_trace(self, log_dir: str) -> None:
-        """Start a device-level trace (``torch.profiler``: host ops and,
-        on a card, its kernels) that ``stop_device_trace`` writes into
+        """Start a device-level trace (``torch.profiler``: the host ops of
+        every thread, each program's graph-op spans, and, on a card, its
+        kernels) that ``stop_device_trace`` writes into
         `log_dir` as a Chrome trace, one ``device_trace-<pid>-<n>.json``
         per start/stop pair (open it in Perfetto or chrome://tracing).
-        Complements the job trace (tracing/job_tracer.py)."""
+        Complements the job trace (tracing/job_tracer.py);
+        ``python -m band_tpu_torch.tools.xprof_summary <file>`` sums it
+        by kernel, op type and graph op."""
         with self._lock:
             if self._device_trace is not None:
                 raise ExecutionError("a device trace is already running")
             acts = [torch.profiler.ProfilerActivity.CPU]
             if any(d.type == "cuda" for d in self._worker_devices):
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
+            # every thread's host ops: the workers run the programs (and
+            # their graph-op spans, backend/program.py) on their own
+            prof = torch.profiler.profile(
+                activities=acts,
+                experimental_config=torch._C._profiler._ExperimentalConfig(
+                    profile_all_threads=True))
             prof.start()
             self._device_trace = (prof, log_dir)
         tracer().instant("device_trace_start", {"log_dir": log_dir})

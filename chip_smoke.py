@@ -109,7 +109,9 @@ Phases:
              deconv is one B2 launch a request in each numerics): B2 and
              B2 fast against their plain versions (0 differing bytes),
              the same calls with qgemm.cuh's loop forced, the bound and a
-             cuDNN float32 conv of the same shape.
+             cuDNN float32 conv of the same shape.  One exact b1 request
+             under the engine's device trace (start_device_trace /
+             stop_device_trace), its output checked: an ``xprof:`` line.
  8. depth    the logits below each model's SOFTMAX, from the program on
              the card at b1 and stacked b8, byte-equal to the golden
              logits; and the fast program's output below the first MEAN,
@@ -117,7 +119,10 @@ Phases:
              goldens.
  9. profile  a b1 MobileNetV2 request through the executor, exact and
              fast: its wall time, and the device time of its kernels
-             (torch.profiler).
+             (torch.profiler); for exact, one more request under its own
+             trace summed by graph op (band_tpu_torch.tools.xprof_summary):
+             an ``xprof:`` line with the top 10 graph ops (device and
+             host ms) and op types.
 10. hetero   Band's heterogeneous path, laid out as
              configs/benchmark_heft.json: two GPU workers on cuda:0
              (max_batch 8) and one host CPU worker (max_batch 1),
@@ -312,13 +317,37 @@ Phases:
              limit: b1 req/s and ms a request per worker, gathers and
              broadcasts a request and their host ms, launches per
              process.
+19. srfloat (run after float) FSRCNN x2 at 360x640 in float32 and with
+             dynamic-range quantization (tests/data/fsrcnn_x2_{float,
+             dynrange}.tflite, tests/gen_torch_fsrcnn_float_models.py)
+             on one GPU worker (fixed_worker, max_batch 8), through the
+             public API: the 4 golden requests, 8 timed request_sync and
+             a burst of 8 request_async per model, every 720x1280 output
+             finite and, at the 16,384 stored positions, within max(2 x
+             the reference deviation, 1e-4 x max|golden|) of TFLite
+             (tests/data/torch_srfloat_goldens.npz; the reference
+             band_tpu's for float32, the port's CPU path's for dynamic
+             range: ROADMAP fault C9); one b1 request of each under the
+             engine's device trace (``xprof:`` lines).  Launch counts
+             zeroed just before and read just after: qconv2d_hybrid (the
+             hybrid deconv's union conv on B2's mma branch, float32 out)
+             must launch, no other kernel.  Printed: req/s at b1 and in
+             the burst, the worst deviation, and device time, launches
+             and busy share of a b1 request of each model.  Before the
+             engine phases, the hybrid deconv's call of a dynamic-range
+             request at b1 and b8 is held byte-equal to
+             qconv2d_hybrid_plain, and the b1 call timed beside plain,
+             the bound and a cuDNN float32 transposed conv: the
+             ``hybrid_conv:`` line.
 Then it prints the kernels line (each kernel's launches in the engine
 phase of its numerics, in the sr, codispatch, detect, seq, frontend and
 mesh phases (the mesh's summed over both processes); B2's
 general branch, the mma kernel of csrc/qconv_mma.cuh, in two entries of
 its own, exact and fast, with its launches and a b1 FSRCNN request's
 times from the sr phase; qmatmul_hybrid with its launches in the float
-phase and a b1 dynamic-range request's times), and last the device line.
+phase and a b1 dynamic-range request's times; qconv2d_hybrid with its
+launches in the srfloat phase and a b1 dynamic-range FSRCNN request's
+times), and last the device line.
 """
 
 import collections
@@ -439,6 +468,22 @@ HYBRID_KERNELS = {
         source="band_tpu_torch/ops/kernels/csrc/qmatmul.cu",
         replaces="band_tpu/ops/lowerings.py:971"),
 }
+# srfloat: FSRCNN x2 at 360x640 in float32 and with dynamic-range
+# quantization (tests/gen_torch_fsrcnn_float_models.py)
+SRFLOAT_GOLDENS = os.path.join(DATA, "torch_srfloat_goldens.npz")
+SRFLOAT_MODELS = ("fsrcnn_x2_float", "fsrcnn_x2_dynrange")
+SR_DYNRANGE = "fsrcnn_x2_dynrange"
+SRFLOAT_TIMED = 8
+SRFLOAT_BURST = 8
+# the hybrid conv (qconv_mma.cuh with requant.cuh HybridConvEpilogue); its
+# main path is the srfloat phase
+HYBRID_CONV_KERNELS = {
+    "qconv2d_hybrid": dict(
+        source="band_tpu_torch/ops/kernels/csrc/qconv_mma.cuh",
+        replaces="band_tpu/ops/lowerings.py:2185"),
+}
+XPROF_DIR = os.path.join(ROOT, "band_tpu_torch", "_build", "xprof")
+XPROF_TOP = 10
 # detect: CenterNet MobileNetV2 FPN 512x512, full-int8, its top-k decode
 # in the graph (tests/gen_torch_centernet_model.py)
 DETECT_GOLDENS = os.path.join(DATA, "torch_detect_goldens.npz")
@@ -629,6 +674,20 @@ def decoder_outputs_ok(gd, outs, idx, exact):
 # timing and bounds
 # --------------------------------------------------------------------------
 
+def annotation(e):
+    """Whether a CUDA event of torch.profiler is an annotation, not a
+    kernel: a program's graph-op span (backend/program.py, opNNN_NAME) or
+    a lowering's range (the recurrences'), which the profiler also lays
+    over their kernels on the device's timeline."""
+    from band_tpu_torch.ops import lowerings as L
+    from band_tpu_torch.tools.xprof_summary import GRAPH_OP
+
+    name = getattr(e, "key", None) or e.name
+    return (bool(getattr(e, "is_user_annotation", False))
+            or bool(GRAPH_OP.match(name))
+            or name in (L.LSTM_STEPS, L.WHILE_ITERATIONS))
+
+
 def graph_ms(torch, fn, launches=20, replays=10):
     """Device time of one fn() call: ``launches`` calls captured in a
     CUDA graph, replayed, timed with CUDA events (no host overhead)."""
@@ -776,7 +835,8 @@ def capture_calls(L, fn, params, inputs):
     output).  The lowerings call the kernels through their module
     globals, which are wrapped for the run."""
     calls = []
-    saved = {n: getattr(L, n) for n in list(KERNELS) + list(HYBRID_KERNELS)}
+    saved = {n: getattr(L, n) for n in list(KERNELS) + list(HYBRID_KERNELS)
+             + list(HYBRID_CONV_KERNELS)}
 
     def wrap(name, f):
         def g(*args, **kw):
@@ -1906,11 +1966,32 @@ def depth_phase(torch, dev, graphs, goldens, fast_goldens):
             f"{len(np.unique(fg['seg0']))} distinct values)")
 
 
-def profile_phase(torch, dev, graphs, goldens, exact, name=FULL_WIDTH):
+def xprof_line(what, path, smi):
+    """One ``xprof:`` line: a device trace summed by graph op
+    (band_tpu_torch.tools.xprof_summary), the top XPROF_TOP graph ops and
+    op types with their device and host ms."""
+    from band_tpu_torch.tools import xprof_summary as X
+
+    s = X.summarize(path, XPROF_TOP)
+    check(s["total_ms"] > 0, f"xprof {what}: no device time in {path}")
+    line = {"what": what, "device_ms": s["total_ms"],
+            "modules": s["modules"],
+            "top_graph_ops": [[op, ms, host] for ms, op, host
+                              in s["by_graph_op"]],
+            "by_op_type": [[t, ms] for ms, t in s["by_source"]],
+            "card": smi}
+    log("xprof: " + json.dumps(line))
+    return s
+
+
+def profile_phase(torch, dev, graphs, goldens, exact, name=FULL_WIDTH,
+                  xprof=None):
     """Where a b1 request's time goes below the engine (MobileNetV2, or
     ``name``): the executor's wall time per request (launch and wait),
     and the device time of every kernel it launches (torch.profiler),
-    whose ratio is the device's busy share."""
+    whose ratio is the device's busy share.  With ``xprof`` (the card's
+    name and limit), one more request under its own trace, summed by
+    graph op (xprof_line)."""
     from band_tpu_torch.backend.executor import ModelExecutor
 
     g = graphs[name]
@@ -1934,7 +2015,8 @@ def profile_phase(torch, dev, graphs, goldens, exact, name=FULL_WIDTH):
             torch.cuda.synchronize()
     by_kernel = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not annotation(e):
             by_kernel[e.key] = (e.self_device_time_total / 1e3 / reps,
                                 e.count // reps)
     device_ms = sum(ms for ms, _ in by_kernel.values())
@@ -1950,6 +2032,14 @@ def profile_phase(torch, dev, graphs, goldens, exact, name=FULL_WIDTH):
         "top_kernels_ms": {k[:60]: ms for k, (ms, _) in top},
     }
     log("profile: " + json.dumps(out))
+    if xprof is not None:
+        with torch.profiler.profile(activities=acts) as prof:
+            ex.execute(key, [x])
+            torch.cuda.synchronize()
+        os.makedirs(XPROF_DIR, exist_ok=True)
+        path = os.path.join(XPROF_DIR, f"{name}-{out['numerics']}.json")
+        prof.export_chrome_trace(path)
+        xprof_line(f"{name} {out['numerics']} b1 (executor)", path, xprof)
     return out
 
 
@@ -2090,6 +2180,21 @@ def sr_b32(torch, dev, graphs, gd, smi):
         f"({smi})")
 
 
+def engine_xprof(eng, mid, x, digest, what, smi):
+    """One request through the engine under its device trace
+    (start_device_trace / stop_device_trace: every thread's host ops and
+    graph-op spans, the card's kernels), its output checked (its golden's
+    sha256, or a check function), then xprof_line."""
+    eng.start_device_trace(XPROF_DIR)
+    try:
+        out = eng.request_sync(mid, [x])
+    finally:
+        path = eng.stop_device_trace()
+    check(digest(out[0]) if callable(digest) else sha256(out[0]) == digest,
+          f"xprof {what}: the traced request's output is wrong")
+    return xprof_line(what, path, smi)
+
+
 def sr_phase(torch, dev, bt, K, graphs, ops_goldens, sr_calls, smi):
     """FSRCNN x2 at 360x640 on one GPU worker (fixed_worker, max_batch
     8), registered twice, exact and register_model(numerics="fast"):
@@ -2142,6 +2247,9 @@ def sr_phase(torch, dev, bt, K, graphs, ops_goldens, sr_calls, smi):
                   "window")
             rates[kind] = dict(b1_req_s=b1, burst_req_s=burst,
                                burst_windows=dict(sorted(windows.items())))
+            if kind == "exact":
+                engine_xprof(eng, mid, xs[0], digests[0],
+                             f"{SR_MODEL} exact b1 (engine)", smi)
             log(f"sr: {kind}: {SR_SYNC} sync and {SR_BURST} burst outputs "
                 f"(720x1280) equal to the golden digests; b1 {b1:.2f} "
                 f"req/s, burst {burst:.2f} req/s, windows "
@@ -2398,6 +2506,239 @@ def float_phase(torch, dev, bt, K, graphs, float_goldens, smi):
 
 
 # --------------------------------------------------------------------------
+# srfloat phase: FSRCNN x2 float32 and dynamic range, and the hybrid conv
+# --------------------------------------------------------------------------
+
+def _upsample(a, size, axis):
+    """Bilinear resampling of ``axis`` to ``size`` samples (half-pixel
+    centres, edges clamped), in float64."""
+    n = a.shape[axis]
+    src = np.clip((np.arange(size) + 0.5) * n / size - 0.5, 0, n - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n - 1)
+    f = (src - lo).reshape([-1 if d == axis else 1 for d in range(a.ndim)])
+    return np.take(a, lo, axis) * (1 - f) + np.take(a, hi, axis) * f
+
+
+def sr_inputs(seed, n, h, w):
+    """tests/gen_torch_fsrcnn_float_models.py's request frames: smooth
+    float32 [n, h, w, 1] in [0, 1], numpy only (tests/test_torch_srfloat.py
+    holds the two equal)."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0.0, 1.0, (n, max(h // 8, 2), max(w // 8, 2), 1))
+    up = _upsample(_upsample(coarse, h, 1), w, 2)
+    fine = rng.uniform(-0.08, 0.08, (n, h, w, 1))
+    return np.clip(up + fine, 0.0, 1.0).astype(np.float32)
+
+
+def load_srfloat_goldens():
+    """Goldens of SRFLOAT_MODELS (tests/gen_torch_fsrcnn_float_models.py):
+    the frames (from their seeds), TFLite's outputs at the stored
+    positions, max|TFLite output| and the reference deviation, per
+    request."""
+    z = np.load(SRFLOAT_GOLDENS)
+    out = {}
+    for name in SRFLOAT_MODELS:
+        want = z[f"{name}/tflite"]
+        # [n, 1, 360, 640, 1]: each request as the model takes it
+        out[name] = dict(xs=sr_inputs(int(z[f"{name}/seed"]), len(want), 360,
+                                      640)[:, None],
+                         positions=z["positions"], tflite=want,
+                         max=z[f"{name}/max"], dev=z[f"{name}/dev"])
+    return out
+
+
+def srfloat_gate(out, gd, i):
+    """(ok, deviation, limit) of one FSRCNN float output against golden
+    request i: finite, [1, 720, 1280, 1], and at every stored position
+    within max(2 x the reference deviation, 1e-4 x max|golden|)."""
+    out = np.asarray(out)
+    if out.shape != (1, 720, 1280, 1) or not np.isfinite(out).all():
+        return False, float("inf"), 0.0
+    got = out.reshape(-1)[gd["positions"]].astype(np.float64)
+    d = float(np.abs(got - gd["tflite"][i]).max())
+    limit = max(2.0 * float(gd["dev"][i]), 1e-4 * float(gd["max"][i]))
+    return d <= limit, d, limit
+
+
+def hybrid_conv_work(args, kw, out):
+    """(bytes, int8 ops) of one qconv2d_hybrid call: the codes and weights
+    read once, the epilogue's vectors (w_scale, colsum, bias a column; zp,
+    scale an image), the float32 output written once."""
+    x, w = args[0], args[1]
+    vecs = [t for t in args[2:] if hasattr(t, "numel")]
+    nbytes = x.numel() + w.numel() + sum(4 * t.numel() for t in vecs) \
+        + 4 * out.numel()
+    return nbytes, 2 * out.numel() * w.shape[0]
+
+
+def hybrid_conv_library(torch, dev, graph, args):
+    """qconv2d_hybrid's yardstick: one cuDNN float32 transposed conv of
+    the model's deconv (its weights dequantized, TF32 off, channels-last)
+    on the dequantized input of the same call.  Not the same function (no
+    per-request quantization); the port never calls it."""
+    import torch.nn.functional as F
+
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN with TF32")
+    op = next(o for o in graph.ops if o.opname == "TRANSPOSE_CONV")
+    w_td = graph.tensor(op.inputs[1])
+    wf = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        w_td.data.astype(np.float32) * w_td.quant.scale.reshape(-1, 1, 1, 1),
+        (3, 0, 1, 2)))).to(dev)
+    b = torch.from_numpy(graph.tensor(op.inputs[3]).data.astype(
+        np.float32)).to(dev)
+    q, zp, scale = args[0], args[4], args[5]
+    xf = ((q.float() - zp.reshape(-1, 1, 1, 1)) * scale.reshape(-1, 1, 1, 1)
+          ).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    o = op.options
+    k = int(w_td.shape[1])
+    pad = (k - o["stride_h"]) // 2  # SAME, output = stride x input
+    return lambda: F.conv_transpose2d(xf, wf, b, (o["stride_h"],
+                                                  o["stride_w"]), pad)
+
+
+def hybrid_conv_lines(torch, dev, graphs, sg, smi):
+    """Every qconv2d_hybrid call of a dynamic-range FSRCNN window at b1
+    and b8 (one a window: the deconv's union conv), captured from the
+    model's program on the card and held byte-equal to
+    qconv2d_hybrid_plain; the b1 call timed (a CUDA graph of 20
+    launches) beside the plain version (eager), the bound and a cuDNN
+    float32 transposed conv (hybrid_conv_library): one ``hybrid_conv:``
+    line.  Returns the kernels line's numbers."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops import lowerings as L
+    from band_tpu_torch.ops.kernels import qconv as QC
+
+    g = graphs[SR_DYNRANGE]
+    xs = sg[SR_DYNRANGE]["xs"]
+    prog = build_program(g, range(len(g.ops)), device=dev)
+    params = params_from_jax(prog.params, dev)
+    fn = prog.make_fn()
+    worst, b1 = 0.0, None
+    with torch.inference_mode():
+        for b in (1, MAX_BATCH):
+            x = torch.from_numpy(np.concatenate(
+                [xs[i % len(xs)] for i in range(b)])).to(dev)
+            calls = capture_calls(L, fn, params, [x])
+            torch.cuda.synchronize()
+            kinds = [n for n, *_ in calls]
+            check(kinds == ["qconv2d_hybrid"], f"srfloat: {SR_DYNRANGE} b{b} "
+                  f"ran kernels {kinds} (want one qconv2d_hybrid)")
+            name, args, kw, out = calls[0]
+            want = K.qconv2d_hybrid_plain(*args, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, same_float(torch, name, out, want,
+                                          f"{SR_DYNRANGE} b{b}"))
+            log(f"srfloat: {SR_DYNRANGE} b{b}: its qconv2d_hybrid call "
+                f"{tuple(args[0].shape)} -> {tuple(out.shape)} byte-equal to "
+                "plain (tolerance 0)")
+            if b == 1:
+                b1 = calls[0]
+        name, args, kw, out = b1
+        ms = graph_ms(torch, lambda: K.qconv2d_hybrid(*args, **kw))
+        pms = eager_ms(torch, lambda: K.qconv2d_hybrid_plain(*args, **kw))
+        lib = graph_ms(torch, hybrid_conv_library(torch, dev, g, args))
+    nbytes, ops = hybrid_conv_work(args, kw, out)
+    bt, ot = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT8_OPS_PER_S
+    x, w = args[0], args[1]
+    plan = QC.hybrid_plan(x.shape[0], out.shape[1], out.shape[2], x.shape[3],
+                          w.shape[1], kw["kh"], kw["kw"], (1, 1), (1, 1))
+    s = dict(launches_b1=1, ms=ms, plain_ms=pms, bound_ms=max(bt, ot),
+             bytes_s=bt, ops_s=ot, library_ms=lib, max_abs_err=worst)
+    log("hybrid_conv: " + json.dumps({
+        "shape": "x".join(map(str, x.shape)), "taps": f"{kw['kh']}x{kw['kw']}",
+        "oc": int(w.shape[1]), "out": "x".join(map(str, out.shape)),
+        "plan": plan.name, "blocks": plan.blocks, "smem": plan.smem,
+        "ms": ms, "plain_ms": pms, "bound_ms": max(bt, ot),
+        "bound_by": "bytes" if bt >= ot else "operations",
+        "library": "cuDNN float32 conv_transpose2d", "library_ms": lib,
+        "max_abs_err": worst, "card": smi}))
+    return s
+
+
+def srfloat_phase(torch, dev, bt, K, graphs, sg, smi):
+    """FSRCNN x2 at 360x640 in float32 and dynamic range on one GPU worker
+    (fixed_worker, max_batch 8), both through the public API: the 4
+    goldens request_sync, SRFLOAT_TIMED timed request_sync and a burst of
+    SRFLOAT_BURST request_async per model, every output under
+    srfloat_gate; one b1 request of each under the engine's device trace
+    (xprof).  Launch counts are zeroed just before and read just after:
+    qconv2d_hybrid must launch, no other kernel (the 1x1 convs keep float
+    weights, the rest is cuDNN).  Then the device time, launches and busy
+    share of a b1 request of each model (torch.profiler), and its split by
+    graph op on the executor (xprof)."""
+    K.reset_launches()
+    eng = _engine(bt, bt.DeviceFlag.GPU, "exact")
+    rates, worst = {}, {}
+    try:
+        t0 = time.perf_counter()
+        mids = {name: eng.register_model(bt.Model.from_path(
+            os.path.join(DATA, f"{name}.tflite"))) for name in SRFLOAT_MODELS}
+        check(eng.wait_buckets_ready(timeout=600),
+              "srfloat: bucket warm-up timed out")
+        log(f"srfloat: {', '.join(SRFLOAT_MODELS)} registered, buckets "
+            f"2..{MAX_BATCH} warm in {time.perf_counter() - t0:.2f} s")
+        for name, mid in mids.items():
+            gd = sg[name]
+            xs, n = gd["xs"], len(gd["xs"])
+            ex = eng.model_record(mid).executors[0]
+            served = [(i, eng.request_sync(mid, [xs[i]])) for i in range(n)]
+            t0 = time.perf_counter()
+            served += [(i % n, eng.request_sync(mid, [xs[i % n]]))
+                       for i in range(SRFLOAT_TIMED)]
+            b1 = SRFLOAT_TIMED / (time.perf_counter() - t0)
+            before = dict(ex.windows)
+            t0 = time.perf_counter()
+            ids = [eng.request_async(mid, [xs[i % n]])
+                   for i in range(SRFLOAT_BURST)]
+            served += [(i % n, eng.wait(j)) for i, j in enumerate(ids)]
+            burst = SRFLOAT_BURST / (time.perf_counter() - t0)
+            w = dict(dev=0.0, ratio=0.0)
+            for k, (gi, o) in enumerate(served):
+                check(len(o) == 1, f"srfloat: {name}: {len(o)} outputs")
+                ok, d, limit = srfloat_gate(o[0], gd, gi)
+                check(ok, f"srfloat: {name} request {k} (golden {gi}): "
+                      f"deviation {d} against the limit {limit}")
+                w["dev"] = max(w["dev"], d)
+                w["ratio"] = max(w["ratio"], d / limit)
+            windows = {b: c - before.get(b, 0) for b, c in ex.windows.items()
+                       if c - before.get(b, 0)}
+            check(max(windows) > 1, f"srfloat: {name}: the burst ran no batch "
+                  "window")
+            rates[name] = dict(b1_req_s=b1, burst_req_s=burst,
+                               burst_windows=dict(sorted(windows.items())))
+            worst[name] = w
+            log(f"srfloat: {name}: {n + SRFLOAT_TIMED} sync and "
+                f"{SRFLOAT_BURST} burst outputs (720x1280) within the gate "
+                f"(worst deviation {w['dev']:.3e}, {w['ratio']:.3f} of its "
+                f"limit); b1 {b1:.2f} req/s, burst {burst:.2f} req/s, "
+                f"windows {dict(sorted(windows.items()))} ({smi})")
+        for name, mid in mids.items():
+            gd = sg[name]
+            engine_xprof(eng, mid, gd["xs"][0],
+                         lambda o, gd=gd: srfloat_gate(o, gd, 0)[0],
+                         f"{name} b1 (engine)", smi)
+    finally:
+        eng.shutdown()
+    counts = K.launch_counts()
+    for name in K.LAUNCHES:
+        check((counts[name] > 0) == (name in HYBRID_CONV_KERNELS),
+              f"srfloat: kernel {name} launched {counts[name]} times")
+    log(f"srfloat: launches {json.dumps(counts)}")
+    profiles = {}
+    for name in SRFLOAT_MODELS:
+        p = profile_phase(torch, dev, graphs, sg, True, name=name, xprof=smi)
+        profiles[name] = {k: p[k] for k in ("executor_wall_ms",
+                                            "device_kernel_ms",
+                                            "device_busy_share", "launches")}
+        log(f"srfloat: {name} per b1 request: device "
+            f"{p['device_kernel_ms']} ms, {p['launches']} launches, busy "
+            f"share {p['device_busy_share']} ({smi})")
+    return counts, rates, worst, profiles
+
+
+# --------------------------------------------------------------------------
 # detect phase: CenterNet MobileNetV2 FPN 512x512 int8 and its decode
 # --------------------------------------------------------------------------
 
@@ -2559,7 +2900,8 @@ def detect_decode_lines(torch, dev, graphs, dg, smi, smallest_ms):
                 torch.cuda.synchronize()
             ms, n = 0.0, 0
             for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
+                if e.device_type == torch.autograd.DeviceType.CUDA and \
+                        not annotation(e):
                     ms += e.self_device_time_total / 1e3 / reps
                     n += e.count
             r = by_type.setdefault(op.opname, dict(ops=0, ms=0.0,
@@ -2855,7 +3197,7 @@ def seq_profile(torch, dev, graphs, sg, name, smi):
     spans = [(e.time_range.start, e.time_range.end) for e in evs
              if e.device_type == cuda and e.name in ranges]
     kernels = [e for e in evs if e.device_type == cuda
-               and e.name not in ranges]
+               and not annotation(e)]
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
     loop_ms = sum(e.time_range.elapsed_us() for e in kernels if any(
         a <= e.time_range.start < b for a, b in spans)) / 1e3 / reps
@@ -3611,7 +3953,8 @@ def codispatch_phase(torch, bt, K, goldens, smi):
                                         CO_BATCH)
         device_ms = sum(
             e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not annotation(e)) / 1e3
         _co_check(eng, goldens, jobs_p, "codispatch profiled")
         wall_ms = 1e3 * secs_p
         summary.update(
@@ -4281,13 +4624,25 @@ MESH_WORKERS = (
 
 
 def _free_port():
+    """A free port p whose p + 1000, the SPMD control channel's default
+    (parallel/spmd.py control_address), is a port and free too (an
+    ephemeral port above 64535 has no such neighbour)."""
     import socket
 
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    while True:
+        socks = [socket.socket(), socket.socket()]
+        try:
+            socks[0].bind(("localhost", 0))
+            port = socks[0].getsockname()[1]
+            if port + 1000 > 65535:
+                continue
+            socks[1].bind(("localhost", port + 1000))
+            return port
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
 
 
 def _mesh_config(coord, rank, workers, **extra):
@@ -4589,7 +4944,8 @@ def main():
 
     graphs = {n: parse_tflite_file(os.path.join(DATA, f"{n}.tflite"))
               for n in FAST_MODELS + SSD_MODELS + DECODER_MODELS
-              + (SR_MODEL,) + FLOAT_MODELS + (DETECT_MODEL, SEQ_INT8)}
+              + (SR_MODEL,) + FLOAT_MODELS + SRFLOAT_MODELS
+              + (DETECT_MODEL, SEQ_INT8)}
     seq_files = seq_paths()
     graphs.update({n: parse_tflite_file(p) for n, p in seq_files.items()})
     goldens = load_goldens(graphs)
@@ -4598,6 +4954,7 @@ def main():
 
     ops_goldens = load_ops_goldens(graphs)
     float_goldens = load_float_goldens(graphs)
+    srfloat_goldens = load_srfloat_goldens()
     detect_goldens = load_detect_goldens(graphs)
     seq_goldens = load_seq_goldens(graphs)
     seq_goldens["paths"] = seq_files
@@ -4606,6 +4963,8 @@ def main():
         detect_goldens, seq_goldens)
     hybrid_stats = hybrid_kernel_lines(torch, dev, graphs, float_goldens,
                                        smi)
+    hybrid_conv_stats = hybrid_conv_lines(torch, dev, graphs,
+                                          srfloat_goldens, smi)
     conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
                        sm_mhz / 1e3)
     counts, rates = engine_phase(torch, bt, K, MODELS, goldens, card,
@@ -4618,6 +4977,9 @@ def main():
                                               ops_goldens, sr_calls, smi)
     float_counts, float_rates, float_worst = float_phase(
         torch, dev, bt, K, graphs, float_goldens, smi)
+    (srfloat_counts, srfloat_rates, srfloat_worst,
+     srfloat_profiles) = srfloat_phase(torch, dev, bt, K, graphs,
+                                       srfloat_goldens, smi)
     detect_counts, detect_rates, detect_profiles = detect_phase(
         torch, dev, bt, K, graphs, detect_goldens, smi)
     seq_counts, seq_rates, seq_profiles, seq_worst, seq_unfused = seq_phase(
@@ -4626,7 +4988,7 @@ def main():
     decode = detect_decode_lines(torch, dev, graphs, detect_goldens, smi,
                                  smallest)
     depth_phase(torch, dev, graphs, goldens, fast_goldens)
-    profile_phase(torch, dev, graphs, goldens, exact=True)
+    profile_phase(torch, dev, graphs, goldens, exact=True, xprof=smi)
     profile_phase(torch, dev, graphs, goldens, exact=False)
     hetero_phase(torch, bt, K, goldens, hetero_goldens, smi)
     co_counts, _ = codispatch_phase(torch, bt, K, goldens, smi)
@@ -4644,6 +5006,9 @@ def main():
                              "numerics": sr_rates}))
     log("float: " + json.dumps({"card": smi, "models": float_rates,
                                 "worst_deviation": float_worst}))
+    log("srfloat: " + json.dumps({"card": smi, "models": srfloat_rates,
+                                  "worst_deviation": srfloat_worst,
+                                  "b1_request": srfloat_profiles}))
     log("detect: " + json.dumps({"card": smi, "model": DETECT_MODEL,
                                  "numerics": detect_rates,
                                  "b1_request": detect_profiles,
@@ -4714,6 +5079,25 @@ def main():
             "bound_by": "bytes" if s["bytes_s"] >= s["ops_s"] else "operations",
             "library_ms": s["library_ms"], "library": s["library"],
             "mobilenet_v2_dynrange_b1_launches": s["launches_b1"],
+            "seq_launches": seq_counts[name],
+            "frontend_launches": fe_counts[name],
+            "mesh_launches": mesh_counts[name],
+        })
+    for name, meta in HYBRID_CONV_KERNELS.items():
+        s = hybrid_conv_stats
+        # the hybrid conv: its launches on its main path, the srfloat
+        # phase; the time of a b1 dynamic-range FSRCNN request's call
+        line.append({
+            "name": name, "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": srfloat_counts[name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "bytes" if s["bytes_s"] >= s["ops_s"] else "operations",
+            "library_ms": s["library_ms"],
+            "fsrcnn_dynrange_b1_launches": s["launches_b1"],
+            "codispatch_launches": co_counts[name],
+            "sr_launches": sr_counts[name],
+            "detect_launches": detect_counts[name],
             "seq_launches": seq_counts[name],
             "frontend_launches": fe_counts[name],
             "mesh_launches": mesh_counts[name],

@@ -666,6 +666,44 @@ def test_hybrid_gemm_matches_plain(dev, m, k, n, rows, form):
     assert K.launch_counts()["qmatmul_hybrid"] == runs
 
 
+# (n, h, w, ci, oc, taps, pads): FSRCNN's union deconv at full width (b1)
+# and at 24x40 (b3), ragged channels, uneven pads, several channel groups
+HYBRID_CONV_SHAPES = [(1, 360, 640, 56, 4, 5, ((2, 2), (2, 2))),
+                      (3, 24, 40, 56, 4, 5, ((2, 2), (2, 2))),
+                      (2, 17, 33, 20, 12, 3, ((1, 0), (2, 1))),
+                      (2, 20, 20, 130, 70, 3, ((1, 1), (1, 1)))]
+
+
+@pytest.mark.parametrize("geom", HYBRID_CONV_SHAPES, ids=lambda v: str(v))
+def test_hybrid_conv_matches_plain(dev, geom):
+    """qconv2d_hybrid byte-equal to qconv2d_hybrid_plain, with and without
+    bias, each image's padded taps its own zero point (one image's zp
+    -128, one 127)."""
+    n, h, w, ci, oc, k, pads = geom
+    rng = np.random.default_rng(n * 131 + ci + oc)
+    x = _i8(rng, dev, n, h, w, ci)
+    wk = torch.from_numpy(rng.integers(-127, 128, (k * k * ci, oc)).astype(
+        np.int8)).to(dev)
+    colsum = wk.to(torch.int64).sum(dim=0).to(torch.int32)
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, oc).astype(
+        np.float32)).to(dev)
+    zp = rng.integers(-128, 128, n).astype(np.float32)
+    zp[0], zp[-1] = -128.0, 127.0 if n > 1 else -128.0
+    zp = torch.from_numpy(zp).to(dev)
+    sc = torch.from_numpy(rng.uniform(1e-3, 5e-2, n).astype(
+        np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(oc).astype(np.float32)).to(dev)
+    K.reset_launches()
+    for b in (None, bias):
+        got = K.qconv2d_hybrid(x, wk, ws, colsum, zp, sc, b, kh=k, kw=k,
+                               padding=pads)
+        want = K.qconv2d_hybrid_plain(x, wk, ws, colsum, zp, sc, b, kh=k,
+                                      kw=k, padding=pads)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert K.launch_counts()["qconv2d_hybrid"] == 2
+
+
 def _float_engine(max_batch=4):
     return bt.Engine.create(
         bt.RuntimeConfigBuilder()
@@ -743,6 +781,45 @@ def test_gpu_worker_serves_the_float_goldens(dev, tf32_flags):
                 assert d <= max(2 * band[i], 1e-4 * np.abs(want[i]).max())
         assert K.launch_counts()["qmatmul_hybrid"] > 0
         assert K.launch_counts()["qmatmul_exact"] == 0
+    finally:
+        eng.shutdown()
+
+
+def test_gpu_worker_serves_fsrcnn_small_float(dev, tf32_flags):
+    """FSRCNN x2 at 24x40 in float32 and dynamic range on a GPU worker:
+    each output within 1e-4 x max|out| of the same request on a CPU
+    worker (every kernel's plain version) in float32; within 1e-3 x
+    max|out| with dynamic range, where cuDNN's float 1x1 convs differ
+    from the CPU's in the last bit and a deconv input sitting on a
+    rounding boundary flips its code, moving its 9x9 reach by up to
+    ~5e-4 x max (tests/test_torch_srfloat.py::
+    test_dynrange_fsrcnn_matches_tflite); the hybrid deconv on
+    qconv2d_hybrid."""
+    from band_tpu_torch.backend.executor import ModelExecutor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    eng = _float_engine()
+    try:
+        for name in ("fsrcnn_x2_small_float", "fsrcnn_x2_small_dynrange"):
+            mid = eng.register_model(
+                bt.Model.from_path(os.path.join(DATA, f"{name}.tflite")))
+            g = eng.model_record(mid).model.graph
+            cpu = ModelExecutor(1, g, 0, torch.device("cpu"))
+            key = cpu.prepare_subgraph(range(len(g.ops)), [0])
+            xs = rng.uniform(0, 1, (4, *g.tensor(g.inputs[0]).shape)).astype(
+                np.float32)
+            K.reset_launches()
+            ids = [eng.request_async(mid, [x]) for x in xs]
+            for x, j in zip(xs, ids):
+                out = eng.wait(j)[0]
+                want = cpu.execute(key, [x])[0].numpy()
+                d = float(np.abs(out.astype(np.float64) - want).max())
+                rel = 1e-3 if name.endswith("dynrange") else 1e-4
+                assert d <= rel * float(np.abs(want).max())
+            hybrid = name.endswith("dynrange")
+            assert (K.launch_counts()["qconv2d_hybrid"] > 0) == hybrid
     finally:
         eng.shutdown()
 

@@ -36,6 +36,7 @@ def test_import_leaves_jax_and_band_tpu_out():
         "import band_tpu_torch.tools.server, band_tpu_torch.tools.router\n"
         "import band_tpu_torch.tools.evaluate\n"
         "import band_tpu_torch.tools.preprocess_bench\n"
+        "import band_tpu_torch.tools.xprof_summary\n"
         "import band_tpu_torch.c._embed, band_tpu_torch.c.build\n"
         "import band_tpu_torch.parallel.distributed\n"
         "import band_tpu_torch.parallel.mesh, band_tpu_torch.parallel.spmd\n"

@@ -214,6 +214,20 @@ def test_transpose_conv_shards_equal_single_device(name, numerics,
     _equal(sp(_stack(xs)), _single(prog, _stack(xs)))
 
 
+@pytest.mark.parametrize("name", ["fsrcnn_x2_small_float",
+                                  "fsrcnn_x2_small_dynrange"])
+def test_float_and_hybrid_transpose_conv_run_whole(name):
+    """A float or hybrid TRANSPOSE_CONV (and the float and hybrid convs
+    around it) is split by no mesh: on a 2x2 mesh each row's lead device
+    runs it whole, and a window of 4 equals the single-device program."""
+    prog = _prog(name, True)
+    sp = ShardedProgram(prog, make_mesh(dp=2, tp=2))
+    assert not sp.shards
+    xs = [np.random.default_rng(9).uniform(0, 1, (4, 1, 24, 40, 1)).astype(
+        np.float32)]
+    _equal(sp(_stack(xs)), _single(prog, _stack(xs)))
+
+
 # ----------------------------------------------------------------------
 # against band_tpu's sharded programs
 # ----------------------------------------------------------------------

@@ -304,3 +304,127 @@ def test_batch_matmul_refuses_tf32(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(LoweringError, match="TF32"):
         L._batch_matmul(ctx, op)
+
+
+# --------------------------------------------------------------------------
+# the forms of A11 that no tests/data model holds, as one-op models
+# (tests/gen_torch_oneop_models.py) against TFLite and band_tpu
+# --------------------------------------------------------------------------
+
+def _oneop_cases():
+    """(label, maker, band_tpu's relation to TFLite): "equal", "differs"
+    (a fault: C4 int8 PRELU, C11 per-channel QUANTIZE) or "fails" (C10:
+    band_tpu ignores the ellipsis and new-axis masks, so its result does
+    not take the output's shape).  A maker gives (model bytes,
+    inputs)."""
+    from tests.gen_torch_oneop_models import one_op, options, spec
+
+    rng = np.random.default_rng(15)
+    xf = rng.uniform(-1, 1, (1, 4, 5, 3)).astype(np.float32)
+    af = rng.uniform(0, 0.5, (4, 5, 3)).astype(np.float32)
+    xq = rng.integers(-128, 128, (1, 4, 5, 3)).astype(np.int8)
+    aq = rng.integers(-128, 128, (4, 5, 3)).astype(np.int8)
+    qx = dict(scale=0.05, zero_point=3)
+    qa = dict(scale=0.004, zero_point=-5)
+    qo = dict(scale=0.04, zero_point=-2)
+    xs = np.arange(60, dtype=np.float32).reshape(1, 3, 4, 5)
+    w = rng.integers(-127, 128, (3, 4)).astype(np.int8)
+    wa = rng.integers(-128, 128, (1, 3, 4)).astype(np.int8)
+    xp = rng.uniform(-1, 1, (1, 2, 3)).astype(np.float32)
+    seg = rng.uniform(-1, 1, (5, 3)).astype(np.float32)
+    ids = np.array([0, 0, 1, 2, 2], np.int32)
+
+    def prelu(x, a, quant, const):
+        kw = (qx, qa, qo) if quant else ({}, {}, {})
+        dt = "int8" if quant else "float32"
+        return (one_op("PRELU", [spec(x.shape, dt, **kw[0]),
+                                 spec(a.shape, dt, a if const else None,
+                                      **kw[1])],
+                       [spec(x.shape, dt, **kw[2])]),
+                [x] if const else [x, a])
+
+    def ss(begin, end, strides, out, **masks):
+        v = [spec([len(begin)], "int32", np.array(b, np.int32))
+             for b in (begin, end, strides)]
+        return (one_op("STRIDED_SLICE", [spec(xs.shape, "float32")] + v,
+                       [spec(out, "float32")],
+                       options("StridedSlice", **masks),
+                       "StridedSliceOptions"), [xs])
+
+    pc = dict(scale=[0.1, 0.2, 0.3], zero_point=[0, 1, -2])
+    return [
+        ("prelu-float-runtime", lambda: prelu(xf, af, False, False), "equal"),
+        ("prelu-float-hwc", lambda: prelu(xf, af, False, True), "equal"),
+        ("prelu-int8-runtime", lambda: prelu(xq, aq, True, False), "differs"),
+        ("prelu-int8-hwc", lambda: prelu(xq, aq, True, True), "differs"),
+        ("strided-negative", lambda: ss([0, 2, 3, 4], [1, 0, 0, 0],
+                                        [1, -1, -2, -1], [1, 2, 2, 4]),
+         "equal"),
+        ("strided-negative-masked", lambda: ss(
+            [0, 0, 0, 4], [1, 0, 4, 0], [1, -1, 1, -2], [1, 3, 4, 2],
+            beginMask=2, endMask=2), "equal"),
+        ("strided-ellipsis", lambda: ss([0, 1], [0, 3], [1, 1], [1, 3, 4, 2],
+                                        ellipsisMask=1), "fails"),
+        ("strided-new-axis", lambda: ss([0, 0, 0], [1, 2, 3], [1, 1, 1],
+                                        [1, 1, 2, 4, 5], newAxisMask=2),
+         "fails"),
+        ("dequantize-per-channel-constant", lambda: (one_op(
+            "DEQUANTIZE", [spec(w.shape, "int8", w, qdim=0, **pc)],
+            [spec(w.shape, "float32")]), []), "equal"),
+        ("dequantize-per-channel", lambda: (one_op(
+            "DEQUANTIZE", [spec(wa.shape, "int8", qdim=1, **pc)],
+            [spec(wa.shape, "float32")]), [wa]), "equal"),
+        ("quantize-per-channel", lambda: (one_op(
+            "QUANTIZE", [spec(xp.shape, "float32")],
+            [spec(xp.shape, "int8", scale=[0.01, 0.02, 0.03],
+                  zero_point=[0, 1, 2], qdim=2)]), [xp]), "differs"),
+        ("segment-sum-runtime-ids", lambda: (one_op(
+            "SEGMENT_SUM", [spec(seg.shape, "float32"), spec([5], "int32")],
+            [spec([3, 3], "float32")]), [seg, ids]), "equal"),
+    ]
+
+
+_ONEOP = {label: (make, band) for label, make, band in _oneop_cases()}
+
+
+@pytest.mark.parametrize("label", list(_ONEOP))
+def test_one_op_form_matches_tflite(label, tmp_path):
+    """The port equals TFLite 2.21 exactly on each form (floats too: the
+    same float32 operations); band_tpu as the case says (faults C4, C10,
+    C11 in ROADMAP.md)."""
+    make, band = _ONEOP[label]
+    model, feeds = make()
+    path = str(tmp_path / "m.tflite")
+    with open(path, "wb") as f:
+        f.write(model)
+    it = make_tfl_interpreter(path)
+    it.allocate_tensors()
+    for d, v in zip(it.get_input_details(), feeds):
+        it.set_tensor(d["index"], v)
+    it.invoke()
+    want = it.get_tensor(it.get_output_details()[0]["index"])
+    tg, jg = tparse(path), jparse(path)
+    inputs = dict(zip(tg.inputs, feeds))
+    _, (got,) = _run_port(tg, [0], inputs)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if band == "fails":
+        with pytest.raises(Exception):
+            _run_band_tpu(jg, [0], inputs)
+        return
+    _, (ref,) = _run_band_tpu(jg, [0], inputs)
+    assert np.array_equal(ref, want) == (band == "equal")
+
+
+def test_band_tpu_cannot_run_runtime_int8_fc_weights():
+    """Why runtime int8 FULLY_CONNECTED weights stay refused
+    (test_torch_float.py::test_runtime_fc_weights_are_refused): band_tpu
+    prepares nothing for them and its lowering fails on the missing
+    weights."""
+    g8 = copy.deepcopy(jparse(_path("fc_int8")))
+    op = next(op for op in g8.ops if op.opname == "FULLY_CONNECTED")
+    g8.tensor(op.inputs[1]).data = None
+    feeds = {t: _random(np.random.default_rng(0), g8.tensor(t))
+             for t in op.inputs[:2]}
+    with pytest.raises(KeyError):
+        _run_band_tpu(g8, [op.index], feeds)

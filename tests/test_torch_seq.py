@@ -228,6 +228,64 @@ def test_one_op_lstm_matches_band_tpu(case):
         assert ref.shape != got.shape or not np.allclose(ref, got)
 
 
+def _runtime_operands(g, op):
+    """A copy of ``g`` whose LSTM ``op`` reads every weight, bias,
+    peephole, projection and layer-norm operand at run time, and those
+    operands' constant values."""
+    import copy
+
+    g = copy.deepcopy(g)
+    op = g.ops[op.index]
+    values = {}
+    for i, tid in enumerate(op.inputs):
+        td = g.tensor(tid) if tid >= 0 else None
+        if i in (0, 18, 19) or td is None or td.data is None \
+                or td.data.size == 0:
+            continue
+        values[tid] = np.ascontiguousarray(td.data)
+        td.data = None
+    return g, values
+
+
+@pytest.mark.parametrize("case", ["all", "plain", INT8])
+def test_runtime_lstm_operands(case):
+    """Runtime LSTM operands (every weight, bias, peephole, projection and
+    layer-norm coefficient a value at run time, as in a loop body): the
+    port's one-op program equals its program on the same constants
+    exactly (the same float32 stacking at run time), and band_tpu's on
+    the same runtime values within rtol 2e-5, atol 2e-6."""
+    if case == INT8:
+        tg, jg = _graphs(INT8)
+        op = next(o for o in tg.ops
+                  if o.opname == "UNIDIRECTIONAL_SEQUENCE_LSTM")
+        x = np.random.default_rng(4).integers(
+            -128, 128, tg.tensor(op.inputs[0]).shape).astype(np.int8)
+    else:
+        tg, jg = lstm_graphs(**LSTM_CASES[case])
+        op = tg.ops[0]
+        x = np.random.default_rng(4).standard_normal(
+            tg.tensor(0).shape).astype(np.float32)
+    const = tbuild(tg, [op.index])
+    want = const.make_fn()(params_from_jax(const.params),
+                           [torch.from_numpy(x)])[0].numpy()
+    rg, values = _runtime_operands(tg, op)
+    jrg, _ = _runtime_operands(jg, op)
+    assert len(values) >= 8
+    feeds = {**values, op.inputs[0]: x}
+    prog = tbuild(rg, [op.index])
+    assert prog.meta[f"op{op.index}/runtime"]
+    got = prog.make_fn()(params_from_jax(prog.params), [
+        torch.from_numpy(feeds[t]) for t in prog.input_ids])[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    jprog = jbuild(jrg, [op.index], exact=True, conv_mode="f32_split")
+    ref = np.asarray(jax.jit(jprog.make_fn())(
+        jprog.params, [feeds[t] for t in jprog.input_ids])[0])
+    if case == INT8:
+        assert np.abs(got.astype(np.int32) - ref).max() <= 1
+    else:
+        np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("name", ("bilstm_seq", INT8))
 def test_window_equals_solo(name):
     g = _graphs(name)[0]
