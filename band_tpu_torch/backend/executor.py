@@ -49,8 +49,9 @@ from ..common import SubgraphKey, bucket_of
 from ..errors import ExecutionError
 from ..ir.graph import Graph
 from ..ops.quant import torch_dtype
-from .program import (SubgraphProgram, build_program, params_from_jax,
-                      spans_off)
+from ..tracing import counters
+from ..tracing.spans import span, spans_off
+from .program import SubgraphProgram, build_program, params_from_jax
 
 
 def to_device(v, device: torch.device) -> torch.Tensor:
@@ -190,7 +191,9 @@ class ModelExecutor:
         if self._spmd is not None:
             out = self._spmd.run_window(self, key, [list(inputs)])[0]
         else:
-            out = self._run(key, [to_device(v, self.device) for v in inputs])
+            with span("band.stage"):
+                args = [to_device(v, self.device) for v in inputs]
+            out = self._run(key, args)
         self._mark_warm(key, 1)
         return out
 
@@ -242,7 +245,8 @@ class ModelExecutor:
                     bucket: int) -> List[List[torch.Tensor]]:
         """One stacked launch sequence of a window padded to ``bucket``
         with its first request; per-request outputs."""
-        args = stack_window(_pad(inputs_batch, bucket), self.device)
+        with span("band.stage"):
+            args = stack_window(_pad(inputs_batch, bucket), self.device)
         return split_window(self._run(key, args), bucket, len(inputs_batch),
                             self._free[key])
 
@@ -265,9 +269,12 @@ def stack_window(padded: Sequence[Sequence],
 
 
 def _pad(inputs_batch: Sequence[Sequence], bucket: int) -> List[Sequence]:
+    """The window filled to ``bucket`` with its first request (counted:
+    ``rows_stacked``, ``rows_padded``)."""
     if not 1 <= len(inputs_batch) <= bucket:
         raise ExecutionError(
             f"a window of {len(inputs_batch)} requests in bucket {bucket}")
+    counters.rows(bucket, bucket - len(inputs_batch))
     return list(inputs_batch) + [inputs_batch[0]] * (bucket - len(inputs_batch))
 
 
@@ -409,14 +416,15 @@ def run_combo(combo: ComboProgram,
                     combo.members, combo.executors, inputs_groups)]
     from ..ops import kernels as K
 
-    for (_, bucket), statics, ins_batch in zip(
-            combo.members, combo.static_inputs, inputs_groups):
-        padded = _pad(ins_batch, bucket)
-        if len(padded[0]) != len(statics):
-            raise ExecutionError(
-                f"{len(padded[0])} inputs for a member of {len(statics)}")
-        for pos, static in enumerate(statics):
-            _fill(static, [ins[pos] for ins in padded], bucket)
+    with span("band.stage"):
+        for (_, bucket), statics, ins_batch in zip(
+                combo.members, combo.static_inputs, inputs_groups):
+            padded = _pad(ins_batch, bucket)
+            if len(padded[0]) != len(statics):
+                raise ExecutionError(
+                    f"{len(padded[0])} inputs for a member of {len(statics)}")
+            for pos, static in enumerate(statics):
+                _fill(static, [ins[pos] for ins in padded], bucket)
     combo.graph.replay()
     with torch.inference_mode():
         outs = [[o.clone() for o in group] for group in combo.static_outputs]

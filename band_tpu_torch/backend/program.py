@@ -16,13 +16,13 @@ post-process): they run as numpy functions between the PyTorch ops,
 CPU tensors in and out (band_tpu's ``_build_custom_program`` and
 ``_execute_eager``, backend/executor.py:151-177, :374-400).
 
-Graph-op spans: while a torch.profiler session runs (on any thread),
-each op runs inside ``torch.profiler.record_function("opNNN_NAME")``,
-the counterpart of band_tpu's ``jax.named_scope`` (band_tpu/backend/
-program.py:163-167), which tools/xprof_summary.py reads to attribute
-each kernel to its graph op.  The profiler's state is read once per
-call, so a call made with no profile running enters no span; a CUDA
-graph's capture (``spans_off``) enters none either.
+Graph-op spans: while a torch.profiler session runs (on any thread) or
+the job tracer is on, each op runs inside ``span("opNNN_NAME")``
+(tracing/spans.py), the counterpart of band_tpu's ``jax.named_scope``
+(band_tpu/backend/program.py:163-167), which tools/xprof_summary.py
+reads to attribute each kernel to its graph op.  The gate is read once
+per call, so a call made with neither on enters no span; a CUDA graph's
+capture (``spans_off``) enters none either.
 
 Counterpart: band_tpu/backend/program.py, which builds a function for
 ``jax.jit``; here there is nothing to trace or compile and no fusion
@@ -31,8 +31,6 @@ barriers.
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Sequence, Tuple
 
@@ -45,31 +43,7 @@ from ..ops.host_ops import has_host_impl, run_host_op
 from ..ops.lowerings import (CONTROL_FLOW, LowerCtx, request_free,
                              require_ieee_fp32, shard_params)
 from ..ops.registry import REGISTRY, get_lowering
-
-
-# per thread: a CUDA graph capture in progress, which takes no spans
-_no_spans = threading.local()
-
-
-def profiling() -> bool:
-    """Whether a graph op's span is recorded now: a torch.profiler session
-    runs on some thread of the process (the flag torch.profiler sets at
-    start and clears at stop; ``torch._C._autograd._profiler_enabled()``
-    answers for the calling thread only, and the engine's workers run on
-    their own) and this thread is not capturing a CUDA graph."""
-    return (bool(getattr(torch.autograd.profiler, "_is_profiler_enabled",
-                         False))
-            and not getattr(_no_spans, "on", False))
-
-
-@contextlib.contextmanager
-def spans_off():
-    """No graph-op spans on this thread in the block (a capture)."""
-    _no_spans.on = True
-    try:
-        yield
-    finally:
-        _no_spans.on = False
+from ..tracing.spans import active, span, spans_off  # noqa: F401
 
 
 def subgraph_boundary(
@@ -200,8 +174,8 @@ class SubgraphProgram:
         axis (ops/lowerings.py); the outputs then do too.  ``run_op(ctx,
         op)``, where given, runs an op in place of its lowering when it
         returns True (a mesh's shards, parallel/mesh.py).  While a
-        profile runs (``profiling``, read once a call), each op runs in a
-        ``record_function`` span named opNNN_NAME."""
+        profile runs or the job tracer is on (``active``, read once a
+        call), each op runs in a span named opNNN_NAME."""
         graph = self.graph
         op_indices = self.op_indices
         input_ids = self.input_ids
@@ -224,9 +198,9 @@ class SubgraphProgram:
             ctx = LowerCtx(graph, params, meta, batch=batch, free=free)
             for tid, v in zip(input_ids, inputs):
                 ctx.set(tid, v)
-            if profiling():
+            if active():
                 for oi in op_indices:
-                    with torch.profiler.record_function(names[oi]):
+                    with span(names[oi]):
                         run(ctx, graph.ops[oi])
             else:
                 for oi in op_indices:

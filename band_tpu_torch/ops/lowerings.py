@@ -100,6 +100,7 @@ import torch.nn.functional as F
 
 from ..errors import LoweringError
 from ..ir.graph import Graph, OpNode, QuantParams, TensorDef
+from ..tracing.spans import span
 from . import quant as Q
 from .kernels import (lut_softmax, qconv2d_exact, qconv2d_fast,
                       qconv2d_hybrid, qdwconv2d_exact, qdwconv2d_fast,
@@ -3339,7 +3340,7 @@ def _lstm_operands(ctx: LowerCtx, op: OpNode) -> Dict[str, torch.Tensor]:
     return _lstm_stack(real, ctx.smeta(op, "gates"), ctx.smeta(op, "n_cell"))
 
 
-# the profiler ranges of the recurrences (LSTM steps, WHILE iterations)
+# the spans of the recurrences (LSTM steps, WHILE iterations)
 LSTM_STEPS = "band:lstm_steps"
 WHILE_ITERATIONS = "band:while_iterations"
 
@@ -3394,9 +3395,9 @@ def _useq_lstm(ctx: LowerCtx, op: OpNode) -> None:
     h = torch.zeros((rows, n_out), dtype=torch.float32, device=x.device)
     c = torch.zeros((rows, n), dtype=torch.float32, device=x.device)
     outs = []
-    # one profiler range over the recurrence (its share of a request's
-    # device time; nearly free when no profiler runs)
-    with torch.profiler.record_function(LSTM_STEPS):
+    # one span over the recurrence (its share of a request's device
+    # time; a flag read when nothing records)
+    with span(LSTM_STEPS):
         for t in range(t_len):
             z = torch.addmm(xp[t], h, r_t)
             if not (peep or has_ln):
@@ -3596,7 +3597,7 @@ def _while(ctx: LowerCtx, op: OpNode) -> None:
     flags, cond_free = control_free(ctx.graph, op, ctx.free)
     carry = _cf_inputs(ctx, op, op.inputs, flags)
     dtypes = [v.dtype for v in carry]
-    with torch.profiler.record_function(WHILE_ITERATIONS):
+    with span(WHILE_ITERATIONS):
         carry = _loop(ctx, cond, body, flags, cond_free, carry, dtypes)
     for tid, v in zip(op.outputs, carry):
         ctx.set(tid, v)

@@ -29,6 +29,7 @@ from ..common import (
 from ..config import PlannerConfig
 from ..errors import ConfigError
 from ..tracing.logger import log_error
+from ..tracing.spans import span
 from .engine_interface import EngineBase
 
 NUM_FINISHED_RECORDS = 1000
@@ -327,48 +328,57 @@ class Planner:
                 return
             if not self._running:
                 return
-            self._copy_to_local_queues()
-            self._process_purges()
-            for scheduler, queue in zip(self.schedulers, self.local_queues):
-                if not queue:
-                    continue
-                # schedulers only pop from their window, so the rescue
-                # snapshot need only cover that prefix
-                window = min(getattr(scheduler, "window", 1 << 30),
-                             len(queue))
-                before = list(itertools.islice(queue, window))
-                actions = []
-                try:
-                    actions = scheduler.schedule(queue)
-                except Exception:
-                    # never kill the planner thread: a scheduler can
-                    # raise mid-pass when a model vanishes under it (an
-                    # unregister race). Jobs it already popped are in
-                    # neither the queue nor any worker — rescue them:
-                    # requeue live-model ones, fail vanished-model ones,
-                    # and drop any reservations they booked.
-                    log_error(
-                        "scheduler pass error:\n%s", traceback.format_exc()
-                    )
-                    still_queued = {id(j) for j in queue}
-                    on_fin = getattr(scheduler, "on_job_finished", None)
-                    # reversed so appendleft preserves FIFO order
-                    for job in reversed(before):
-                        if id(job) in still_queued:
-                            continue
-                        if on_fin:
-                            on_fin(job.job_id)
-                        if self.engine.has_model(job.model_id):
-                            queue.appendleft(job)
-                        else:
-                            self._fail_job(job)
-                    for job in [
-                        j for j in queue
-                        if not self.engine.has_model(j.model_id)
-                    ]:
-                        queue.remove(job)
+            if not (self._requests or self._purges or any(self.local_queues)):
+                continue  # nothing to plan
+            with span("band.plan"):
+                self._plan_pass()
+
+    def _plan_pass(self) -> None:
+        """One pass of the planner: the requests to the local queues,
+        the purges, each scheduler over its queue, the actions to the
+        workers."""
+        self._copy_to_local_queues()
+        self._process_purges()
+        for scheduler, queue in zip(self.schedulers, self.local_queues):
+            if not queue:
+                continue
+            # schedulers only pop from their window, so the rescue
+            # snapshot need only cover that prefix
+            window = min(getattr(scheduler, "window", 1 << 30),
+                         len(queue))
+            before = list(itertools.islice(queue, window))
+            actions = []
+            try:
+                actions = scheduler.schedule(queue)
+            except Exception:
+                # never kill the planner thread: a scheduler can
+                # raise mid-pass when a model vanishes under it (an
+                # unregister race). Jobs it already popped are in
+                # neither the queue nor any worker — rescue them:
+                # requeue live-model ones, fail vanished-model ones,
+                # and drop any reservations they booked.
+                log_error(
+                    "scheduler pass error:\n%s", traceback.format_exc()
+                )
+                still_queued = {id(j) for j in queue}
+                on_fin = getattr(scheduler, "on_job_finished", None)
+                # reversed so appendleft preserves FIFO order
+                for job in reversed(before):
+                    if id(job) in still_queued:
+                        continue
+                    if on_fin:
+                        on_fin(job.job_id)
+                    if self.engine.has_model(job.model_id):
+                        queue.appendleft(job)
+                    else:
                         self._fail_job(job)
-                self._enqueue_to_workers(actions)
+                for job in [
+                    j for j in queue
+                    if not self.engine.has_model(j.model_id)
+                ]:
+                    queue.remove(job)
+                    self._fail_job(job)
+            self._enqueue_to_workers(actions)
 
     def _fail_job(self, job: Job) -> None:
         job.status = JobStatus.ENQUEUE_FAILED

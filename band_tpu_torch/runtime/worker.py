@@ -47,7 +47,9 @@ from ..common import Job, JobStatus, bucket_of, now_us, subgraph_sort_key
 from ..config import WorkerSpec
 from ..tracing.logger import log_error
 from ..errors import ExecutionError
+from ..tracing import counters
 from ..tracing.job_tracer import tracer
+from ..tracing.spans import span
 from .engine_interface import EngineBase
 
 LARGE_WAITING_TIME = 1 << 62
@@ -119,6 +121,9 @@ class Worker:
         # dispatch-thread generation: bumped when a rejoin retires a
         # still-wedged thread and hands the loop to a fresh one
         self._gen = 0
+        # native id of the dispatch thread, where the job trace puts each
+        # job's subgraph execution
+        self._dispatch_tid = 0
         # >0 while a dispatch runs a (key, bucket) for the first time,
         # which may build the kernels with nvcc (set by
         # Engine._invoke_flagged); the watchdog must not mistake a long
@@ -352,14 +357,14 @@ class Worker:
         depth = max(self._max_depth(), 1)
         gen = self._gen
         q = self._retire_q
+        self._dispatch_tid = threading.get_native_id()
         while True:
             with self._cv:
-                while (self._kill is False and self._gen == gen) and (
-                    self._paused
-                    or not self.has_job()
-                    or self._inflight_count >= depth
-                ):
-                    self._cv.wait(timeout=0.1)
+                reason = self._idle_reason(gen, depth)
+                if reason is not None:
+                    with span("band.wait", args={"reason": reason}):
+                        while self._idle_reason(gen, depth) is not None:
+                            self._cv.wait(timeout=0.1)
                 if self._gen != gen:
                     # retired by a rejoin: a fresh thread owns the loop
                     # now (in-flight records were failed at quarantine)
@@ -412,6 +417,19 @@ class Worker:
                         self._dispatching = False
                     self._idle_cv.notify_all()
 
+    def _idle_reason(self, gen: int, depth: int) -> Optional[str]:
+        """Why the dispatch thread must wait now (called under _cv), or
+        None: it is to stop, or a window can go."""
+        if self._kill or self._gen != gen:
+            return None
+        if self._paused:
+            return "paused"
+        if not self.has_job():
+            return "no job"
+        if self._inflight_count >= depth:
+            return "in-flight depth"
+        return None
+
     def _retire_loop(self, q: "queue_mod.Queue") -> None:
         """Retirement thread: drain dispatched records, observe
         completion once per drained batch, retire in FIFO order.  The
@@ -454,7 +472,8 @@ class Worker:
                 recs.append(r2)
             try:
                 self._retire_busy_since = (gen, time.monotonic())
-                self._finish_window(recs, gen)
+                with span("band.retire", (j for r in recs for j in r[0])):
+                    self._finish_window(recs, gen)
             except Exception:
                 log_error(
                     "worker %d retire error:\n%s",
@@ -508,18 +527,20 @@ class Worker:
         key = jobs[0].subgraph_key
 
         def launch():
-            inputs_list = [
-                self.engine.try_copy_input_tensors(j) for j in jobs
-            ]
-            self._begin(jobs)
-            if len(jobs) == 1:
-                outs = [self.engine.invoke(key, inputs_list[0])]
-            else:
-                outs = self.engine.invoke_batched(key, inputs_list)
-            # recorded on this (the dispatch) thread's current stream,
-            # the one the window was launched on
-            return [(jobs, outs,
-                     self.engine.record_completion(self.worker_id))]
+            with span("band.window", jobs), counters.dispatch_clock():
+                with span("band.stage", jobs):
+                    inputs_list = [
+                        self.engine.try_copy_input_tensors(j) for j in jobs
+                    ]
+                self._begin(jobs)
+                if len(jobs) == 1:
+                    outs = [self.engine.invoke(key, inputs_list[0])]
+                else:
+                    outs = self.engine.invoke_batched(key, inputs_list)
+                # recorded on this (the dispatch) thread's current stream,
+                # the one the window was launched on
+                return [(jobs, outs,
+                         self.engine.record_completion(self.worker_id))]
 
         return self._guarded(jobs, gen, launch)
 
@@ -536,14 +557,16 @@ class Worker:
         sig = tuple((g[0].subgraph_key, bucket_of(len(g))) for g in groups)
 
         def launch():
-            inputs_groups = [
-                [self.engine.try_copy_input_tensors(j) for j in g]
-                for g in groups
-            ]
-            self._begin(jobs)
-            outs_groups = self.engine.invoke_multi(sig, inputs_groups)
-            done = FusedCompletion(
-                self.engine.record_completion(self.worker_id))
+            with span("band.window", jobs), counters.dispatch_clock():
+                with span("band.stage", jobs):
+                    inputs_groups = [
+                        [self.engine.try_copy_input_tensors(j) for j in g]
+                        for g in groups
+                    ]
+                self._begin(jobs)
+                outs_groups = self.engine.invoke_multi(sig, inputs_groups)
+                done = FusedCompletion(
+                    self.engine.record_completion(self.worker_id))
             exp = [
                 max(self.engine.get_expected_latency(k, b), 1)
                 for k, b in sig
@@ -561,7 +584,6 @@ class Worker:
         start = now_us()
         for j in jobs:
             j.invoke_time = start
-            tracer().begin_subgraph(j)
 
     def _guarded(self, jobs: List[Job], gen: Optional[int],
                  launch) -> List[tuple]:
@@ -575,7 +597,7 @@ class Worker:
             return launch()
         except ExecutionError:
             for j in jobs:
-                tracer().end_subgraph(j)
+                tracer().subgraph(j, self._dispatch_tid)
             if gen is not None and self._gen != gen:
                 return []  # stale thread: jobs already failed at quarantine
             self._drop_inflight(jobs)
@@ -596,7 +618,7 @@ class Worker:
             for j in jobs:
                 j.status = JobStatus.INVOKE_FAILURE
                 j.end_time = now_us()
-                tracer().end_subgraph(j)
+                tracer().subgraph(j, self._dispatch_tid)
                 self.engine.enqueue_finished_job(j)
             self._on_dispatch_consumed(jobs, gen)
             return []
@@ -613,7 +635,8 @@ class Worker:
         (its event or FusedCompletion; None when they ran synchronously
         on the host)."""
         if rec[2] is not None:
-            rec[2].synchronize()
+            with span("band.retire.wait", rec[0]):
+                rec[2].synchronize()
 
     def _finish_window(self, recs, gen: Optional[int] = None) -> None:
         """Retire several in-flight work units, blocking only on the
@@ -658,7 +681,7 @@ class Worker:
                 self._wait_done(rec)
         except Exception:
             for j in jobs:
-                tracer().end_subgraph(j)
+                tracer().subgraph(j, self._dispatch_tid)
                 if j.status != JobStatus.QUEUED or j.retired:
                     continue  # already decided (e.g. quarantine failed it)
                 j.status = JobStatus.INVOKE_FAILURE
@@ -669,16 +692,17 @@ class Worker:
         end = now_us()
         if isinstance(rec[2], FusedCompletion):
             end = rec[2].stamp(end)
-        latency = end - jobs[0].invoke_time
-        self.engine.update_latency(
-            key, max(int(latency * share), 1), batch=len(jobs)
-        )
-        for j, outs in zip(jobs, outputs_list):
-            j.end_time = end
-            j.profiled_execution_time = latency
-            tracer().end_subgraph(j)
-            self._complete(j, outs)
-        self._drop_inflight(jobs)
+        with span("band.retire.finish", jobs):
+            latency = end - jobs[0].invoke_time
+            self.engine.update_latency(
+                key, max(int(latency * share), 1), batch=len(jobs)
+            )
+            for j, outs in zip(jobs, outputs_list):
+                j.end_time = end
+                j.profiled_execution_time = latency
+                tracer().subgraph(j, self._dispatch_tid)
+                self._complete(j, outs)
+            self._drop_inflight(jobs)
 
     def _complete(self, job: Job, outputs) -> None:
         if job.status != JobStatus.QUEUED or job.retired:

@@ -1,4 +1,4 @@
-"""Summarize a device trace by kernel, op type and graph op.
+"""Summarize a device trace by kernel, op type, graph op and host span.
 
 The counterpart of band_tpu/tools/xprof_summary.py, which reads a JAX
 trace (xplane.pb) and attributes each XLA op to the graph op whose
@@ -15,6 +15,11 @@ of its thread.
 Kernels replayed from a CUDA graph (a co-dispatch combo, a timing
 harness) were launched by one ``cudaGraphLaunch``, outside any op span:
 they are counted under "(CUDA graph replay)", and the summary says so.
+
+The host's time by stage is the ``band.*`` spans of tracing/spans.py
+(``band.request``, ``band.plan``, ``band.wait``, ``band.window``,
+``band.stage``, ``band.retire`` and its parts, ``band.get_outputs``),
+summed by thread (``host_spans``).
 
 Usage:
     # capture: engine.start_device_trace(dir); requests;
@@ -34,6 +39,7 @@ import sys
 from typing import Dict, List, Optional, Tuple
 
 GRAPH_OP = re.compile(r"^op\d+_\w+$")
+HOST_SPAN = "band."
 REPLAY = "(CUDA graph replay)"
 OUTSIDE = "(outside any graph op)"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -151,6 +157,28 @@ def summarize(path: str, top_n: int = 20) -> Dict[str, object]:
     }
 
 
+def host_spans(path: str) -> List[Tuple[float, int, str, str]]:
+    """The ``band.*`` spans of a trace summed by thread and name:
+    [(host ms, count, thread, span)], the most ms first; a thread is its
+    name where the trace has one, else its id."""
+    events = load_trace(path)
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    names = {(ev.get("pid"), ev.get("tid")): (ev.get("args") or {}).get("name")
+             for ev in events
+             if ev.get("ph") == "M" and ev.get("name") == "thread_name"}
+    ms: collections.Counter = collections.Counter()
+    count: collections.Counter = collections.Counter()
+    for ev in events:
+        if (ev.get("ph") == "X" and ev.get("cat") == "user_annotation"
+                and ev.get("name", "").startswith(HOST_SPAN)):
+            thread = (ev.get("pid"), ev.get("tid"))
+            key = (names.get(thread) or f"tid {ev.get('tid')}", ev["name"])
+            ms[key] += float(ev.get("dur", 0.0)) / 1e3
+            count[key] += 1
+    return [(v, count[k]) + k for k, v in ms.most_common()]
+
+
 def main(argv: Optional[list] = None) -> int:
     argv = argv if argv is not None else sys.argv[1:]
     if not argv:
@@ -174,6 +202,9 @@ def main(argv: Optional[list] = None) -> int:
     print("== by graph op (record_function spans): device ms, host ms")
     for ms, op, host in s["by_graph_op"]:
         print(f"  {ms:8.4f} ms  {host:8.4f} ms  {op}")
+    print("== by host span (band.* spans by thread): host ms, count")
+    for ms, n, thread, name in host_spans(argv[0]):
+        print(f"  {ms:8.4f} ms  {n:6d}  {thread[:28]:30.30}{name}")
     return 0
 
 

@@ -159,3 +159,30 @@ def test_spans_only_while_a_profile_runs(monkeypatch):
         assert entered == []
     fn(params, [x])
     assert entered == []
+
+
+def test_host_spans_by_thread(tmp_path, capsys):
+    path = str(tmp_path / "trace.json")
+    ev = [
+        {"ph": "M", "name": "thread_name", "pid": 7, "tid": 1,
+         "args": {"name": "band-worker-0"}},
+        _x("band.window", "user_annotation", 0, 400),
+        _x("band.stage", "user_annotation", 10, 50),
+        _x("op000_CONV_2D", "user_annotation", 60, 300),
+        _x("band.window", "user_annotation", 500, 600),
+        _x("band.request", "user_annotation", 0, 30, tid=2),
+        _x("band.request", "user_annotation", 40, 20, tid=2),
+        _x("band.retire", "kernel", 0, 999, tid=0),  # not a host span
+    ]
+    with open(path, "w") as f:
+        json.dump({"traceEvents": ev}, f)
+    got = {(thread, name): (ms, n) for ms, n, thread, name
+           in X.host_spans(path)}
+    assert got == pytest.approx({
+        ("band-worker-0", "band.window"): (1.0, 2),
+        ("band-worker-0", "band.stage"): (0.05, 1),
+        ("tid 2", "band.request"): (0.05, 2)})
+    assert X.host_spans(path)[0][2:] == ("band-worker-0", "band.window")
+    assert X.main([path]) == 0
+    out = capsys.readouterr().out
+    assert "== by host span" in out and "band.request" in out
