@@ -21,6 +21,7 @@ B2 mma      csrc/qconv_mma.cuh         B2's and B2 fast's general branch (counte
 B2 hybrid   qconv.qconv2d_hybrid       band_tpu/ops/lowerings.py:2133-2163 (XLA phase convs, no Pallas; fault C9)
 B3 fast     qdwconv.qdwconv2d_fast     band_tpu/ops/lowerings.py:943-964 (XLA conv + requantize_fast)
 softmax     softmax.lut_softmax        band_tpu/ops/quant.py:443 (XLA, no Pallas)
+qaddsub     addsub.qaddsub             band_tpu/ops/lowerings.py ADD/SUB (XLA int64 ops, no Pallas)
 ==========  =========================  =======================================
 """
 
@@ -32,7 +33,9 @@ from .qmatmul import (gemm_plan, qmatmul_exact, qmatmul_fast,  # noqa: F401
                       qmatmul_fast_plain, qmatmul_hybrid,
                       qmatmul_hybrid_plain, qmatmul_plain)
 from .softmax import lut_softmax, lut_softmax_plain  # noqa: F401
-from . import qconv as _qc, qdwconv as _qd, qmatmul as _qm, softmax as _sm
+from .addsub import qaddsub, qaddsub_plain  # noqa: F401
+from . import addsub as _as, qconv as _qc, qdwconv as _qd, qmatmul as _qm
+from . import softmax as _sm
 from .common import recording  # noqa: F401
 
 # launch counts by kernel name (each a LaunchCount with a plain int ``n``)
@@ -41,7 +44,8 @@ LAUNCHES = {
     for c in (_qm.launches, _qc.launches, _qd.launches, _sm.launches,
               _qm.fast_launches, _qc.fast_launches, _qd.fast_launches,
               _qm.hybrid_launches,
-              _qc.mma_launches, _qc.fast_mma_launches, _qc.hybrid_launches)
+              _qc.mma_launches, _qc.fast_mma_launches, _qc.hybrid_launches,
+              _as.launches)
 }
 
 

@@ -6,16 +6,17 @@ and a lowering that runs on torch tensors.  Every int8 CONV_2D,
 DEPTHWISE_CONV_2D and FULLY_CONNECTED goes through a hand-written kernel
 (ops/kernels), which on a CPU tensor runs its plain PyTorch version;
 quantized SOFTMAX goes through its kernel too, and every int8
-TRANSPOSE_CONV runs as phase convolutions on the conv kernel.  ADD,
-SUB, MUL, MEAN, RELU, RELU6 and the int8 QUANTIZE are plain PyTorch in
-int64, the pools in floating point (exact for 8-bit values), RESHAPE a
-view, LOGISTIC, TANH and ELU TFLite's 256-entry tables, the exact int8
-PRELU and LEAKY_RELU tables of TFLite's fixed-point kernels.  The
-structural ops (SHAPE, STRIDED_SLICE, SLICE, PACK, TRANSPOSE,
-CONCATENATION, the pads, splits, depth/space moves and nearest resize)
-move bytes; RESIZE_BILINEAR, BATCH_MATMUL, SQUARED_DIFFERENCE and the
-float unary table run band_tpu's float fallback (as_float, a float32
-op, store_real).
+TRANSPOSE_CONV runs as phase convolutions on the conv kernel.  The
+exact int8 ADD and SUB of same-shape operands go through kernel
+qaddsub; a broadcast ADD or SUB, MUL, MEAN, RELU, RELU6 and the int8
+QUANTIZE are plain PyTorch in int64, the pools in floating point
+(exact for 8-bit values), RESHAPE a view, LOGISTIC, TANH and ELU
+TFLite's 256-entry tables, the exact int8 PRELU and LEAKY_RELU tables
+of TFLite's fixed-point kernels.  The structural ops (SHAPE,
+STRIDED_SLICE, SLICE, PACK, TRANSPOSE, CONCATENATION, the pads, splits,
+depth/space moves and nearest resize) move bytes; RESIZE_BILINEAR,
+BATCH_MATMUL, SQUARED_DIFFERENCE and the float unary table run
+band_tpu's float fallback (as_float, a float32 op, store_real).
 
 Numerics: ``prepare(graph, op, exact)`` with exact=False (fast numerics)
 gives CONV_2D, DEPTHWISE_CONV_2D and FULLY_CONNECTED a float32 ``mult``
@@ -100,11 +101,14 @@ import torch.nn.functional as F
 
 from ..errors import LoweringError
 from ..ir.graph import Graph, OpNode, QuantParams, TensorDef
+from ..tracing import counters
 from ..tracing.spans import span
 from . import quant as Q
-from .kernels import (lut_softmax, qconv2d_exact, qconv2d_fast,
-                      qconv2d_hybrid, qdwconv2d_exact, qdwconv2d_fast,
-                      qmatmul_exact, qmatmul_fast, qmatmul_hybrid)
+from .kernels import (lut_softmax, qaddsub, qaddsub_plain, qconv2d_exact,
+                      qconv2d_fast, qconv2d_hybrid, qdwconv2d_exact,
+                      qdwconv2d_fast, qmatmul_exact, qmatmul_fast,
+                      qmatmul_hybrid)
+from .kernels.addsub import PARAMS as ADDSUB_PARAMS
 from .kernels.qmatmul import HYBRID_ACTIVATIONS
 from .registry import register
 
@@ -868,7 +872,10 @@ def _store_clamped(ctx: LowerCtx, op: OpNode, r: torch.Tensor) -> None:
 def _addsub(ctx: LowerCtx, op: OpNode, sign: int) -> None:
     """TFLite's quantized ADD/SUB: both inputs rescaled to a common scale
     (x - zp) << 20 through single-rounding MBQM, summed (or subtracted),
-    rescaled to the output, all in int64.  Fast numerics: round_half_even
+    rescaled to the output, all in int64: kernel qaddsub where both
+    request views are int8/uint8 of the output's shape and contiguous,
+    else the int64 chain (qaddsub_plain, counted as ``addsub_plain``).
+    Fast numerics: round_half_even
     ((x1 - zp1) * f1 + sign * (x2 - zp2) * f2) + zpo in float32, band_tpu's
     form (every product and the sum rounded once, no FMA; the
     differences of 8-bit values are exact in float32).  Float: x1 +/- x2
@@ -893,19 +900,16 @@ def _addsub(ctx: LowerCtx, op: OpNode, sign: int) -> None:
             float(ctx.smeta(op, "f2"))
         _store_clamped(ctx, op, torch.round(p1 + p2 if sign > 0 else p1 - p2))
         return
-    ls = int(ctx.smeta(op, "left_shift"))
-    a1 = x1.to(torch.int64) - int(ctx.smeta(op, "zp1"))
-    a2 = x2.to(torch.int64) - int(ctx.smeta(op, "zp2"))
-    s1 = Q.multiply_by_quantized_multiplier(
-        a1 << ls, int(ctx.smeta(op, "qm1")), int(ctx.smeta(op, "sh1")))
-    s2 = Q.multiply_by_quantized_multiplier(
-        a2 << ls, int(ctx.smeta(op, "qm2")), int(ctx.smeta(op, "sh2")))
-    s1, s2 = s1.to(torch.int64), s2.to(torch.int64)
-    raw = s1 + s2 if sign > 0 else s1 - s2
-    out = Q.multiply_by_quantized_multiplier(
-        raw, int(ctx.smeta(op, "qmo")), int(ctx.smeta(op, "sho"))
-    ).to(torch.int64) + int(ctx.smeta(op, "zpo"))
-    out = out.clamp(int(ctx.smeta(op, "qmin")), int(ctx.smeta(op, "qmax")))
+    out_dtype = Q.torch_dtype(out_td.dtype)
+    kw = {k: int(ctx.smeta(op, k)) for k in ADDSUB_PARAMS}
+    int8 = (torch.int8, torch.uint8)
+    if (x1.shape == x2.shape and x1.dtype in int8 and x2.dtype in int8
+            and out_dtype in int8 and x1.is_contiguous()
+            and x2.is_contiguous()):
+        out = qaddsub(x1, x2, sign=sign, out_dtype=out_dtype, **kw)
+    else:
+        counters.addsub_plain()
+        out = qaddsub_plain(x1, x2, sign=sign, out_dtype=out_dtype, **kw)
     _put(ctx, op, out)
 
 

@@ -12,7 +12,8 @@ two snapshots and their difference (``delta``), as with
   and ``time.thread_time_ns()`` around each ``band.window``
   (``dispatch_clock``), always on: their ratio is the share of a window's
   dispatch in which its thread ran, not waiting for the interpreter
-  lock, the CPU or the device.
+  lock, the CPU or the device;
+- ``addsub_plain``: exact ADDs and SUBs lowered to the int64 chain, not qaddsub.
 
 ``Engine.start_device_trace`` / ``stop_device_trace`` keep the counters'
 deltas over a device trace with the stopped session
@@ -27,7 +28,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 NAMES = ("rows_stacked", "rows_padded", "dispatch_wall_ns",
-         "dispatch_cpu_ns")
+         "dispatch_cpu_ns", "addsub_plain")
 
 _mine = threading.local()
 _lock = threading.Lock()  # taken once per thread, and by snapshot
@@ -48,6 +49,11 @@ def rows(stacked: int, padded: int) -> None:
     t = _tally()
     t["rows_stacked"] += stacked
     t["rows_padded"] += padded
+
+
+def addsub_plain() -> None:
+    """An exact ADD or SUB lowered to the int64 chain."""
+    _tally()["addsub_plain"] += 1
 
 
 @contextlib.contextmanager

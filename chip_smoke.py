@@ -74,8 +74,14 @@ Phases:
              ``softmax:`` line per distinct SOFTMAX shape (plan, the
              thread and the row kernel forced, torch.softmax in float32
              as yardstick, the bytes bound and the serial floor of the
-             float32 row sum).
- 4. engine   Engine.create with one GPU worker (fixed_worker, max_batch
+             float32 row sum).  Then the exact ADD/SUB kernel (qaddsub)
+             on MobileNetV2's ten ADDs at b1, b7 and b32: every call
+             byte-equal to its plain version, ten launches a run, the
+             outputs equal to the goldens; at b1 and b32 one ``qaddsub:``
+             line of the ten calls summed and one of the largest (kernel
+             in the CUDA-graph harness, the int64 chain it replaced in
+             the same harness and eager, the byte bound).
+ 4. engine  Engine.create with one GPU worker (fixed_worker, max_batch
              8); the full-width MobileNetV2 and the three tests/data CNNs
              registered and served: 4 checked request_sync, 32 timed
              request_sync, then a burst of 32 request_async.  Every
@@ -223,8 +229,8 @@ Phases:
              model the 8 golden requests as one b8 window and reversed,
              equal request by request (each request's GATHER_ND reads its
              own maps).  Launch counts zeroed just before and read just
-             after: B1, B2 (direct and mma), B3 and their fast instances
-             must launch, not the softmax or the hybrid GEMM.  TOPK_V2 on
+             after: B1, B2 (direct and mma), B3, their fast instances
+             and qaddsub must launch, not the softmax or the hybrid GEMM.  TOPK_V2 on
              the card: an all-tied 1,474,560-value row gives indices
              0..99 in order, tied windows and a three-valued row the CPU's
              indices.  Printed: req/s at b1 and in the burst; device
@@ -288,7 +294,8 @@ Phases:
              plain (B1, B2's direct branch for the stem, B3, the softmax).
              Launch counts zeroed just before the engine and read after
              the router (the C programs launch in their own processes):
-             B1, B2, B3 and lut_softmax must launch, no other kernel.
+             B1, B2, B3, lut_softmax and qaddsub must launch, no other
+             kernel.
              Printed beside the card's name and power limit: b1 req/s
              over 32 timed requests through the engine, HTTP, the router
              (each policy) and the C ABI; host ms per 1080p frame of each
@@ -508,6 +515,11 @@ FRONTEND_TIMED = 32
 FRONTEND_HOST_REPS = 10
 FRONTEND_RAN = ("qmatmul_exact", "qconv2d_exact", "qdwconv2d_exact",
                 "lut_softmax")
+# the exact ADD/SUB kernel (csrc/qaddsub.cu): the lowerings call it
+# outside capture_calls' kernels; its own phase holds and times it
+ADDSUB = "qaddsub"
+ADDSUB_BATCHES = (1, 7, 32)
+ADDSUB_TIMED = (1, 32)
 MMA_KERNELS = {
     "qconv2d_exact_mma": dict(
         wrapper="qconv2d_exact",
@@ -1872,8 +1884,9 @@ def engine_phase(torch, bt, K, models, goldens, card, flag, numerics):
     finally:
         eng.shutdown()
     counts = K.launch_counts()
-    ran, idle = ((EXACT_ONLY + ("lut_softmax",), FAST) if numerics == "exact"
-                 else (FAST + ("lut_softmax",), EXACT_ONLY))
+    ran, idle = ((EXACT_ONLY + ("lut_softmax", ADDSUB), FAST)
+                 if numerics == "exact"
+                 else (FAST + ("lut_softmax",), EXACT_ONLY + (ADDSUB,)))
     for name in ran:
         check(counts[name] > 0,
               f"{phase}: kernel {name} never launched on the main path")
@@ -2041,6 +2054,88 @@ def profile_phase(torch, dev, graphs, goldens, exact, name=FULL_WIDTH,
         prof.export_chrome_trace(path)
         xprof_line(f"{name} {out['numerics']} b1 (executor)", path, xprof)
     return out
+
+
+# --------------------------------------------------------------------------
+# addsub phase
+# --------------------------------------------------------------------------
+
+def addsub_phase(torch, dev, graphs, goldens, smi):
+    """The exact ADD/SUB kernel on MobileNetV2's ten residual ADDs: every
+    qaddsub call of a full-width request at each of ADDSUB_BATCHES
+    byte-equal to qaddsub_plain, one launch an ADD, the program's outputs
+    equal to the goldens; at ADDSUB_TIMED each call's device time (a CUDA
+    graph of 20 launches) beside its byte bound (3 bytes an element) and
+    the int64 chain it replaced, in the same harness (``chain_ms``, the
+    device time before) and eager (``plain_ms``).  Logs a ``qaddsub:``
+    line a timed batch, summed over the ten ADDs, and one for the largest
+    shape; returns the b1 numbers of the kernels line."""
+    from band_tpu_torch.backend.program import build_program, params_from_jax
+    from band_tpu_torch.ops import kernels as K
+    from band_tpu_torch.ops import lowerings as L
+
+    g = graphs[FULL_WIDTH]
+    gd = goldens[FULL_WIDTH]
+    prog = build_program(g, range(len(g.ops)), exact=True)
+    params = params_from_jax(prog.params, dev)
+    fn = prog.make_fn()
+    kernel = L.qaddsub
+    stats = dict(max_abs_err=0)
+    for b in ADDSUB_BATCHES:
+        idx = [i % len(gd["xs"]) for i in range(b)]
+        x = torch.from_numpy(np.concatenate([gd["xs"][i] for i in idx]))
+        calls = []
+
+        def record(*args, **kw):
+            out = kernel(*args, **kw)
+            calls.append((args, kw, out))
+            return out
+
+        K.reset_launches()
+        L.qaddsub = record
+        try:
+            with torch.inference_mode():
+                (out,) = fn(params, [x.to(dev)])
+        finally:
+            L.qaddsub = kernel
+        torch.cuda.synchronize()
+        n = K.launch_counts()[ADDSUB]
+        check(len(calls) == 10 and n == 10,
+              f"addsub: MobileNetV2 b{b}: {len(calls)} qaddsub calls, {n} "
+              "launches (its ten ADDs)")
+        check(same_bytes(out, np.concatenate(
+            [gd["output"][0][i] for i in idx])),
+            f"addsub: MobileNetV2 b{b} differs from the goldens")
+        for args, kw, got in calls:
+            stats["max_abs_err"] = max(stats["max_abs_err"], same(
+                torch, ADDSUB, got, K.qaddsub_plain(*args, **kw),
+                f"MobileNetV2 b{b} {tuple(got.shape)}"))
+        if b not in ADDSUB_TIMED:
+            continue
+        rows = []
+        for args, kw, got in calls:
+            rows.append(dict(
+                shape=list(got.shape),
+                ms=graph_ms(torch, lambda a=args, k=kw: K.qaddsub(*a, **k)),
+                chain_ms=graph_ms(
+                    torch, lambda a=args, k=kw: K.qaddsub_plain(*a, **k)),
+                plain_ms=eager_ms(
+                    torch, lambda a=args, k=kw: K.qaddsub_plain(*a, **k)),
+                bound_ms=1e3 * 3 * got.numel() / HBM_BYTES_PER_S))
+        total = {k: sum(r[k] for r in rows)
+                 for k in ("ms", "chain_ms", "plain_ms", "bound_ms")}
+        big = max(rows, key=lambda r: np.prod(r["shape"]))
+        log("qaddsub: " + json.dumps(dict(
+            batch=b, calls=len(rows), launches=n, **total,
+            of_bound=total["ms"] / total["bound_ms"], card=smi)))
+        log("qaddsub: " + json.dumps(dict(
+            big, of_bound=big["ms"] / big["bound_ms"], card=smi)))
+        if b == 1:
+            stats.update(total, launches_b1=n)
+    log(f"addsub: MobileNetV2 b{', b'.join(map(str, ADDSUB_BATCHES))}: "
+        "every qaddsub call byte-equal to plain (tolerance 0), ten "
+        "launches a run, the outputs equal to the goldens")
+    return stats
 
 
 # --------------------------------------------------------------------------
@@ -2264,6 +2359,8 @@ def sr_phase(torch, dev, bt, K, graphs, ops_goldens, sr_calls, smi):
     for name in MMA_KERNELS:
         check(counts[name] > 0, f"sr: {name} (B2's general branch) never "
               "launched")
+    check(counts[ADDSUB] == 0, f"sr: FSRCNN has no ADD, yet {ADDSUB} "
+          f"launched {counts[ADDSUB]} times")
     log(f"sr: launches {json.dumps(counts)}")
     sr_b32(torch, dev, graphs, gd, smi)
     for kind in ("exact", "fast"):
@@ -2491,7 +2588,7 @@ def float_phase(torch, dev, bt, K, graphs, float_goldens, smi):
     counts = K.launch_counts()
     check(counts["qmatmul_hybrid"] > 0,
           "float: kernel qmatmul_hybrid never launched on the main path")
-    for name in KERNELS:
+    for name in list(KERNELS) + [ADDSUB]:
         check(counts[name] == 0,
               f"float: int8 kernel {name} launched {counts[name]} times")
     log(f"float: launches {json.dumps(counts)}")
@@ -3040,7 +3137,7 @@ def detect_phase(torch, dev, bt, K, graphs, dg, smi):
     finally:
         eng.shutdown()
     counts = K.launch_counts()
-    ran = EXACT_ONLY + FAST + tuple(MMA_KERNELS)
+    ran = EXACT_ONLY + FAST + tuple(MMA_KERNELS) + (ADDSUB,)
     for name in K.LAUNCHES:
         check((counts[name] > 0) == (name in ran),
               f"detect: kernel {name} launched {counts[name]} times")
@@ -4583,7 +4680,7 @@ def frontend_phase(torch, dev, bt, K, graphs, worst, smi):
     router_rates = frontend_router(bt, fg, card, card_ref, smi)
     counts = K.launch_counts()
     for name in K.LAUNCHES:
-        check((counts[name] > 0) == (name in FRONTEND_RAN),
+        check((counts[name] > 0) == (name in FRONTEND_RAN + (ADDSUB,)),
               f"frontend: kernel {name} launched {counts[name]} times")
     log(f"frontend: launches {json.dumps(counts)}")
     c_rate, c_frame_ms = frontend_c_abi(fg, frames, card, card_ref, smi)
@@ -4795,7 +4892,7 @@ def mesh_child(rank, coord):
     finally:
         eng.shutdown()
     for name, n in res["launches"].items():
-        check((n > 0) == (name in MESH_RAN),
+        check((n > 0) == (name in MESH_RAN + (ADDSUB,)),
               f"mesh p{rank}: kernel {name} launched {n} times")
     res["held"] = _mesh_calls(torch, K, L, M, g, xs, want, rank)
     res["benchmark"] = run_distributed(BenchmarkConfig.from_dict(_mesh_config(
@@ -4967,6 +5064,7 @@ def main():
                                           srfloat_goldens, smi)
     conv_softmax_lines(torch, dev, graphs, goldens, fast_goldens,
                        sm_mhz / 1e3)
+    addsub_stats = addsub_phase(torch, dev, graphs, goldens, smi)
     counts, rates = engine_phase(torch, bt, K, MODELS, goldens, card,
                                  bt.DeviceFlag.GPU, "exact")
     fast_counts, fast_rates = engine_phase(torch, bt, K, FAST_MODELS,
@@ -5102,6 +5200,24 @@ def main():
             "frontend_launches": fe_counts[name],
             "mesh_launches": mesh_counts[name],
         })
+    s = addsub_stats
+    # the exact ADD/SUB: its launches in the exact engine phase; a b1
+    # MobileNetV2 request's ten calls (addsub_phase)
+    line.append({
+        "name": ADDSUB, "route": "cuda",
+        "source": "band_tpu_torch/ops/kernels/csrc/qaddsub.cu",
+        "replaces": "band_tpu/ops/lowerings.py ADD/SUB (XLA int64 ops)",
+        "launches": counts[ADDSUB], "max_abs_err": s["max_abs_err"],
+        "ms": s["ms"], "plain_ms": s["plain_ms"], "chain_ms": s["chain_ms"],
+        "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "mobilenet_v2_b1_launches": s["launches_b1"],
+        "codispatch_launches": co_counts[ADDSUB],
+        "sr_launches": sr_counts[ADDSUB],
+        "detect_launches": detect_counts[ADDSUB],
+        "seq_launches": seq_counts[ADDSUB],
+        "frontend_launches": fe_counts[ADDSUB],
+        "mesh_launches": mesh_counts[ADDSUB],
+    })
     log(json.dumps({"kernels": line}))
     log(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -917,3 +917,169 @@ def test_gpu_worker_serves_the_small_detector(dev):
                                                   want[kind][j][i])
     finally:
         eng.shutdown()
+
+
+# --------------------------------------------------------------------------
+# the exact ADD/SUB kernel (csrc/qaddsub.cu) against qaddsub_plain, the
+# int64 chain, on the card
+# --------------------------------------------------------------------------
+
+def _addsub_kw(s1, s2, so, zp1, zp2, zpo, out_dtype, sign=1):
+    """The scalars ops/lowerings.py _prepare_addsub gives for these
+    scales and zero points (activation NONE)."""
+    tm = 2.0 * max(s1, s2)
+    qm1, sh1 = Q.quantize_multiplier(s1 / tm)
+    qm2, sh2 = Q.quantize_multiplier(s2 / tm)
+    qmo, sho = Q.quantize_multiplier(tm / ((1 << 20) * so))
+    qmin, qmax = (0, 255) if out_dtype == torch.uint8 else (-128, 127)
+    return dict(zp1=zp1, zp2=zp2, zpo=zpo, qm1=qm1, sh1=sh1, qm2=qm2,
+                sh2=sh2, qmo=qmo, sho=sho, left_shift=20, qmin=qmin,
+                qmax=qmax, sign=sign, out_dtype=out_dtype)
+
+
+def _bytes(rng, dev, dtype, n, offset=0):
+    """n random bytes as ``dtype`` on the card, ``offset`` bytes into
+    their buffer."""
+    b = torch.from_numpy(rng.integers(0, 256, n + offset).astype(np.uint8))
+    return b.to(dev)[offset:].view(dtype)
+
+
+def _pairs(dev, d1, d2):
+    """All 65,536 pairs of input bytes."""
+    b1, b2 = (torch.from_numpy(a.ravel().astype(np.uint8)).to(dev)
+              for a in np.meshgrid(np.arange(256), np.arange(256)))
+    return b1.view(d1), b2.view(d2)
+
+
+def _held(x1, x2, kw, rounding=None):
+    got = K.qaddsub(x1, x2, rounding=rounding, **kw)
+    want = K.qaddsub_plain(x1, x2, rounding=rounding or Q.DEFAULT_ROUNDING,
+                           **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 32])
+def test_qaddsub_matches_plain_on_mobilenet_adds(dev, batch):
+    """The ten ADDs of MobileNetV2 int8 with their prepared scalars, on
+    random windows of ``batch`` requests: one launch each."""
+    from band_tpu_torch.ops import lowerings as L
+
+    g = bt.Model.from_path(os.path.join(DATA, "mobilenet_v2_int8.tflite")
+                           ).graph
+    adds = [op for op in g.ops if op.opname == "ADD"]
+    assert len(adds) == 10
+    rng = np.random.default_rng(batch)
+    K.reset_launches()
+    for op in adds:
+        meta = L._prepare_addsub(g, op, True)
+        shape = (batch,) + tuple(g.tensor(op.outputs[0]).shape[1:])
+        x1, x2 = (_i8(rng, dev, *shape) for _ in range(2))
+        kw = {k: int(meta[k]) for k in K.addsub.PARAMS}
+        _held(x1, x2, dict(kw, sign=1, out_dtype=torch.int8))
+    assert K.launch_counts()["qaddsub"] == 10
+
+
+@pytest.mark.parametrize("n,off1,off2", [
+    (1, 0, 0), (15, 0, 0), (17, 0, 0), (1001, 0, 0), (75264 + 7, 0, 0),
+    (1000, 1, 0), (1000, 0, 1), (75264, 1, 3), (65536, 16, 16)])
+def test_qaddsub_odd_counts_and_unaligned_views(dev, n, off1, off2):
+    """Ragged tails, and operands one byte (or three) into their buffers:
+    the byte-by-byte path; 16 bytes in: the vector path."""
+    rng = np.random.default_rng(n + off1)
+    x1 = _bytes(rng, dev, torch.int8, n, off1)
+    x2 = _bytes(rng, dev, torch.int8, n, off2)
+    _held(x1, x2, _addsub_kw(0.031, 0.017, 0.05, 3, -7, 5, torch.int8))
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("sign", [1, -1])
+@pytest.mark.parametrize("d1,d2,do", [
+    (torch.int8, torch.int8, torch.int8),
+    (torch.uint8, torch.uint8, torch.uint8),
+    (torch.int8, torch.uint8, torch.uint8)])
+def test_qaddsub_every_byte_pair(dev, rounding, sign, d1, d2, do):
+    """All 65,536 pairs of input bytes, ADD and SUB, int8 and uint8, under
+    each rounding (the kernel takes it as an argument; the lowering reads
+    Q.DEFAULT_ROUNDING)."""
+    zp = {torch.int8: -2, torch.uint8: 130}
+    x1, x2 = _pairs(dev, d1, d2)
+    for s1, s2 in ((0.02, 0.02), (0.3, 0.004), (0.004, 0.3)):
+        kw = _addsub_kw(s1, s2, 0.9 * max(s1, s2), zp[d1], zp[d2] + 1,
+                        zp[do] + 2, do, sign)
+        _held(x1, x2, kw, rounding)
+
+
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+@pytest.mark.parametrize("k", [0, 5, 10, 15, 20])
+def test_qaddsub_extreme_multipliers(dev, rounding, k):
+    """qm at and near 2^31 - 1 with the shifts Q.quantize_multiplier gives
+    for scale ratios 2^-k (k up to 20), where the int64 products and the
+    33-bit sums reach their largest; all 65,536 byte pairs."""
+    x1, x2 = _pairs(dev, torch.int8, torch.int8)
+    sh = Q.quantize_multiplier(2.0 ** -k * 0.999)[1]
+    sho = Q.quantize_multiplier(2.0 ** (k - 20) * 0.999)[1]
+    for qm in (2**31 - 1, 2**31 - 2, 2**30):
+        kw = dict(zp1=-128, zp2=127, zpo=0, qm1=qm, sh1=sh, qm2=2**31 - 1,
+                  sh2=0, qmo=qm, sho=sho, left_shift=20, qmin=-128,
+                  qmax=127, out_dtype=torch.int8)
+        for sign in (1, -1):
+            _held(x1, x2, dict(kw, sign=sign), rounding)
+
+
+def _mobilenet(dev):
+    """MobileNetV2 int8 on an executor of its own, its golden inputs and
+    outputs."""
+    from band_tpu_torch.backend.executor import ModelExecutor
+
+    z = np.load(os.path.join(DATA, "torch_goldens.npz"))
+    g = bt.Model.from_path(os.path.join(DATA, "mobilenet_v2_int8.tflite")
+                           ).graph
+    ex = ModelExecutor(-2, g, 0, dev, exact=True)
+    key = ex.prepare_subgraph(range(len(g.ops)), [0])
+    xs = _golden_inputs(z, "mobilenet_v2_int8", g.tensor(g.inputs[0]))
+    return ex, key, xs, z["mobilenet_v2_int8/output"]
+
+
+def test_mobilenet_window_of_32_launches_qaddsub(dev):
+    """A window of 32 (the goldens' 8 requests four times) equal to the
+    goldens, its ten ADDs ten qaddsub launches and none on the chain."""
+    from band_tpu_torch.tracing import counters
+
+    ex, key, xs, want = _mobilenet(dev)
+    order = [i % len(xs) for i in range(32)]
+    window = [[xs[i]] for i in order]
+    ex.execute_batched(key, window)  # builds the kernels
+    torch.cuda.synchronize()
+    K.reset_launches()
+    before, w0 = counters.snapshot(), sum(ex.windows.values())
+    outs = ex.execute_batched(key, window)
+    torch.cuda.synchronize()
+    windows = sum(ex.windows.values()) - w0
+    for i, o in zip(order, outs):
+        np.testing.assert_array_equal(o[0].cpu().numpy(), want[i])
+    assert windows == 1
+    assert K.launch_counts()["qaddsub"] == 10 * windows
+    assert counters.delta(counters.snapshot(), before)["addsub_plain"] == 0
+
+
+def test_codispatch_replay_tallies_qaddsub(dev):
+    """A combined program's capture records the ten qaddsub calls of a
+    MobileNetV2 window, and each replay counts them; the outputs equal
+    the goldens."""
+    from band_tpu_torch.backend.executor import build_combo, run_combo
+
+    ex, key, xs, want = _mobilenet(dev)
+    window = [[x] for x in xs]
+    ex.execute_batched(key, window)  # eager at the bucket first
+    torch.cuda.synchronize()
+    combo = build_combo([(key, len(xs))], [ex])
+    assert combo.launch_tally["qaddsub"] == 10
+    K.reset_launches()
+    for _ in range(3):
+        (outs,) = run_combo(combo, [window])
+    torch.cuda.synchronize()
+    assert K.launch_counts()["qaddsub"] == 30
+    for i, o in enumerate(outs):
+        np.testing.assert_array_equal(o[0].cpu().numpy(), want[i])

@@ -4,6 +4,9 @@ in interpret mode on the CPU, and band_tpu's CONV_2D, DEPTHWISE_CONV_2D
 and FULLY_CONNECTED lowerings for the geometries the Pallas kernels do
 not take (strides, dilation, depth multiplier, uint8 models).  Same
 numpy inputs to both; every comparison is byte-equal (tolerance 0).
+The exact ADD/SUB is held to its int64 chain (qaddsub_plain) and to
+its kernel's arithmetic replayed in numpy, with the lowering's route
+between the two.
 
 The CUDA kernels themselves run only on the card:
 tests/test_torch_cuda.py holds them to the plain versions there."""
@@ -26,6 +29,8 @@ from band_tpu.ops.pallas.qmatmul import qmatmul_exact as pallas_qmatmul
 from band_tpu_torch.backend.program import build_program as tbuild
 from band_tpu_torch.backend.program import params_from_jax
 from band_tpu_torch.ops import kernels as K
+from band_tpu_torch.ops import lowerings as L
+from band_tpu_torch.tracing import counters
 
 ROUNDINGS = ["single", "double", "ruy"]
 
@@ -282,8 +287,130 @@ def test_fully_connected_lowering_matches_band_tpu(x_dtype):
 
 
 # --------------------------------------------------------------------------
+# exact ADD/SUB: the lowering's route to qaddsub, and the kernel's
+# arithmetic (csrc/qaddsub.cu) replayed in numpy
+# --------------------------------------------------------------------------
+
+def _addsub_graph(opname, dtype, act, s1, s2, shape2=None, const2=None):
+    """A one-op ADD/SUB graph over [1, 256, 256, 1] int8/uint8 inputs;
+    the second input of ``shape2`` (broadcast) or the constant
+    ``const2``."""
+    tt = TS.TensorType.UINT8 if dtype == np.uint8 else TS.TensorType.INT8
+    off = 128 if dtype == np.uint8 else 0
+
+    def qp(scale, zp):
+        return TG.QuantParams(np.asarray([scale], np.float32),
+                              np.asarray([zp + off], np.int32))
+
+    shape = (1, 256, 256, 1)
+    tensors = [
+        TG.TensorDef(0, "x1", shape, tt, qp(s1, 3)),
+        TG.TensorDef(1, "x2", tuple(shape2 or shape), tt, qp(s2, -7),
+                     data=const2),
+        TG.TensorDef(2, "y", shape, tt, qp(max(s1, s2) * 1.7, 5)),
+    ]
+    op = TG.OpNode(0, opname, [0, 1], [2], dict(activation=act))
+    inputs = [0] if const2 is not None else [0, 1]
+    return TG.Graph("addsub", tensors, [op], inputs, [2])
+
+
+def _addsub_replay(b1, b2, u1, u2, p, sign):
+    """csrc/qaddsub.cu's arithmetic (single rounding) in numpy: a table
+    of each input's rescaled term by byte, the sum in int64, the output
+    MBQM, the clamp to [qmin - zpo, qmax - zpo] and then + zpo, the low
+    byte stored."""
+    def wrap32(v):
+        return v.astype(np.uint64).astype(np.uint32).view(np.int32)
+
+    def mbqm(x, qm, sh):
+        t = 31 - sh
+        with np.errstate(over="ignore"):
+            prod = x.view(np.uint64) * np.uint64(qm) + np.uint64(1 << (t - 1))
+        return wrap32(prod.view(np.int64) >> np.int64(t)).astype(np.int64)
+
+    def table(u, zp, qm, sh):
+        k = np.arange(256)
+        v = k if u else k.astype(np.uint8).view(np.int8)
+        return mbqm((v.astype(np.int64) - zp) << p["left_shift"], qm, sh)
+
+    t1 = table(u1, p["zp1"], p["qm1"], p["sh1"])
+    t2 = table(u2, p["zp2"], p["qm2"], p["sh2"])
+    raw = t1[b1] + sign * t2[b2]
+    v = np.clip(mbqm(raw, p["qmo"], p["sho"]), p["qmin"] - p["zpo"],
+                p["qmax"] - p["zpo"])
+    return ((v + p["zpo"]) & 0xFF).astype(np.uint8)
+
+
+@pytest.mark.parametrize("ratio", [2.0 ** 12, 1.0, 2.0 ** -12])
+@pytest.mark.parametrize("act", ["NONE", "RELU", "RELU6"])
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8])
+@pytest.mark.parametrize("opname", ["ADD", "SUB"])
+def test_routed_addsub_equals_the_int64_chain(opname, dtype, act, ratio):
+    """Every byte pair through a one-op program: the routed lowering
+    (qaddsub's plain version on the CPU), the int64 chain called with the
+    prepared scalars, and the kernel's arithmetic replayed, byte for
+    byte."""
+    b1, b2 = (a.ravel().astype(np.uint8)
+              for a in np.meshgrid(np.arange(256), np.arange(256)))
+    x1, x2 = (_t(b.view(dtype).reshape(1, 256, 256, 1)) for b in (b1, b2))
+    prog = tbuild(_addsub_graph(opname, dtype, act, 0.02 * ratio, 0.02), [0])
+    before = counters.snapshot()
+    got = prog.make_fn()(params_from_jax(prog.params), [x1, x2])[0]
+    assert counters.delta(counters.snapshot(), before)["addsub_plain"] == 0
+    p = {k: int(prog.meta[f"op0/{k}"]) for k in K.addsub.PARAMS}
+    sign = 1 if opname == "ADD" else -1
+    want = K.qaddsub_plain(x1, x2, sign=sign, out_dtype=x1.dtype, **p)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    replay = _addsub_replay(b1, b2, dtype == np.uint8, dtype == np.uint8, p,
+                            sign)
+    np.testing.assert_array_equal(got.view(torch.uint8).numpy().ravel(),
+                                  replay)
+
+
+@pytest.mark.parametrize("form", ["same", "broadcast", "constant"])
+def test_addsub_routes_by_shape(monkeypatch, form):
+    """In a window of two, same-shape operands take qaddsub; a broadcast or
+    a constant operand (its view [1, ...] against the window's [2, ...])
+    takes the int64 chain and raises ``addsub_plain`` by one; both give
+    the chain's bytes."""
+    rng = np.random.default_rng(19)
+    batch = 2
+    shape2 = (1, 1, 1, 1) if form == "broadcast" else None
+    c2 = (rng.integers(-128, 128, (1, 256, 256, 1)).astype(np.int8)
+          if form == "constant" else None)
+    prog = tbuild(_addsub_graph("ADD", np.int8, "NONE", 0.03, 0.02,
+                                shape2=shape2, const2=c2), [0])
+    xs = [_t(rng.integers(-128, 128, (batch, 256, 256, 1)).astype(np.int8))]
+    if form != "constant":
+        xs.append(_t(rng.integers(-128, 128, (batch,) + (
+            shape2 or (1, 256, 256, 1))[1:]).astype(np.int8)))
+    calls = []
+
+    def record(*args, **kw):
+        calls.append(args)
+        return K.qaddsub(*args, **kw)
+
+    monkeypatch.setattr(L, "qaddsub", record)
+    before = counters.snapshot()
+    got = prog.make_fn()(params_from_jax(prog.params), xs)[0]
+    moved = counters.delta(counters.snapshot(), before)["addsub_plain"]
+    assert (len(calls), moved) == ((1, 0) if form == "same" else (0, 1))
+    p = {k: int(prog.meta[f"op0/{k}"]) for k in K.addsub.PARAMS}
+    want = K.qaddsub_plain(xs[0], _t(c2) if form == "constant" else xs[1],
+                           sign=1, out_dtype=torch.int8, **p)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# --------------------------------------------------------------------------
 # wrapper contract
 # --------------------------------------------------------------------------
+
+# an ADD's prepared scalars (scales 0.03 and 0.02 in, 0.05 out)
+_ADD_ARGS = dict(zp1=3, zp2=-7, zpo=5, qm1=1073741824, sh1=0,
+                 qm2=1431655765, sh2=-1, qmo=1288490189, sho=-19,
+                 left_shift=20, qmin=-128, qmax=127)
+
 
 def test_wrappers_refuse_bad_operands():
     a = torch.zeros((4, 8), dtype=torch.int8)
@@ -305,6 +432,19 @@ def test_wrappers_refuse_bad_operands():
     with pytest.raises(ValueError):
         K.qdwconv2d_exact(x, torch.zeros((9, 3), dtype=torch.int8), *epi,
                           kh=3, kw=3)
+    add = dict(_ADD_ARGS, sign=1, out_dtype=torch.int8)
+    with pytest.raises(ValueError, match="int8"):
+        K.qaddsub(x.to(torch.int32), x, **add)
+    with pytest.raises(ValueError, match="shape"):
+        K.qaddsub(x, x[:, :1], **add)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.qaddsub(x.transpose(1, 2), x, **add)
+    with pytest.raises(ValueError, match="out_dtype"):
+        K.qaddsub(x, x, **dict(add, out_dtype=torch.int32))
+    with pytest.raises(ValueError, match="rounding"):
+        K.qaddsub(x, x, **add, rounding="nearest")
+    with pytest.raises(ValueError, match="sho"):
+        K.qaddsub(x, x, **dict(add, sho=31))
 
 
 def test_cpu_tensors_take_the_plain_version_without_launching():
@@ -314,5 +454,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     b = _t(rng.integers(-128, 128, (8, 3)).astype(np.int8))
     bias, qm, sh = (_t(v) for v in _epilogue(rng, 3, 8))
     out = K.qmatmul_exact(a, b, bias, qm, sh)
+    assert out.device.type == "cpu"
+    x = _t(rng.integers(-128, 128, (2, 5, 5, 3)).astype(np.int8))
+    out = K.qaddsub(x, x, **_ADD_ARGS, sign=-1, out_dtype=torch.int8)
     assert out.device.type == "cpu"
     assert all(n == 0 for n in K.launch_counts().values())
